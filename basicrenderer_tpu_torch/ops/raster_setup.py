@@ -1,0 +1,437 @@
+"""Vertex transform, triangle setup, and tile binning (triangle-soup path).
+
+Port of the soup half of basicrenderer_tpu/ops/raster_setup.py:
+
+1. Vertex transform: per-vertex model/normal matrices by plain indexing
+   (the JAX package's one-hot MXU gather exists only for the TPU).
+2. Triangle setup: per-triangle screen-space plane equations packed into
+   the 32-lane row layout below, which the raster kernel and its plain
+   version read. The layout is the data contract with the JAX package and
+   is kept exactly.
+3. Tile binning: every triangle emits K tile slots; one stable sort of an
+   int64 (tile, slot) key groups them by tile; a bounded gather
+   materializes the pair rows. Triangles spanning more than K tiles go to
+   a global big-triangle list every tile walks.
+
+Everything is fixed-shape and free of host synchronisation, so the whole
+front end queues on the card without a round trip; truncation is surfaced
+via `overflow` counters.
+"""
+
+from __future__ import annotations
+
+from typing import List, NamedTuple, Optional, Tuple
+
+import torch
+
+from ..graph.framedata import FrameConfig
+from ..utils import math3d
+
+# Triangle payload lane layout, row-per-triangle (P, SETUP_LANES):
+#  0-2: edge0 A,B,C   (normalized: E_i(x,y) IS the barycentric weight of v_i;
+#       the raster derives edge2 = 1 - edge0 - edge1)
+#  3-5: edge1
+#  6-8: depth plane   (z_ndc = A*x + B*y + C; reverse-Z, bigger = closer)
+#  9:  triangle id + 1 AS A FLOAT (ids < 2^24 exact)
+#  10: material id + OBJ_COMBO * object id AS A FLOAT (combo < 2^24 exact)
+#  11-14: tile bbox as SEPARATE FLOAT lanes (tx0, tx1, ty0, ty1); invalid
+#      rows carry inverted ranges
+#  15-17: octu/w plane (octahedral world-normal u over clip w)
+#  18-20: octv/w plane
+#  21-23: u/w plane
+#  24-26: v/w plane
+#  27: per-tri FLAT tangent theta (vertex-tangent mode; zero here)
+#  28-31: unused here (28/30/31 carry OIT payloads in the JAX package)
+# There is NO 1/w plane: the shading pass derives 1/w from the depth
+# buffer (shade.inv_w_from_depth).
+SETUP_LANES = 32
+# Lane-10 packing: combo = material + OBJ_COMBO * object. Exact in f32 while
+# material < 1024 and object < 8192 (combo < 2^23).
+OBJ_COMBO = 1024
+
+
+class TriangleSetup(NamedTuple):
+    """Per-triangle raster data (capacity T, masked by `valid`)."""
+    bbox: torch.Tensor          # (T, 4) i32 tile-space x0,y0,x1,y1 inclusive
+    valid: torch.Tensor         # (T,) bool
+    lane_cols: List[torch.Tensor]  # the 32 (T,) payload columns
+
+
+def oct_encode_cols(nx, ny, nz):
+    """(T,)-column octahedral encode: unit-ish normal -> (ou, ov) in
+    [-1, 1] (decoded per pixel by shade.oct_decode_cols)."""
+    an = torch.clamp(torch.abs(nx) + torch.abs(ny) + torch.abs(nz), min=1e-20)
+    x, y = nx / an, ny / an
+    fold = nz < 0.0
+    xf = torch.where(fold, (1.0 - torch.abs(y)) * torch.where(x >= 0, 1.0, -1.0), x)
+    yf = torch.where(fold, (1.0 - torch.abs(x)) * torch.where(y >= 0, 1.0, -1.0), y)
+    return xf, yf
+
+
+def transform_geometry(positions: torch.Tensor, normals: torch.Tensor,
+                       vert_object: torch.Tensor, object_mats: torch.Tensor,
+                       object_normal_mats: torch.Tensor, viewproj: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Object-space verts+normals -> (clip (V,4), world (V,3), wnormal (V,3)).
+    Column math throughout: no matmul, so every product is a true f32
+    product whatever the device."""
+    obj = vert_object.long()
+    m = object_mats.reshape(-1, 16)[obj]              # (V, 16)
+    nm = object_normal_mats.reshape(-1, 9)[obj]       # (V, 9)
+    px, py, pz = positions[:, 0], positions[:, 1], positions[:, 2]
+    wx = m[:, 0] * px + m[:, 1] * py + m[:, 2] * pz + m[:, 3]
+    wy = m[:, 4] * px + m[:, 5] * py + m[:, 6] * pz + m[:, 7]
+    wz = m[:, 8] * px + m[:, 9] * py + m[:, 10] * pz + m[:, 11]
+    nx, ny, nz = normals[:, 0], normals[:, 1], normals[:, 2]
+    wn = torch.stack([nm[:, 0] * nx + nm[:, 1] * ny + nm[:, 2] * nz,
+                      nm[:, 3] * nx + nm[:, 4] * ny + nm[:, 5] * nz,
+                      nm[:, 6] * nx + nm[:, 7] * ny + nm[:, 8] * nz], dim=-1)
+    clip = torch.stack(math3d.mat4_columns(viewproj, wx, wy, wz), dim=-1)
+    return clip, torch.stack([wx, wy, wz], dim=-1), wn
+
+
+def _to_i32(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> i32 with XLA's conversion semantics where they matter: NaN
+    -> 0 and out-of-range values saturated (kept far off screen, which is
+    all the bbox code needs of them)."""
+    x = torch.nan_to_num(x, nan=0.0, posinf=2.0 ** 30, neginf=-2.0 ** 30)
+    return torch.clamp(x, -2.0 ** 30, 2.0 ** 30).to(torch.int32)
+
+
+def _setup_from_corners(g0, g1, g2, tri_valid, config: FrameConfig,
+                        has_normals: bool, has_uvs: bool) -> TriangleSetup:
+    """Per-corner rows g_i = [clip4 | wnormal3 | uv2] -> TriangleSetup.
+    Everything stays (T,)-column shaped."""
+    W, H = config.width, config.height
+    tw, th = config.tile_w, config.tile_h
+
+    w_c = [g0[:, 3], g1[:, 3], g2[:, 3]]
+    w_ok = (w_c[0] > 1e-6) & (w_c[1] > 1e-6) & (w_c[2] > 1e-6)
+    iw_c = [1.0 / torch.where(torch.abs(wc) > 1e-9, wc, 1.0) for wc in w_c]
+    # D3D viewport transform: y flips (NDC +y up -> screen y down).
+    sx_c = [(g[:, 0] * iw * 0.5 + 0.5) * W for g, iw in zip((g0, g1, g2), iw_c)]
+    sy_c = [(0.5 - g[:, 1] * iw * 0.5) * H for g, iw in zip((g0, g1, g2), iw_c)]
+    z_c = [g[:, 2] * iw for g, iw in zip((g0, g1, g2), iw_c)]
+
+    x0, y0 = sx_c[0], sy_c[0]
+    x1, y1 = sx_c[1], sy_c[1]
+    x2, y2 = sx_c[2], sy_c[2]
+    # Signed 2*area in y-down screen space; world-CCW front faces => s < 0.
+    # Below ~1e-3 px^2 a triangle is a degenerate sliver whose normalized
+    # planes would blow up (see the JAX package's note).
+    s = (x1 - x0) * (y2 - y0) - (x2 - x0) * (y1 - y0)
+    front = s < -1e-3
+    valid = tri_valid & w_ok & front
+    # Normalize by the SIGNED area so E_i(v_i) = +1 regardless of winding.
+    inv_area2 = torch.where(
+        front, 1.0 / torch.where(torch.abs(s) > 1e-6, s, -1e-6), 0.0)
+
+    def edge(ax, ay, bx, by):
+        # Columns (A, B, C) of the edge plane a->b, normalized to barycentric.
+        return ((ay - by) * inv_area2, (bx - ax) * inv_area2,
+                (ax * by - ay * bx) * inv_area2)
+
+    e0 = edge(x1, y1, x2, y2)   # barycentric weight plane of vertex 0
+    e1 = edge(x2, y2, x0, y0)
+    e2 = edge(x0, y0, x1, y1)
+
+    def plane_from(v0, v1, v2):
+        """Per-vertex scalars -> affine plane columns (A, B, C)."""
+        return tuple(v0 * e0[c] + v1 * e1[c] + v2 * e2[c] for c in range(3))
+
+    zplane_c = plane_from(*z_c)
+
+    # Perspective-correct attribute planes (attr/w is affine in screen
+    # space): [octu/w, octv/w, u/w, v/w]. The JAX package also builds a
+    # 1/w plane that never reaches the lane rows; it is not built here.
+    plane_cols = []
+    zero = torch.zeros_like(s)
+    off = 4
+    if has_normals:
+        ocs = [oct_encode_cols(g[:, off], g[:, off + 1], g[:, off + 2])
+               for g in (g0, g1, g2)]
+        for c in range(2):
+            plane_cols.append(plane_from(ocs[0][c] * iw_c[0],
+                                         ocs[1][c] * iw_c[1],
+                                         ocs[2][c] * iw_c[2]))
+        off += 3
+    else:
+        plane_cols += [(zero, zero, zero)] * 2
+    if has_uvs:
+        for c in range(2):
+            plane_cols.append(plane_from(g0[:, off + c] * iw_c[0],
+                                         g1[:, off + c] * iw_c[1],
+                                         g2[:, off + c] * iw_c[2]))
+    else:
+        plane_cols += [(zero, zero, zero)] * 2
+
+    # Tile-space bbox (inclusive), clamped to screen.
+    minx = torch.minimum(torch.minimum(x0, x1), x2)
+    miny = torch.minimum(torch.minimum(y0, y1), y2)
+    maxx = torch.maximum(torch.maximum(x0, x1), x2)
+    maxy = torch.maximum(torch.maximum(y0, y1), y2)
+    bx0 = _to_i32(torch.floor(minx))
+    by0 = _to_i32(torch.floor(miny))
+    bx1 = _to_i32(torch.ceil(maxx))
+    by1 = _to_i32(torch.ceil(maxy))
+    offscreen = (bx1 < 0) | (by1 < 0) | (bx0 >= W) | (by0 >= H)
+    valid = valid & ~offscreen
+
+    def tile_of(v, size, n):
+        return torch.clamp(torch.div(v, size, rounding_mode="floor"), 0, n - 1)
+
+    tx0 = tile_of(bx0, tw, config.tiles_x)
+    ty0 = tile_of(by0, th, config.tiles_y)
+    tx1 = tile_of(bx1, tw, config.tiles_x)
+    ty1 = tile_of(by1, th, config.tiles_y)
+    bbox = torch.stack([tx0, ty0, tx1, ty1], dim=-1).to(torch.int32)
+    return TriangleSetup(bbox, valid,
+                         _lane_columns(e0, e1, zplane_c, plane_cols, valid,
+                                       tx0, ty0, tx1, ty1))
+
+
+def _lane_columns(e0, e1, zplane_c, plane_cols, valid, tx0, ty0, tx1, ty1):
+    """The 32 payload columns in lane order (material filled by pack).
+    Invalid rows are masked IN the table (id 0 + inverted bbox)."""
+    T = valid.shape[0]
+    dev = valid.device
+    f32 = torch.float32
+    tri_ids = torch.where(
+        valid, (torch.arange(T, device=dev) + 1).to(f32), 0.0)
+    cols = list(e0) + list(e1)
+    cols += list(zplane_c)                                  # lanes 6-8
+    cols.append(tri_ids)                                    # lane 9
+    cols.append(torch.zeros((T,), dtype=f32, device=dev))   # lane 10
+    # Lanes 11-14: float bbox for the kernels' scalar row skip.
+    cols.append(torch.where(valid, tx0.to(f32), 4096.0))
+    cols.append(torch.where(valid, tx1.to(f32), -1.0))
+    cols.append(torch.where(valid, ty0.to(f32), 4096.0))
+    cols.append(torch.where(valid, ty1.to(f32), -1.0))
+    for p in plane_cols:                                    # lanes 15-26
+        cols.extend(p)
+    z = torch.zeros((T,), dtype=f32, device=dev)
+    cols += [z, z, z, z, z]                                 # lanes 27-31
+    return cols
+
+
+def pack_setup_lanes(setup: TriangleSetup,
+                     tri_material: Optional[torch.Tensor] = None,
+                     tri_object: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(T, SETUP_LANES) row-per-triangle raster payload (see lane layout).
+    With `tri_object`, lane 10 carries the material+object combo."""
+    cols = list(setup.lane_cols)
+    if tri_material is not None:
+        mat = tri_material.to(torch.float32)
+        if tri_object is not None:
+            mat = mat + OBJ_COMBO * torch.clamp(tri_object, min=0).to(torch.float32)
+        cols[10] = mat
+    return torch.stack(cols, dim=1)
+
+
+def clip_near_tris(g0: torch.Tensor, g1: torch.Tensor, g2: torch.Tensor,
+                   tri_valid: torch.Tensor, cap: int, eps: float = 1e-3):
+    """Clip triangles crossing the w = eps plane into up to 2 output
+    triangles each, within a fixed budget of `cap` source triangles.
+
+    g0/g1/g2: (T, L) corner rows [clip4 | attrs...] (attributes are lerped
+    in homogeneous space, like a hardware clipper). Returns
+    (h0, h1, h2 (2*cap, L), extra_valid (2*cap,), src (cap,) source
+    triangle ids, overflow () i32).
+    """
+    T, L = g0.shape
+    dev = g0.device
+    w0, w1, w2 = g0[:, 3], g1[:, 3], g2[:, 3]
+    ins = torch.stack([w0 > eps, w1 > eps, w2 > eps], dim=1)   # (T, 3)
+    n_in = ins.sum(dim=1)
+    crossing = tri_valid & (n_in >= 1) & (n_in <= 2)
+    key = torch.where(crossing, torch.arange(T, device=dev), T)
+    sel = torch.sort(key).values
+    if cap <= T:
+        sel = sel[:cap]
+    else:
+        sel = torch.cat([sel, torch.full((cap - T,), T, device=dev,
+                                         dtype=sel.dtype)])
+    overflow = torch.clamp(crossing.sum() - cap, min=0).to(torch.int32)
+    live = sel < T
+    src = torch.clamp(sel, max=T - 1)
+
+    stack = torch.stack([g0[src], g1[src], g2[src]], dim=1)      # (cap, 3, L)
+    ia = ins[src].to(torch.int32)                               # (cap, 3)
+    two_in = ia.sum(dim=1) == 2
+    in_pos = torch.argmax(ia, dim=1)      # first inside corner
+    out_pos = torch.argmin(ia, dim=1)     # first outside corner
+    # Rotate corners so the canonical layout holds: 2-inside -> outside
+    # vertex at slot 2; 1-inside -> inside vertex at slot 0. Winding is
+    # preserved (cyclic rotation).
+    k = torch.where(two_in, (out_pos + 1) % 3, in_pos)
+    idx = (k[:, None] + torch.arange(3, device=dev)[None]) % 3
+    rot = torch.take_along_dim(stack, idx[:, :, None], dim=1)
+    A, B, C = rot[:, 0], rot[:, 1], rot[:, 2]
+
+    def lerp(u, v):
+        """Intersection of segment u->v with the w = eps plane."""
+        wu, wv = u[:, 3], v[:, 3]
+        t = (eps - wu) / torch.where(torch.abs(wv - wu) > 1e-12, wv - wu, 1.0)
+        t = torch.clamp(t, 0.0, 1.0)[:, None]
+        return u + t * (v - u)
+
+    i_bc = lerp(B, C)       # two-inside case
+    i_ca = lerp(C, A)       # shared: C->A crossing (both cases)
+    i_ab = lerp(A, B)       # one-inside case
+
+    # First output triangle: (A, B, i_bc) when 2-in else (A, i_ab, i_ca).
+    t1_1 = torch.where(two_in[:, None], B, i_ab)
+    t1_2 = torch.where(two_in[:, None], i_bc, i_ca)
+    # Second output triangle (only 2-in): (A, i_bc, i_ca).
+    h0 = torch.cat([A, A], dim=0)
+    h1 = torch.cat([t1_1, i_bc], dim=0)
+    h2 = torch.cat([t1_2, i_ca], dim=0)
+    extra_valid = torch.cat([live, live & two_in], dim=0)
+    return h0, h1, h2, extra_valid, src, overflow
+
+
+def _append_clipped(lanes, bbox, valid, gs, tri_valid, config: FrameConfig,
+                    tri_material, tri_object, has_normals: bool,
+                    has_uvs: bool):
+    """Run the near-plane clip stage and append its output triangles to the
+    packed lane rows. Returns (lanes, bbox, valid, clip_overflow)."""
+    cap = config.near_clip_tris
+    h0, h1, h2, ev, src, ovf = clip_near_tris(gs[0], gs[1], gs[2],
+                                              tri_valid, cap)
+    setup = _setup_from_corners(h0, h1, h2, ev, config,
+                                has_normals=has_normals, has_uvs=has_uvs)
+    mat = None if tri_material is None else tri_material[src].repeat(2)
+    obj = None if tri_object is None else tri_object[src].repeat(2)
+    elanes = pack_setup_lanes(setup, mat, obj)
+    # _setup_from_corners numbers rows locally: offset the ids past the
+    # soup so the visibility buffer stays unique and nonzero.
+    T = valid.shape[0]
+    elanes[:, 9] = torch.where(ev, elanes[:, 9] + T, 0.0)
+    lanes = torch.cat([lanes, elanes], dim=0)
+    bbox = torch.cat([bbox, setup.bbox], dim=0)
+    valid = torch.cat([valid, setup.valid], dim=0)
+    return lanes, bbox, valid, ovf
+
+
+def triangle_setup_packed(clip: torch.Tensor, indices: torch.Tensor,
+                          tri_valid: torch.Tensor, config: FrameConfig,
+                          world_normals: Optional[torch.Tensor],
+                          uvs: Optional[torch.Tensor],
+                          tri_material: Optional[torch.Tensor] = None,
+                          tri_object: Optional[torch.Tensor] = None):
+    """Production setup: returns (lanes (T', SETUP_LANES) f32, bbox (T', 4)
+    i32, valid (T',) bool, clip_overflow () i32), where T' = T plus
+    2 * near_clip_tris appended clip rows when near clipping is on."""
+    if config.enable_vertex_tangents:
+        raise NotImplementedError(
+            "vertex tangents are not ported yet "
+            "(FrameConfig.enable_vertex_tangents)")
+    parts = [clip]
+    if world_normals is not None:
+        parts.append(world_normals)
+    if uvs is not None:
+        parts.append(uvs)
+    packed = torch.cat(parts, dim=-1) if len(parts) > 1 else clip
+    idx = indices.long()
+    g0 = packed[idx[:, 0]]
+    g1 = packed[idx[:, 1]]
+    g2 = packed[idx[:, 2]]
+    setup = _setup_from_corners(g0, g1, g2, tri_valid, config,
+                                world_normals is not None, uvs is not None)
+    lanes = pack_setup_lanes(setup, tri_material, tri_object)
+    bbox, valid = setup.bbox, setup.valid
+    ovf = torch.zeros((), dtype=torch.int32, device=clip.device)
+    if config.near_clip_tris > 0:
+        lanes, bbox, valid, ovf = _append_clipped(
+            lanes, bbox, valid, (g0, g1, g2), tri_valid, config,
+            tri_material, tri_object, world_normals is not None,
+            uvs is not None)
+    return lanes, bbox, valid, ovf
+
+
+class BinnedPairs(NamedTuple):
+    pair_data: torch.Tensor     # (Bcap + smalls, SETUP_LANES) f32: rows
+    #                             [0, Bcap=max_big_tris) are the global
+    #                             large-triangle list (walked by EVERY tile);
+    #                             the per-tile binned rows follow. Rows past
+    #                             a live range carry tri id 0.
+    tile_offsets: torch.Tensor  # (num_tiles + 1,) i32 row ranges per tile
+    #                             (already offset by Bcap)
+    num_pairs: torch.Tensor     # () i32 live binned pairs
+    overflow: torch.Tensor      # () i32 pairs/big-tris dropped (capacity)
+    big_count: torch.Tensor     # () i32 live rows in the big-triangle list
+
+
+def bin_pairs(lanes: torch.Tensor, bbox: torch.Tensor, valid: torch.Tensor,
+              config: FrameConfig) -> BinnedPairs:
+    """Sort-based tile binning over packed lane rows.
+
+    Every triangle owns K = max_tiles_per_tri implicit slots; slot k holds
+    the k-th tile of its bbox span in row-major order, or a sentinel tile
+    that sorts last. One stable sort of the int64 key tile * (T*K) + slot
+    puts the live pairs in (tile, triangle) order: the order both branches
+    of the JAX package's sort give. Triangles spanning MORE than K tiles go
+    to a separate global list of capacity max_big_tris that every tile
+    also walks. Capacity misses on either list count toward `overflow`.
+    """
+    P = config.max_pairs
+    K = config.max_tiles_per_tri
+    Bcap = config.max_big_tris
+    T = valid.shape[0]
+    num_tiles = config.num_tiles
+    dev = lanes.device
+    i32 = torch.int32
+
+    tx0, ty0, tx1, ty1 = bbox[:, 0], bbox[:, 1], bbox[:, 2], bbox[:, 3]
+    spanx = tx1 - tx0 + 1
+    spany = ty1 - ty0 + 1
+    ntiles = torch.where(valid, spanx * spany, 0)
+    big = ntiles > K                                     # large-triangle path
+    ntiles_small = torch.where(big, 0, ntiles)
+
+    # Slot k of a small triangle -> (kx, ky) inside its span. Exact integer
+    # division (the JAX package's float-reciprocal trick exists for the
+    # TPU's vector unit and gives the same quotients; a test pins that).
+    ks = torch.arange(K, dtype=i32, device=dev)[None, :]            # (1, K)
+    span1 = torch.clamp(spanx, min=1)[:, None]
+    ky = torch.div(ks, span1, rounding_mode="floor")
+    kx = ks - ky * span1
+    tile_kt = (ty0[:, None] + ky) * config.tiles_x + (tx0[:, None] + kx)
+    live_kt = ks < ntiles_small[:, None]
+    tile_kt = torch.where(live_kt, tile_kt, num_tiles)   # sentinel sorts last
+
+    slots = T * K
+    key = tile_kt.to(torch.int64) * slots + torch.arange(
+        slots, dtype=torch.int64, device=dev).view(T, K)
+    key = torch.sort(key.view(-1), stable=True).values[:P]
+    flat_tile = key // slots
+    flat_tri = (key % slots) // K
+
+    total = ntiles_small.sum()
+    big_total = big.sum()
+    overflow = (torch.clamp(total - P, min=0)
+                + torch.clamp(big_total - Bcap, min=0)).to(i32)
+
+    tile_offsets = torch.searchsorted(
+        flat_tile, torch.arange(num_tiles + 1, dtype=torch.int64, device=dev))
+    # The big-triangle list occupies rows [0, Bcap); binned rows follow.
+    tile_offsets = (torch.clamp(tile_offsets, max=P) + Bcap).to(i32)
+    num_pairs = torch.clamp(total, max=P).to(i32)
+
+    # Sentinel rows route through a zero row appended at index T.
+    live = flat_tile < num_tiles
+    lanes_z = torch.cat(
+        [lanes, torch.zeros((1, lanes.shape[1]), dtype=lanes.dtype, device=dev)])
+    pair_data = lanes_z[torch.where(live, flat_tri, T)]  # (<=P, SETUP_LANES)
+
+    # Global big-triangle list: big-tri indices in ascending order, Bcap kept.
+    big_key = torch.where(big, torch.arange(T, device=dev), T)
+    big_key = torch.sort(big_key).values[:Bcap]
+    if Bcap > T:
+        big_key = torch.cat([big_key, torch.full(
+            (Bcap - T,), T, dtype=big_key.dtype, device=dev)])
+    big_rows = lanes_z[big_key]                          # (Bcap, SETUP_LANES)
+    big_count = torch.clamp(big_total, max=Bcap).to(i32)
+
+    pair_data = torch.cat([big_rows, pair_data], dim=0)
+    return BinnedPairs(pair_data, tile_offsets, num_pairs, overflow, big_count)

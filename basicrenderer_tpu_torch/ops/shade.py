@@ -1,0 +1,303 @@
+"""Visibility-buffer resolve + deferred PBR shading.
+
+Port of the base path of basicrenderer_tpu/ops/shade.py: the G-buffer from
+the raster's channel planes, Cook-Torrance GGX + Lambert per analytic
+light, ACES tonemapping, sRGB encoding and the procedural sky. The OpenPBR
+extension lobes (coat, fuzz, energy compensation, subsurface, anisotropy,
+transmission) are not ported yet and raise NotImplementedError.
+
+Reference analogue: shaders/VisUtilEvaluate.hlsl (G-buffer resolve) and
+shaders/deferred.hlsl + PBR.hlsli (full-screen Cook-Torrance).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from ..graph.framedata import SceneBuffers, ViewData
+from ..utils import math3d
+from .raster_setup import OBJ_COMBO
+
+
+class GBuffer(NamedTuple):
+    """The G-buffer fields the soup frame fills (the JAX package's GBuffer
+    also carries texture ids and OpenPBR extension inputs)."""
+    world_pos: torch.Tensor   # (H, W, 3) f32
+    normal: torch.Tensor      # (H, W, 3) f32 (world space, normalized)
+    albedo: torch.Tensor      # (H, W, 3) f32 (linear)
+    metallic: torch.Tensor    # (H, W) f32
+    roughness: torch.Tensor   # (H, W) f32
+    emissive: torch.Tensor    # (H, W, 3) f32
+    valid: torch.Tensor       # (H, W) bool (covered by geometry)
+    depth: torch.Tensor       # (H, W) f32 (reverse-Z NDC)
+    material_id: torch.Tensor  # (H, W) i32
+    uv: torch.Tensor          # (H, W, 2) f32
+    alpha: torch.Tensor       # (H, W) f32 material base alpha
+    object_id: torch.Tensor   # (H, W) i32 owning object (-1 = sky)
+
+
+def _iota(n: int, dim: int, shape, dev) -> torch.Tensor:
+    """f32 index along `dim` broadcast to `shape` (jax.lax.broadcasted_iota)."""
+    v = torch.arange(n, dtype=torch.float32, device=dev)
+    view = [1] * len(shape)
+    view[dim] = n
+    return v.view(view).expand(shape)
+
+
+def oct_decode_cols(ou, ov):
+    """Octahedral (ou, ov) in [-1, 1] -> unit normal component planes
+    (inverse of raster_setup.oct_encode_cols)."""
+    z = 1.0 - torch.abs(ou) - torch.abs(ov)
+    t = torch.clamp(-z, min=0.0)
+    x = ou - torch.where(ou >= 0.0, t, -t)
+    y = ov - torch.where(ov >= 0.0, t, -t)
+    rl = torch.rsqrt(torch.clamp(x * x + y * y + z * z, min=1e-20))
+    return x * rl, y * rl, z * rl
+
+
+def inv_w_from_depth(depth: torch.Tensor, proj: torch.Tensor) -> torch.Tensor:
+    """1/clip.w recovered from the depth buffer: for a projection with
+    clip.z = A*vz + B and clip.w = P32*vz, z_ndc = A/P32 + B*(1/w)."""
+    za = proj[2, 2] / torch.where(torch.abs(proj[3, 2]) > 1e-20, proj[3, 2], 1.0)
+    zb = torch.where(torch.abs(proj[2, 3]) > 1e-20, proj[2, 3], 1.0)
+    return (depth - za) / zb
+
+
+def _inverse(m: torch.Tensor) -> torch.Tensor:
+    """f32 matrix inverse without the error check's host synchronisation."""
+    return torch.linalg.inv_ex(m)[0]
+
+
+def gbuffer_from_channels(channels: torch.Tensor, depth: torch.Tensor,
+                          vis: torch.Tensor, view: ViewData,
+                          material_table: torch.Tensor,
+                          full_w: int, full_h: int, row0=0) -> GBuffer:
+    """Build the GBuffer from the raster's channel images (no per-vertex
+    gathers).
+
+    channels: (8, H, W) = [octu/w, octv/w, u/w, v/w, mat_id, tangent,
+    unused, accum] cropped to the visible region (1/w derives from
+    `depth`; normals decode from the two octahedral channels).
+    """
+    H, W = depth.shape
+    dev = depth.device
+    covered = vis > 0
+    inv_w = inv_w_from_depth(depth, view.proj)
+    safe_iw = torch.where(torch.abs(inv_w) > 1e-12, inv_w, 1.0)
+    nrm = torch.stack(oct_decode_cols(channels[0] / safe_iw,
+                                      channels[1] / safe_iw), dim=-1)
+    uv = torch.stack([channels[2] / safe_iw, channels[3] / safe_iw], dim=-1)
+    # Channel 4 carries material + OBJ_COMBO * object (ops/raster_setup.py).
+    combo = torch.round(channels[4]).to(torch.int32)
+    mat_id = torch.remainder(combo, OBJ_COMBO)
+    object_id = torch.div(combo, OBJ_COMBO, rounding_mode="floor")
+
+    # World position from depth (reverse-Z NDC) + inverse viewproj.
+    ndc_x = (_iota(W, 1, (H, W), dev) + 0.5) / full_w * 2.0 - 1.0
+    ndc_y = 1.0 - (_iota(H, 0, (H, W), dev) + 0.5 + row0) / full_h * 2.0
+    inv_vp = _inverse(view.viewproj)
+    wx, wy, wz, ww = math3d.mat4_columns(inv_vp, ndc_x, ndc_y, depth)
+    iw = 1.0 / torch.where(torch.abs(ww) > 1e-12, ww, 1.0)
+    wp = torch.stack([wx * iw, wy * iw, wz * iw], dim=-1)
+
+    flat_ids = torch.clamp(mat_id.reshape(-1), 0,
+                           material_table.shape[0] - 1).long()
+    mat = material_table[flat_ids]                        # (HW, MAT_STRIDE)
+    albedo = mat[:, 0:3].reshape(H, W, 3)
+    alpha = mat[:, 3].reshape(H, W)
+    metallic = mat[:, 4].reshape(H, W)
+    roughness = mat[:, 5].reshape(H, W)
+    emissive = mat[:, 6:9].reshape(H, W, 3)
+
+    c3 = covered[..., None]
+    return GBuffer(
+        world_pos=torch.where(c3, wp, 0.0),
+        normal=torch.where(c3, nrm, 0.0),
+        albedo=torch.where(c3, albedo, 0.0),
+        metallic=torch.where(covered, metallic, 0.0),
+        roughness=torch.where(covered, roughness, 1.0),
+        emissive=torch.where(c3, emissive, 0.0),
+        valid=covered,
+        depth=depth,
+        material_id=torch.where(covered, mat_id, -1),
+        uv=torch.where(c3, uv, 0.0),
+        alpha=torch.where(covered, alpha, 0.0),
+        object_id=torch.where(covered, object_id, -1),
+    )
+
+
+# ---------------------------------------------------------------------------
+# GGX / Cook-Torrance BRDF (reference: shaders/Include/PBR.hlsli)
+# ---------------------------------------------------------------------------
+
+def _d_ggx(n_dot_h, alpha):
+    a2 = alpha * alpha
+    d = n_dot_h * n_dot_h * (a2 - 1.0) + 1.0
+    return a2 / torch.clamp(math.pi * d * d, min=1e-8)
+
+
+def _g_smith(n_dot_v, n_dot_l, alpha):
+    # Height-correlated Smith visibility (matches UE4/reference's PBR.hlsli)
+    a2 = alpha * alpha
+    gv = n_dot_l * torch.sqrt(torch.clamp(n_dot_v * n_dot_v * (1 - a2) + a2, min=1e-12))
+    gl = n_dot_v * torch.sqrt(torch.clamp(n_dot_l * n_dot_l * (1 - a2) + a2, min=1e-12))
+    return 0.5 / torch.clamp(gv + gl, min=1e-8)
+
+
+def _f_schlick(v_dot_h, f0):
+    return f0 + (1.0 - f0) * torch.pow(torch.clamp(1.0 - v_dot_h, 0.0, 1.0), 5.0)
+
+
+def _dot(a, b):
+    return torch.sum(a * b, dim=-1, keepdim=True)
+
+
+def _normalize(v, eps):
+    return v / torch.clamp(torch.linalg.vector_norm(v, dim=-1, keepdim=True), min=eps)
+
+
+def eval_brdf(n, v, l, albedo, metallic, roughness, spec_scale=None):
+    """Cook-Torrance specular + Lambert diffuse; all (..., 3)/(...,) tensors.
+    Returns the radiance factor to multiply by the light's radiance.
+    `spec_scale` (..., 3) multiplies the specular lobe only."""
+    h = _normalize(l + v, 1e-12)
+    n_dot_l = torch.clamp(_dot(n, l), min=0.0)
+    n_dot_v = torch.clamp(_dot(n, v), min=1e-4)
+    n_dot_h = torch.clamp(_dot(n, h), min=0.0)
+    v_dot_h = torch.clamp(_dot(v, h), min=0.0)
+    alpha = torch.clamp(roughness[..., None] ** 2, min=1e-3)
+    f0 = 0.04 * (1.0 - metallic[..., None]) + albedo * metallic[..., None]
+    F = _f_schlick(v_dot_h, f0)
+    D = _d_ggx(n_dot_h, alpha)
+    Vis = _g_smith(n_dot_v, n_dot_l, alpha)
+    specular = D * Vis * F
+    if spec_scale is not None:
+        specular = specular * spec_scale
+    kd = (1.0 - F) * (1.0 - metallic[..., None])
+    diffuse = kd * albedo / math.pi * n_dot_l
+    return diffuse + specular * n_dot_l
+
+
+def openpbr_terms(gb: GBuffer, v: torch.Tensor, n: torch.Tensor,
+                  energy: bool, fuzz: bool):
+    """Light-independent OpenPBR factors (spec compensation, fuzz albedo).
+    The base path has neither; the lobes are not ported yet."""
+    if energy:
+        raise NotImplementedError(
+            "energy compensation is not ported yet "
+            "(FrameConfig.enable_energy_comp)")
+    if fuzz:
+        raise NotImplementedError(
+            "the fuzz lobe is not ported yet (FrameConfig.enable_fuzz)")
+    return None, None
+
+
+def shade_one_light(gb: GBuffer, row: torch.Tensor, v: torch.Tensor,
+                    n: torch.Tensor, directional_only: bool = False,
+                    spec_comp=None) -> torch.Tensor:
+    """Full-screen contribution of ONE packed light row (H, W, 3)."""
+    lpos, ltype = row[0:3], row[3]
+    ldir, intensity = row[4:7], row[7]
+    color, rng = row[8:11], row[11]
+    cos_in, cos_out = row[12], row[13]
+    is_dir = ltype == 0.0
+    to_light = torch.where(is_dir, -ldir[None, None, :],
+                           lpos[None, None, :] - gb.world_pos)
+    dist = torch.linalg.vector_norm(to_light, dim=-1, keepdim=True)
+    l = to_light / torch.clamp(dist, min=1e-9)
+    # Inverse-square falloff with range window (reference lighting.hlsli).
+    att = torch.where(is_dir, 1.0, 1.0 / torch.clamp(dist * dist, min=1e-4))
+    window = torch.clamp(1.0 - (dist / torch.clamp(rng, min=1e-3)) ** 4,
+                         0.0, 1.0) ** 2
+    att = torch.where(is_dir, att, att * window)
+    # Spot cone.
+    cd = torch.sum(-l * ldir[None, None, :], dim=-1, keepdim=True)
+    spot = torch.clamp((cd - cos_out) / torch.clamp(cos_in - cos_out, min=1e-4),
+                       0.0, 1.0)
+    att = torch.where(ltype == 2.0, att * spot * spot, att)
+    radiance = color[None, None, :] * (intensity * att)
+    out = eval_brdf(n, v, l, gb.albedo, gb.metallic, gb.roughness,
+                    spec_scale=spec_comp) * radiance
+    if directional_only:
+        out = out * torch.where(ltype == 0.0, 1.0, 0.0)
+    return out
+
+
+def shade_deferred(gb: GBuffer, scene: SceneBuffers, view: ViewData,
+                   num_lights: int, ambient: float = 0.0,
+                   directional_only: bool = False, coat: bool = False,
+                   energy: bool = False, fuzz: bool = False,
+                   sss: bool = False, aniso: bool = False,
+                   transmission: bool = False) -> torch.Tensor:
+    """Full-screen deferred lighting -> HDR (H, W, 3).
+
+    `num_lights` is the light loop's bound as a host integer: the live
+    light count (or, with `directional_only`, the directional prefix). The
+    JAX package loops to a traced device scalar; here the caller reads the
+    count once per frame before queuing any work (see graph/frame.py), so
+    the loop runs exactly the live lights and queues no masked passes.
+    """
+    for flag, name in ((coat, "enable_coat"), (sss, "enable_sss"),
+                       (aniso, "enable_aniso"),
+                       (transmission, "enable_transmission")):
+        if flag:
+            raise NotImplementedError(
+                f"this OpenPBR lobe is not ported yet (FrameConfig.{name})")
+    H, W = gb.valid.shape
+    v = _normalize(view.cam_pos[None, None, :] - gb.world_pos, 1e-12)
+    n = gb.normal
+    spec_comp, _fuzz_e = openpbr_terms(gb, v, n, energy, fuzz)
+    total = torch.zeros((H, W, 3), dtype=torch.float32, device=gb.valid.device)
+    for i in range(num_lights):
+        total = total + shade_one_light(gb, scene.lights[i], v, n,
+                                        directional_only=directional_only,
+                                        spec_comp=spec_comp)
+    total = total + gb.emissive + ambient * gb.albedo
+    return torch.where(gb.valid[..., None], total, 0.0)
+
+
+# ---------------------------------------------------------------------------
+# Tonemapping + sky (reference: Tonemapping.h AMD LPM path + skybox.hlsl)
+# ---------------------------------------------------------------------------
+
+def aces_tonemap(hdr: torch.Tensor) -> torch.Tensor:
+    """Narkowicz ACES fit (reference offers LPM/ACES variants)."""
+    a, b, c, d, e = 2.51, 0.03, 2.43, 0.59, 0.14
+    x = hdr
+    return torch.clamp((x * (a * x + b)) / (x * (c * x + d) + e), 0.0, 1.0)
+
+
+def linear_to_srgb(x: torch.Tensor) -> torch.Tensor:
+    x = torch.clamp(x, 0.0, 1.0)
+    return torch.where(x <= 0.0031308, x * 12.92,
+                       1.055 * torch.pow(torch.clamp(x, min=1e-8), 1.0 / 2.4) - 0.055)
+
+
+def procedural_sky(view: ViewData, H: int, W: int, intensity=1.0,
+                   row0=0, full_h: int = None) -> torch.Tensor:
+    """Gradient sky for pixels with no geometry. `row0`/`full_h` place an
+    (H, W) screen-row shard inside the full frame."""
+    if full_h is None:
+        full_h = H
+    dev = view.viewproj.device
+    x = (_iota(W, 1, (H, W), dev) + 0.5) / W * 2.0 - 1.0
+    y = 1.0 - (_iota(H, 0, (H, W), dev) + 0.5 + row0) / full_h * 2.0
+    inv_vp = _inverse(view.viewproj)
+    wx, wy, wz, ww = math3d.mat4_columns(
+        inv_vp, x, y, torch.full((H, W), 0.5, dtype=torch.float32, device=dev))
+    iw = 1.0 / torch.where(torch.abs(ww) > 1e-9, ww, 1.0)
+    dx = wx * iw - view.cam_pos[0]
+    dy = wy * iw - view.cam_pos[1]
+    dz = wz * iw - view.cam_pos[2]
+    inv_len = 1.0 / torch.clamp(torch.sqrt(dx * dx + dy * dy + dz * dz), min=1e-9)
+    dirs = torch.stack([dx * inv_len, dy * inv_len, dz * inv_len], dim=-1)
+    t = torch.clamp(dirs[..., 1] * 0.5 + 0.5, 0.0, 1.0)[..., None]
+    horizon = torch.tensor([0.45, 0.55, 0.70], dtype=torch.float32, device=dev)
+    zenith = torch.tensor([0.10, 0.25, 0.55], dtype=torch.float32, device=dev)
+    ground = torch.tensor([0.18, 0.16, 0.14], dtype=torch.float32, device=dev)
+    sky = horizon * (1 - t) + zenith * t
+    col = torch.where(dirs[..., 1:2] >= 0.0, sky, ground)
+    return col * intensity

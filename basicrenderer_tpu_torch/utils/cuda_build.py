@@ -1,0 +1,74 @@
+"""Build a CUDA C++ source with nvcc into a shared library and load it
+with ctypes.
+
+The library has a plain C interface (no PyTorch headers), so a build takes
+seconds. It lands in `basicrenderer_tpu_torch/_build/` (listed in
+.gitignore) under a name keyed on the source's hash and the flags, so a
+fresh checkout builds at first use and an edited source rebuilds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict
+
+BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              # Kernels spell out every fused multiply-add they want; no
+              # other expression may be contracted behind their back.
+              "--fmad=false",
+              "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+
+
+class CudaLibrary:
+    """A built and loaded kernel library: `lib` (ctypes.CDLL), `path`, and
+    the compiler's resource report `build_log` (empty when the library was
+    already built)."""
+
+    def __init__(self, lib: ctypes.CDLL, path: Path, build_log: str):
+        self.lib = lib
+        self.path = path
+        self.build_log = build_log
+
+
+_loaded: Dict[Path, CudaLibrary] = {}
+
+
+def nvcc_path() -> str:
+    """The nvcc to build with: CUDA_HOME's, else the one on PATH."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    candidates = [os.path.join(CUDA_HOME, "bin", "nvcc")] if CUDA_HOME else []
+    candidates.append(shutil.which("nvcc") or "")
+    for c in candidates:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def load(source: Path) -> CudaLibrary:
+    """Build `source` if its library is missing, load it once per process."""
+    source = Path(source).resolve()
+    if source in _loaded:
+        return _loaded[source]
+    digest = hashlib.sha256(source.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = BUILD_DIR / f"{source.stem}-{digest}.so"
+    log = ""
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}) for {source.name}:\n"
+                               f"{res.stdout}\n{res.stderr}")
+        os.replace(tmp, out)
+        log = res.stdout + res.stderr
+    lib = CudaLibrary(ctypes.CDLL(str(out)), out, log)
+    _loaded[source] = lib
+    return lib

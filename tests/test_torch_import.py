@@ -1,0 +1,37 @@
+"""The port imports torch and never jax, directly or through another
+module: import every module of basicrenderer_tpu_torch in a fresh
+interpreter and check that no jax module was loaded."""
+
+import json
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+import basicrenderer_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for n in names:
+    importlib.import_module(n)
+print(json.dumps({"modules": names,
+                  "jax": sorted(m for m in sys.modules
+                                if m == "jax" or m.startswith(("jax.", "jaxlib", "flax"))),
+                  "tf32": [__import__("torch").backends.cuda.matmul.allow_tf32,
+                           __import__("torch").backends.cudnn.allow_tf32]}))
+"""
+
+
+def test_port_never_imports_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    for mod in ("graph.frame", "graph.framedata", "ops.raster",
+                "ops.raster_setup", "ops.shade", "ops.culling",
+                "scene.bridge", "interop", "utils.cuda_build"):
+        assert f"basicrenderer_tpu_torch.{mod}" in out["modules"], mod
+    assert out["jax"] == []
+    assert out["tf32"] == [False, False]

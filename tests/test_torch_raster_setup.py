@@ -1,0 +1,188 @@
+"""Port front end vs the JAX package: vertex transform, triangle setup
+(with near-plane clipping) and tile binning.
+
+Tolerances:
+- transform_geometry: allclose at rtol 1e-6, atol 1e-6 (XLA's CPU backend
+  contracts the column sums into fused multiply-adds; PyTorch rounds each
+  product; one f32 ulp of the largest clip coordinate is ~1e-6).
+- triangle_setup_packed: each plane (A, B, C) of a row, evaluated over
+  the screen, agrees to |dA|*W + |dB|*H + |dC| <= 2e-4 * (|A|*W + |B|*H
+  + |C|) + 1e-7 (the same contraction differences, amplified by the
+  1/area normalisation of slivers: up to 5.1e-5 measured); the id,
+  material, bbox and pad lanes, the bboxes and the valid masks are equal.
+- bin_pairs, fed the JAX package's own lanes: every output exactly equal.
+"""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from basicrenderer_tpu.graph.framedata import FrameConfig as JConfig
+from basicrenderer_tpu.graph.framedata import make_view as j_make_view
+from basicrenderer_tpu.ops import raster_setup as jrs
+from basicrenderer_tpu_torch.graph.framedata import FrameConfig as PConfig
+from basicrenderer_tpu_torch.ops import raster_setup as prs
+
+from tests.test_near_clip import _floor_scene
+from tests.test_raster import random_clip_triangles
+from tests.test_torch_bridge import JAX_PKG, build_scene
+
+PLANE_LANES = ((0, 1, 2), (3, 4, 5), (6, 7, 8), (15, 16, 17), (18, 19, 20),
+               (21, 22, 23), (24, 25, 26))
+EXACT_LANES = (9, 10, 11, 12, 13, 14, 27, 28, 29, 30, 31)
+
+
+def _t(x):
+    return torch.as_tensor(np.array(x))
+
+
+def _configs(**kw):
+    return JConfig(**kw), PConfig(**kw)
+
+
+def assert_lanes_close(pl, jl, W, H):
+    pl, jl = np.asarray(pl, np.float64), np.asarray(jl, np.float64)
+    assert pl.shape == jl.shape
+    np.testing.assert_array_equal(pl[:, EXACT_LANES], jl[:, EXACT_LANES])
+    for a, b, c in PLANE_LANES:
+        err = (np.abs(pl[:, a] - jl[:, a]) * W + np.abs(pl[:, b] - jl[:, b]) * H
+               + np.abs(pl[:, c] - jl[:, c]))
+        scale = np.abs(jl[:, a]) * W + np.abs(jl[:, b]) * H + np.abs(jl[:, c])
+        bad = err > 2e-4 * scale + 1e-7
+        assert not bad.any(), (f"plane lanes {a}-{c}: {bad.sum()} rows, worst "
+                               f"{(err - 2e-4 * scale).max():.3g}")
+
+
+def _scene_inputs():
+    _, bridge = build_scene(JAX_PKG, "mixed")
+    buf = bridge.build_scene_buffers()
+    view = np.array([[0.8, 0.0, -0.6, 0.1], [-0.23, 0.92, -0.31, -0.4],
+                     [0.55, 0.38, 0.74, -6.5], [0.0, 0.0, 0.0, 1.0]], np.float32)
+    from basicrenderer_tpu.utils import math3d
+    proj = math3d.np_perspective(1.0, 1.5, 0.1, None)
+    return buf, j_make_view(view, proj, np.zeros(3, np.float32))
+
+
+def test_transform_geometry_matches_jax():
+    buf, vd = _scene_inputs()
+    j = jax.jit(jrs.transform_geometry)(
+        buf.positions, buf.normals, buf.vert_object, buf.object_mats,
+        buf.object_normal_mats, vd.viewproj)
+    p = prs.transform_geometry(
+        _t(buf.positions), _t(buf.normals), _t(buf.vert_object),
+        _t(buf.object_mats), _t(buf.object_normal_mats), _t(vd.viewproj))
+    for a, b in zip(p, j):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6, atol=1e-6)
+
+
+def test_setup_packed_matches_jax_scene():
+    """The soup setup of a lit scene with normals, uvs, materials and
+    objects, with near clipping on (the default budget)."""
+    buf, vd = _scene_inputs()
+    jc, pc = _configs(width=192, height=128, tile_h=16, tile_w=128)
+    clip, _, wn = jax.jit(jrs.transform_geometry)(
+        buf.positions, buf.normals, buf.vert_object, buf.object_mats,
+        buf.object_normal_mats, vd.viewproj)
+    tri_valid = buf.tri_object >= 0
+    jl, jb, jv, jo = jax.jit(lambda c, n: jrs.triangle_setup_packed(
+        c, buf.indices, tri_valid, jc, n, buf.uvs, buf.tri_material,
+        buf.tri_object))(clip, wn)
+    pl, pb, pv, po = prs.triangle_setup_packed(
+        _t(clip), _t(buf.indices), _t(tri_valid), pc, _t(wn), _t(buf.uvs),
+        _t(buf.tri_material), _t(buf.tri_object))
+    assert int(np.asarray(jv).sum()) > 100
+    assert_lanes_close(pl.numpy(), jl, 192, 128)
+    np.testing.assert_array_equal(pb.numpy(), np.asarray(jb))
+    np.testing.assert_array_equal(pv.numpy(), np.asarray(jv))
+    assert int(po) == int(jo)
+
+
+@pytest.mark.parametrize("near_clip_tris", [0, 64])
+def test_setup_packed_matches_jax_near_clip(near_clip_tris):
+    """The floor quad of tests/test_near_clip.py, whose near corners lie
+    behind the camera: without clipping both triangles drop; with it the
+    clipped rows are appended after the soup."""
+    from basicrenderer_tpu.utils import math3d
+    verts, tris = _floor_scene()
+    W, H = 128, 64
+    kw = dict(width=W, height=H, tile_h=32, tile_w=128, max_pairs=1 << 10,
+              max_tiles_per_tri=4, max_big_tris=128,
+              near_clip_tris=near_clip_tris, use_pallas_raster=False)
+    jc, pc = _configs(**kw)
+    view = math3d.np_look_at(np.array([0.0, 0.5, 0.0]), np.array([0.0, 0.0, -5.0]),
+                             np.array([0.0, 1.0, 0.0]))
+    proj = math3d.np_perspective(1.2, W / H, 0.1, None)
+    vd = j_make_view(view, proj, np.array([0.0, 0.5, 0.0]))
+    clip = (np.concatenate([verts, np.ones((4, 1), np.float32)], 1)
+            @ np.asarray(vd.viewproj).T).astype(np.float32)
+    valid = np.array([True, True])
+    jl, jb, jv, jo = jax.jit(lambda c, t, v: jrs.triangle_setup_packed(
+        c, t, v, jc, None, None, None))(clip, tris, valid)
+    pl, pb, pv, po = prs.triangle_setup_packed(
+        _t(clip), _t(tris), _t(valid), pc, None, None, None)
+    assert_lanes_close(pl.numpy(), jl, W, H)
+    np.testing.assert_array_equal(pv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(pb.numpy()[pv.numpy()],
+                                  np.asarray(jb)[np.asarray(jv)])
+    if near_clip_tris:
+        assert int(pv.sum()) >= 2
+    # The binned result of the JAX setup and the port's is the same.
+    jpairs = jax.jit(lambda *a: jrs.bin_pairs(*a, jc))(jl, jb, jv)
+    ppairs = prs.bin_pairs(pl, pb, pv, pc)
+    np.testing.assert_array_equal(ppairs.tile_offsets.numpy(),
+                                  np.asarray(jpairs.tile_offsets))
+
+
+def _jax_setup(seed, n, jc):
+    from tests.test_raster import setup_from_clip
+    rng = np.random.default_rng(seed)
+    setup = setup_from_clip(random_clip_triangles(rng, n), jc)
+    return jrs.pack_setup_lanes(setup), setup.bbox, setup.valid
+
+
+@pytest.mark.parametrize("case", ["plain", "big_list", "overflow"])
+def test_bin_pairs_matches_jax(case):
+    """Given the JAX package's own lanes, every BinnedPairs field matches.
+    'big_list' routes most triangles through the global list
+    (max_tiles_per_tri=2); 'overflow' exceeds both capacities."""
+    kw = dict(width=256, height=128, tile_h=16, tile_w=128, max_pairs=1 << 12)
+    if case == "big_list":
+        kw.update(max_tiles_per_tri=2)
+    elif case == "overflow":
+        kw.update(max_pairs=8, max_tiles_per_tri=2, max_big_tris=4)
+    jc, pc = _configs(**kw)
+    lanes, bbox, valid = _jax_setup(3, 40, jc)
+    j = jax.jit(lambda *a: jrs.bin_pairs(*a, jc))(lanes, bbox, valid)
+    p = prs.bin_pairs(_t(lanes), _t(bbox), _t(valid), pc)
+    for f in j._fields:
+        np.testing.assert_array_equal(getattr(p, f).numpy(),
+                                      np.asarray(getattr(j, f)), err_msg=f)
+    if case == "big_list":
+        assert int(p.big_count) > 0
+    if case == "overflow":
+        assert int(p.overflow) > 0
+
+
+def test_bin_slot_integer_division_matches_float_reciprocal():
+    """The JAX binning finds slot k's row in a span as
+    floor((k + 0.5) * (1/spanx)) in f32; the port divides integers. The
+    two agree for every span up to 8192 tiles and every slot below 64
+    (the default max_tiles_per_tri is 32)."""
+    ks = np.arange(64, dtype=np.float32)[None, :]
+    spans = np.arange(1, 8193, dtype=np.int32)[:, None]
+    inv = np.float32(1.0) / spans.astype(np.float32)
+    ky_float = np.floor((ks + np.float32(0.5)) * inv).astype(np.int32)
+    ky_int = np.arange(64, dtype=np.int32)[None, :] // spans
+    np.testing.assert_array_equal(ky_float, ky_int)
+
+
+def test_oct_encode_matches_jax():
+    rng = np.random.default_rng(4)
+    n = rng.normal(size=(500, 3)).astype(np.float32)
+    n /= np.linalg.norm(n, axis=1, keepdims=True)
+    j = jrs.oct_encode_cols(*(jnp.asarray(n[:, i]) for i in range(3)))
+    p = prs.oct_encode_cols(*(_t(n[:, i]) for i in range(3)))
+    for a, b in zip(p, j):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6, atol=1e-7)
