@@ -4,9 +4,11 @@ consumes, and the static frame configuration.
 Port of basicrenderer_tpu/graph/framedata.py. `FrameConfig` is copied field
 for field, so that the same keyword arguments describe the same frame in
 both packages. The buffer types are dataclasses of tensors with an explicit
-`.to(device)`; `SceneBuffers` holds only the triangle-soup fields the soup
-frame reads (later slices add the cluster, texture, environment and voxel
-fields).
+`.to(device)`; `SceneBuffers` holds the triangle-soup, cluster-LOD and
+texture-atlas fields the ported frames read (later slices add the
+environment, skinning and voxel fields). Words that the JAX package keeps
+as uint32 (quantized vertex pages, packed RGBA8 texels) are int32 tensors
+here holding the same bits.
 """
 
 from __future__ import annotations
@@ -61,6 +63,29 @@ class SceneBuffers:
     lights: torch.Tensor          # (L, LIGHT_STRIDE) f32, directional first
     num_lights: torch.Tensor      # () i32
     num_dir_lights: torch.Tensor  # () i32 directional count (table prefix)
+    # Cluster-LOD (virtualized geometry; ops/clod.py, models/clusters.py).
+    tri_cluster: torch.Tensor     # (T,) i32 global cluster id or -1
+    cluster_table: torch.Tensor   # (C, CLUSTER_STRIDE) f32 (object space)
+    cluster_object: torch.Tensor  # (C,) i32 owning object
+    num_clusters: torch.Tensor    # () i32
+    # Cluster-local vertex pages, one per GEOMETRY cluster (instances share
+    # them): corner-major quantized planar rows (models/pageblob.py) and
+    # each page's dequant row [aabb min3, extent3, pad2].
+    cluster_verts: torch.Tensor    # (G, SLAB*3) i32 (u32 bits)
+    cluster_dequant: torch.Tensor  # (G, 8) f32
+    # Streaming residency (identity when fully resident): page -> slot,
+    # per-cluster streaming groups, resident groups.
+    cluster_feeds: torch.Tensor    # (C,) i32 streaming group of cluster
+    cluster_made: torch.Tensor     # (C,) i32 group cluster was built from
+    geom_slot: torch.Tensor        # (G,) i32 page -> slot (-1 missing)
+    group_resident: torch.Tensor   # (GR,) bool
+    # Window pre-cull table, one row per 128 cluster rows: [cx, cy, cz, r,
+    # max parent_err, object (-1 mixed), live count, pad].
+    cluster_windows: torch.Tensor  # (C/128, 8) f32
+    # Texture atlas (models/textures.strip_pyramid): every mip row as
+    # 128-texel RGBA8 strips; flag bit 0 = sRGB-stored.
+    tex_strips: torch.Tensor       # (N * rows_per_layer, 128) i32 (u32 bits)
+    tex_flags: torch.Tensor        # (N,) i32
 
     def to(self, device) -> "SceneBuffers":
         return _to(self, device)
@@ -80,7 +105,7 @@ class ViewData:
 
 
 def make_view(view_mat, proj_mat, cam_pos, near: float = 0.1,
-              device="cpu") -> ViewData:
+              device="cuda") -> ViewData:
     """ViewData on `device`; viewproj = proj @ view in f32."""
     view_mat = torch.as_tensor(np.asarray(view_mat, np.float32), device=device)
     proj_mat = torch.as_tensor(np.asarray(proj_mat, np.float32), device=device)
@@ -324,7 +349,7 @@ class FrameParams:
     light_size: float = 0.03  # tangent of the sun's angular radius
 
     @staticmethod
-    def default(device="cpu") -> "FrameParams":
+    def default(device="cuda") -> "FrameParams":
         def f(x):
             return torch.tensor(x, dtype=torch.float32, device=device)
         return FrameParams(

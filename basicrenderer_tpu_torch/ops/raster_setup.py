@@ -435,3 +435,223 @@ def bin_pairs(lanes: torch.Tensor, bbox: torch.Tensor, valid: torch.Tensor,
 
     pair_data = torch.cat([big_rows, pair_data], dim=0)
     return BinnedPairs(pair_data, tile_offsets, num_pairs, overflow, big_count)
+
+
+# ---------------------------------------------------------------------------
+# Cluster path: setup from cluster-local vertex pages + group binning
+# ---------------------------------------------------------------------------
+
+def _transform_corner_cols(px, py, pz, nx0, ny0, nz0, u, v, m, viewproj):
+    """Object-space corner columns + per-row matrix columns `m` (25 x
+    (Kt,): model 4x4 row-major, then the normal 3x3) -> corner rows
+    [clip4 | wnormal3 | uv2] (Kt, 9)."""
+    wx = m[0] * px + m[1] * py + m[2] * pz + m[3]
+    wy = m[4] * px + m[5] * py + m[6] * pz + m[7]
+    wz = m[8] * px + m[9] * py + m[10] * pz + m[11]
+    vp = viewproj
+    cx = vp[0, 0] * wx + vp[0, 1] * wy + vp[0, 2] * wz + vp[0, 3]
+    cy = vp[1, 0] * wx + vp[1, 1] * wy + vp[1, 2] * wz + vp[1, 3]
+    cz = vp[2, 0] * wx + vp[2, 1] * wy + vp[2, 2] * wz + vp[2, 3]
+    cw = vp[3, 0] * wx + vp[3, 1] * wy + vp[3, 2] * wz + vp[3, 3]
+    nx = m[16] * nx0 + m[17] * ny0 + m[18] * nz0
+    ny = m[19] * nx0 + m[20] * ny0 + m[21] * nz0
+    nz = m[22] * nx0 + m[23] * ny0 + m[24] * nz0
+    return torch.stack([cx, cy, cz, cw, nx, ny, nz, u, v], dim=1)
+
+
+def _dequantized_corner_cols(q6, dq, meshlet_tris: int):
+    """Quantized corner value columns (6 x (Kt,) f32 holding 16-bit values:
+    px, py, pz, oct, u-half, v-half) + per-page dequant rows (Kc, 8) ->
+    object-space columns (px, py, pz, nx, ny, nz, u, v)
+    (models/pageblob.py layout)."""
+    def rep(col):
+        return col.repeat_interleave(meshlet_tris)
+    inv = 1.0 / 65535.0
+    px = rep(dq[:, 0]) + q6[0] * (rep(dq[:, 3]) * inv)
+    py = rep(dq[:, 1]) + q6[1] * (rep(dq[:, 4]) * inv)
+    pz = rep(dq[:, 2]) + q6[2] * (rep(dq[:, 5]) * inv)
+    o = q6[3].to(torch.int32)
+    a = (o & 255).to(torch.float32) * (2.0 / 255.0) - 1.0
+    b = (o >> 8).to(torch.float32) * (2.0 / 255.0) - 1.0
+    z = 1.0 - torch.abs(a) - torch.abs(b)
+    t = torch.clamp(-z, 0.0, 1.0)
+    x = a + torch.where(a >= 0, -t, t)
+    y = b + torch.where(b >= 0, -t, t)
+    rl = 1.0 / torch.sqrt(torch.clamp(x * x + y * y + z * z, min=1e-20))
+
+    def half(col):   # 16-bit value -> its bits as an f16 -> f32
+        return col.to(torch.int32).to(torch.int16).view(torch.float16).to(
+            torch.float32)
+    return px, py, pz, x * rl, y * rl, z * rl, half(q6[4]), half(q6[5])
+
+
+def setup_from_compacted(scene, comp, viewproj: torch.Tensor,
+                         config: FrameConfig):
+    """Setup of a CompactedTris: the cluster-page path (the JAX package's
+    vertex-table path exists for skinning, which is not ported)."""
+    if config.enable_skinning:
+        raise NotImplementedError(
+            "skinned setup is not ported yet (FrameConfig.enable_skinning)")
+    return triangle_setup_clustered(scene, comp, viewproj, config)
+
+
+def triangle_setup_clustered(scene, comp, viewproj: torch.Tensor,
+                             config: FrameConfig):
+    """Setup from cluster-local vertex pages. `comp` is a
+    clod.CompactedTris. Each visible slot fetches its geometry cluster's
+    quantized page as one row; pages are corner-major (row j = corner * 128
+    + tri), so each corner's values are a contiguous lane block. Returns
+    (lanes (Kt', SETUP_LANES), bbox (Kt', 4) i32, valid (Kt',) bool,
+    clip_overflow () i32) like triangle_setup_packed."""
+    from ..models.clusters import MESHLET_TRIS, SLAB_VERTS
+    if config.enable_vertex_tangents:
+        raise NotImplementedError(
+            "vertex tangents are not ported yet "
+            "(FrameConfig.enable_vertex_tangents)")
+    if config.enable_reyes:
+        raise NotImplementedError(
+            "Reyes dicing is not ported yet (FrameConfig.enable_reyes)")
+    O = scene.object_mats.shape[0]
+    mat_table = torch.cat([scene.object_mats.reshape(O, 16),
+                           scene.object_normal_mats.reshape(O, 9)], dim=-1)
+    G = scene.geom_slot.shape[0]
+    slots = scene.geom_slot[torch.clamp(comp.geom, 0, G - 1).long()]
+    gids = torch.clamp(slots, 0, scene.cluster_verts.shape[0] - 1).long()
+    slabs = scene.cluster_verts[gids]                   # (Kc, SLAB*3) i32 bits
+    dq = scene.cluster_dequant[gids]                    # (Kc, 8) f32
+    S = SLAB_VERTS
+    w = [slabs[:, k * S:(k + 1) * S] for k in range(3)]
+    planes = []
+    for wk in w:                                        # two 16-bit values
+        planes.append((wk & 0xFFFF).to(torch.float32))
+        planes.append(((wk >> 16) & 0xFFFF).to(torch.float32))
+    m_slot = mat_table[comp.slot_object.long()]          # (Kc, 25)
+    m_cols = [m_slot[:, i].repeat_interleave(MESHLET_TRIS) for i in range(25)]
+    M = MESHLET_TRIS
+
+    def corner_cols(c):
+        q6 = [p[:, c * M:(c + 1) * M].reshape(-1) for p in planes]
+        return _dequantized_corner_cols(q6, dq, M)
+
+    gs = [_transform_corner_cols(*corner_cols(c), m_cols, viewproj)
+          for c in range(3)]
+    setup = _setup_from_corners(gs[0], gs[1], gs[2], comp.valid, config,
+                                has_normals=True, has_uvs=True)
+    lanes = pack_setup_lanes(setup, comp.material, comp.object)
+    bbox, valid = setup.bbox, setup.valid
+    ovf = torch.zeros((), dtype=torch.int32, device=lanes.device)
+    if config.near_clip_tris > 0:
+        lanes, bbox, valid, ovf = _append_clipped(
+            lanes, bbox, valid, gs, comp.valid, config, comp.material,
+            comp.object, True, True)
+    return lanes, bbox, valid, ovf
+
+
+class GroupBinnedPairs(NamedTuple):
+    """Group-granular bin output of the clustered path: pairs are
+    (group_rows-row group, tile). The raster reads each group's contiguous
+    rows straight from `lanes`, so there is no per-pair payload."""
+    lanes: torch.Tensor         # (T, SETUP_LANES) f32 raw setup rows
+    group_ids: torch.Tensor     # (Pc,) i32 group ids sorted by tile
+    tile_offsets: torch.Tensor  # (num_tiles + 1,) i32 pair ranges per tile
+    num_pairs: torch.Tensor     # () i32 live (group, tile) pairs
+    overflow: torch.Tensor      # () i32 pairs/big groups dropped (capacity)
+    big_ids: torch.Tensor       # (Bg,) i32 global large-group list
+    big_count: torch.Tensor     # () i32 live rows in big_ids
+    big_bx: torch.Tensor        # (Bg,) i32 group tile box tx0*2048+tx1
+    big_by: torch.Tensor        # (Bg,) i32 ty0*2048+ty1 (dead: inverted)
+
+
+def bin_groups(lanes: torch.Tensor, bbox: torch.Tensor, valid: torch.Tensor,
+               config: FrameConfig) -> GroupBinnedPairs:
+    """Bin group_rows-row groups of consecutive setup rows to tiles.
+
+    Same sort-based scheme as bin_pairs over T/GR groups: a group's bbox
+    is the union of its valid rows' tile boxes; groups spanning more than
+    max_tiles_per_group tiles go to a global list every tile walks.
+    Invalid rows are masked in the lane table itself (id 0 + inverted
+    bbox), so `valid` must be the validity baked into `lanes`."""
+    GR = config.group_rows
+    T = valid.shape[0]
+    if T % GR:
+        raise ValueError(f"{T} setup rows are not a multiple of group_rows "
+                         f"{GR}")
+    NG = T // GR
+    Kg = config.max_tiles_per_group
+    Pc = config.max_group_pairs
+    Bg = config.max_big_groups
+    num_tiles = config.num_tiles
+    dev = lanes.device
+    i32 = torch.int32
+
+    huge = 1 << 20
+    vx0 = torch.where(valid, bbox[:, 0], huge).reshape(NG, GR).amin(dim=1)
+    vy0 = torch.where(valid, bbox[:, 1], huge).reshape(NG, GR).amin(dim=1)
+    vx1 = torch.where(valid, bbox[:, 2], -huge).reshape(NG, GR).amax(dim=1)
+    vy1 = torch.where(valid, bbox[:, 3], -huge).reshape(NG, GR).amax(dim=1)
+    gvalid = valid.reshape(NG, GR).any(dim=1)
+
+    spanx = vx1 - vx0 + 1
+    spany = vy1 - vy0 + 1
+    ntiles = torch.where(gvalid, spanx * spany, 0)
+    big = ntiles > Kg
+    ntiles_small = torch.where(big, 0, ntiles)
+
+    ks = torch.arange(Kg, dtype=i32, device=dev)[None, :]
+    span1 = torch.clamp(spanx, min=1)[:, None]
+    ky = torch.div(ks, span1, rounding_mode="floor")
+    kx = ks - ky * span1
+    tile_kg = (vy0[:, None] + ky) * config.tiles_x + (vx0[:, None] + kx)
+    live_kg = ks < ntiles_small[:, None]
+    tile_kg = torch.where(live_kg, tile_kg, num_tiles)
+
+    slots = NG * Kg
+    key = tile_kg.to(torch.int64).reshape(-1) * slots + torch.arange(
+        slots, dtype=torch.int64, device=dev)
+    key = torch.sort(key).values
+    flat_tile = key // slots
+    flat_gid = (key % slots) // Kg
+
+    total = ntiles_small.sum()
+    big_total = big.sum()
+    overflow = (torch.clamp(total - Pc, min=0)
+                + torch.clamp(big_total - Bg, min=0)).to(i32)
+
+    if Pc < slots:
+        flat_tile, flat_gid = flat_tile[:Pc], flat_gid[:Pc]
+    elif Pc > slots:
+        flat_tile = torch.cat([flat_tile, torch.full(
+            (Pc - slots,), num_tiles, dtype=flat_tile.dtype, device=dev)])
+        flat_gid = torch.cat([flat_gid, torch.zeros(
+            (Pc - slots,), dtype=flat_gid.dtype, device=dev)])
+    tile_offsets = torch.searchsorted(
+        flat_tile, torch.arange(num_tiles + 1, dtype=torch.int64,
+                                device=dev)).to(i32)
+    num_pairs = torch.clamp(total, max=Pc).to(i32)
+    group_ids = torch.clamp(flat_gid, max=NG - 1).to(i32)
+
+    big_key = torch.sort(torch.where(
+        big, torch.arange(NG, dtype=i32, device=dev), NG)).values
+    if Bg <= NG:
+        big_key = big_key[:Bg]
+    else:
+        big_key = torch.cat([big_key, torch.full(
+            (Bg - NG,), NG, dtype=big_key.dtype, device=dev)])
+    live_big = big_key < NG
+    big_ids = torch.clamp(big_key, max=NG - 1).to(i32)
+    big_count = torch.clamp(big_total, max=Bg).to(i32)
+    inv_box = 2047 * 2048
+    bl = big_ids.long()
+    big_bx = torch.where(live_big, vx0[bl] * 2048 + vx1[bl], inv_box).to(i32)
+    big_by = torch.where(live_big, vy0[bl] * 2048 + vy1[bl], inv_box).to(i32)
+    return GroupBinnedPairs(lanes, group_ids, tile_offsets, num_pairs,
+                            overflow, big_ids, big_count, big_bx, big_by)
+
+
+def bin_clustered(lanes: torch.Tensor, bbox: torch.Tensor, valid: torch.Tensor,
+                  config: FrameConfig):
+    """Binning entry for clustered (row-contiguous) setup output: group
+    binning when enabled, else the per-triangle path."""
+    if config.group_binning:
+        return bin_groups(lanes, bbox, valid, config)
+    return bin_pairs(lanes, bbox, valid, config)

@@ -1,18 +1,22 @@
 """Scene -> device bridge: packs the ECS world into SceneBuffers.
 
-Port of the triangle-soup part of basicrenderer_tpu/scene/bridge.py:
+Port of basicrenderer_tpu/scene/bridge.py:
 
-- `pack_geometry` (cold): flatten all renderable instances into the global
-  fixed-capacity triangle soup once (geometry upload).
-- `snapshot_objects` / `snapshot_lights` (hot, per frame): gather object
-  matrices + lights into small numpy arrays.
-- `build_scene_buffers(device)` / `update_dynamic`: the tensor upload.
+- `pack_geometry` (cold): flatten all renderable meshes into the global
+  fixed-capacity buffers once. Geometry is packed ONCE PER MESH; every
+  instance adds cluster rows that point at the shared triangle ranges and
+  vertex pages (object + material live in the cluster row). Meshes without
+  a LOD DAG get single-level clusters of 128 consecutive triangles, so all
+  geometry can flow through the cluster path.
+- `snapshot_objects` / `snapshot_lights` (hot, per frame): object matrices
+  + lights as small numpy arrays.
+- `build_scene_buffers(device)` / `update_dynamic`: the tensor upload,
+  with the texture strip atlas (models/textures.py).
 
-The cluster, page and tangent-page packing of the JAX bridge feed the
-cluster-LOD path, which this port does not have yet. The soup packs each
-mesh's geometry ONCE, tagged with the object of its first instance, so a
-scene that instances a mesh twice, carries a LOD DAG, skins a mesh or
-registers textures needs that cluster path and is refused here.
+Skinned meshes are refused (the skinning slice is not ported). As in
+the JAX package, the soup fields (positions ... tri_object) carry each
+mesh once, tagged with the object of its first instance; the cluster
+fields carry every instance.
 """
 
 from __future__ import annotations
@@ -25,8 +29,11 @@ import torch
 
 from ..graph.framedata import (LIGHT_STRIDE, MAX_SHADOW_CUBE_SLOTS,
                                MAX_SHADOW_SPOT_SLOTS, SceneBuffers)
+from ..models.clusters import CLUSTER_STRIDE, MESHLET_TRIS, SLAB_VERTS
 from ..models.materials import MaterialRegistry
 from ..models.mesh import MeshRegistry, compute_tangents
+from ..models.pageblob import DEQUANT_LANES, quantize_page
+from ..ops.textures import strip_layout
 from .components import Light, LightType, Renderable, WorldMatrix
 from .scene import Scene
 
@@ -38,11 +45,15 @@ class BridgeCapacities:
     max_objects: int = 1 << 12
     max_materials: int = 1 << 10
     max_lights: int = 256
+    max_clusters: int = 1 << 14
+    max_joints: int = 256
+    max_geom_clusters: int = 1 << 13   # unique (non-instanced) cluster pages
+    max_groups: int = 1 << 12          # streaming group id capacity
 
 
 @dataclasses.dataclass
 class PackedGeometry:
-    """Host-side packed soup arrays + instance bookkeeping."""
+    """Host-side packed arrays + instance bookkeeping."""
     positions: np.ndarray
     normals: np.ndarray
     tangents: np.ndarray
@@ -54,20 +65,97 @@ class PackedGeometry:
     num_verts: int
     num_tris: int
     entity_to_object: Dict[int, int]
-    local_bounds: np.ndarray  # (O, 4) object-space bounding sphere xyz + r
+    local_bounds: np.ndarray     # (O, 4) object-space bounding sphere xyz + r
+    tri_cluster: np.ndarray      # (T,) i32 global cluster id (-1 none)
+    cluster_table: np.ndarray    # (C, CLUSTER_STRIDE) f32
+    cluster_object: np.ndarray   # (C,) i32
+    num_clusters: int
+    cluster_verts: np.ndarray    # (G, SLAB*3) u32 quantized planar pages
+    cluster_dequant: np.ndarray  # (G, 8) f32 per-page AABB min/ext
+    cluster_feeds: np.ndarray    # (C,) i32 streaming group of c
+    cluster_made: np.ndarray     # (C,) i32 group c was built from
+
+
+def pack_cluster_windows(cluster_table: np.ndarray,
+                         cluster_object: np.ndarray,
+                         num_clusters: int, window: int = 128) -> np.ndarray:
+    """Window pre-cull table: one row per `window` consecutive cluster rows
+    [cx, cy, cz, r, max_parent_err, object (-1 mixed), live_count, pad],
+    the sphere being the object-space union of the window's tight cluster
+    spheres (table lanes 16-19)."""
+    C = cluster_table.shape[0]
+    NW = (C + window - 1) // window
+    out = np.zeros((NW, 8), np.float32)
+    out[:, 5] = -1.0
+    for w in range(NW):
+        lo, hi = w * window, min((w + 1) * window, C)
+        live = min(hi, num_clusters) - lo
+        if live <= 0:
+            continue
+        rows = cluster_table[lo:lo + live]
+        objs = np.unique(cluster_object[lo:lo + live])
+        c, r = rows[:, 16:19], rows[:, 19]
+        cen = c.mean(axis=0)
+        rad = float(np.max(np.linalg.norm(c - cen, axis=1) + r))
+        out[w, 0:3] = cen
+        out[w, 3] = rad
+        out[w, 4] = float(rows[:, 5].max())
+        out[w, 5] = float(objs[0]) if len(objs) == 1 else -1.0
+        out[w, 6] = float(live)
+    return out
+
+
+def _single_level_clusters(mesh) -> np.ndarray:
+    """Single-LOD cluster rows for a mesh without a DAG: sequential
+    128-triangle chunks (sets mesh.tri_cluster)."""
+    nt = mesh.num_triangles
+    ncl = (nt + MESHLET_TRIS - 1) // MESHLET_TRIS
+    template = np.zeros((ncl, CLUSTER_STRIDE), np.float32)
+    mesh.tri_cluster = np.arange(nt, dtype=np.int32) // MESHLET_TRIS
+    for ci in range(ncl):
+        lo = ci * MESHLET_TRIS
+        hi = min(nt, lo + MESHLET_TRIS)
+        vs = mesh.positions[np.unique(mesh.indices[lo:hi])]
+        cen = (vs.min(0) + vs.max(0)) * 0.5
+        template[ci, :3] = cen
+        template[ci, 3] = np.linalg.norm(vs - cen, axis=1).max()
+        template[ci, 5] = np.inf
+        template[ci, 7] = lo
+        template[ci, 8] = hi - lo
+        template[ci, 12:16] = template[ci, 0:4]
+        template[ci, 16:20] = template[ci, 0:4]
+    return template
+
+
+def _page(mesh, lo: int, cnt: int):
+    """One geometry cluster's quantized corner-major vertex page (row j =
+    corner * 128 + tri). Dead corner rows repeat the cluster's own first
+    vertex so they do not widen the page's quantization box."""
+    tris = mesh.indices[lo:lo + cnt]
+    fill = int(tris[0, 0]) if cnt > 0 else 0
+    corner_ids = np.full(SLAB_VERTS, fill, np.int64)
+    for cc in range(3):
+        corner_ids[cc * MESHLET_TRIS:cc * MESHLET_TRIS + cnt] = tris[:, cc]
+    rows10 = np.concatenate(
+        [mesh.positions[corner_ids], mesh.normals[corner_ids],
+         mesh.uvs[corner_ids], np.zeros((SLAB_VERTS, 2), np.float32)], axis=1)
+    return quantize_page(rows10, SLAB_VERTS)
 
 
 class SceneRenderBridge:
     def __init__(self, scene: Scene, meshes: MeshRegistry,
                  materials: MaterialRegistry,
-                 caps: Optional[BridgeCapacities] = None, textures=None):
-        if textures is not None and len(textures):
+                 caps: Optional[BridgeCapacities] = None, textures=None,
+                 tex_format: str = "rgba8"):
+        if tex_format != "rgba8":
             raise NotImplementedError(
-                "textures are not ported yet (FrameConfig.enable_textures)")
+                f"texture atlas format {tex_format!r} is not ported yet "
+                "(FrameConfig.tex_format)")
         self.scene = scene
         self.meshes = meshes
         self.materials = materials
         self.caps = caps or BridgeCapacities()
+        self.textures = textures    # models.textures.TextureRegistry
         self.packed: Optional[PackedGeometry] = None
 
     # -- cold path ---------------------------------------------------------
@@ -81,56 +169,107 @@ class SceneRenderBridge:
         idx = np.zeros((c.max_triangles, 3), np.int32)
         tmat = np.zeros((c.max_triangles,), np.int32)
         tobj = np.full((c.max_triangles,), -1, np.int32)
-
-        v_off = 0
-        t_off = 0
-        ent2obj: Dict[int, int] = {}
+        tcl = np.full((c.max_triangles,), -1, np.int32)
+        cluster_table = np.zeros((c.max_clusters, CLUSTER_STRIDE), np.float32)
+        cluster_object = np.zeros((c.max_clusters,), np.int32)
+        cluster_verts = np.zeros((c.max_geom_clusters, SLAB_VERTS * 3),
+                                 np.uint32)
+        cluster_dequant = np.zeros((c.max_geom_clusters, DEQUANT_LANES),
+                                   np.float32)
+        cluster_dequant[:, 3:6] = 1.0
+        cluster_feeds = np.full((c.max_clusters,), -1, np.int32)
+        cluster_made = np.full((c.max_clusters,), -1, np.int32)
         local_bounds = np.zeros((c.max_objects, 4), np.float32)
-        obj = 0
-        packed_meshes = set()
+        ent2obj: Dict[int, int] = {}
+        v_off = t_off = g_off = cl_off = grp_off = obj = 0
+        mesh_pack: Dict[int, tuple] = {}   # mesh_id -> (template, feeds, made)
         for eid, (r,) in self.scene.world.query(Renderable):
             mesh = self.meshes.get(r.mesh_id)
             nv, nt = mesh.num_vertices, mesh.num_triangles
             if obj >= c.max_objects:
                 raise ValueError("object capacity exceeded")
-            if mesh.clusters is not None or mesh.tri_cluster is not None:
-                raise NotImplementedError(
-                    "meshes with a cluster-LOD DAG render through the "
-                    "cluster path (FrameConfig.enable_clod), not ported yet")
             if r.skeleton_id >= 0 and mesh.joints is not None:
                 raise NotImplementedError(
                     "skinned meshes are not ported yet "
                     "(FrameConfig.enable_skinning)")
-            if r.mesh_id in packed_meshes:
-                raise NotImplementedError(
-                    f"mesh {r.mesh_id} is instanced more than once: the soup "
-                    "packs geometry once per mesh, so instancing needs the "
-                    "cluster path (FrameConfig.enable_clod), not ported yet")
-            packed_meshes.add(r.mesh_id)
-            if mesh.tangents is None or len(mesh.tangents) != nv:
-                mesh.tangents = compute_tangents(
-                    mesh.positions, mesh.normals, mesh.uvs, mesh.indices)
-            if v_off + nv > c.max_vertices or t_off + nt > c.max_triangles:
-                raise ValueError(
-                    f"geometry capacity exceeded: verts {v_off + nv}/"
-                    f"{c.max_vertices}, tris {t_off + nt}/{c.max_triangles}")
-            pos[v_off:v_off + nv] = mesh.positions
-            nrm[v_off:v_off + nv] = mesh.normals
-            tan[v_off:v_off + nv] = mesh.tangents
-            uv[v_off:v_off + nv] = mesh.uvs
-            vobj[v_off:v_off + nv] = obj
-            idx[t_off:t_off + nt] = mesh.indices + v_off
-            tmat[t_off:t_off + nt] = r.material_id
-            tobj[t_off:t_off + nt] = obj
-            v_off += nv
-            t_off += nt
+            if r.mesh_id not in mesh_pack:
+                if mesh.tangents is None or len(mesh.tangents) != nv:
+                    mesh.tangents = compute_tangents(
+                        mesh.positions, mesh.normals, mesh.uvs, mesh.indices)
+                if v_off + nv > c.max_vertices or t_off + nt > c.max_triangles:
+                    raise ValueError(
+                        f"geometry capacity exceeded: verts {v_off + nv}/"
+                        f"{c.max_vertices}, tris {t_off + nt}/{c.max_triangles}")
+                pos[v_off:v_off + nv] = mesh.positions
+                nrm[v_off:v_off + nv] = mesh.normals
+                tan[v_off:v_off + nv] = mesh.tangents
+                uv[v_off:v_off + nv] = mesh.uvs
+                vobj[v_off:v_off + nv] = obj   # first instance (soup path)
+                idx[t_off:t_off + nt] = mesh.indices + v_off
+                tmat[t_off:t_off + nt] = r.material_id
+                tobj[t_off:t_off + nt] = obj
+                if mesh.tri_cluster is not None and mesh.clusters is not None:
+                    template = mesh.clusters.copy()
+                else:
+                    template = _single_level_clusters(mesh)
+                ncl_g = len(template)
+                if g_off + ncl_g > c.max_geom_clusters:
+                    raise ValueError("geometry cluster capacity exceeded")
+                for ci in range(ncl_g):
+                    cluster_verts[g_off + ci], cluster_dequant[g_off + ci] = \
+                        _page(mesh, int(template[ci, 7]), int(template[ci, 8]))
+                template[:, 11] = g_off + np.arange(ncl_g)
+                # Streaming groups offset into the global id space; top
+                # level / non-LOD clusters stay -1 (always resident).
+                if mesh.feeds_group is not None:
+                    feeds_t = np.where(mesh.feeds_group >= 0,
+                                       mesh.feeds_group + grp_off, -1)
+                    made_t = np.where(mesh.made_group >= 0,
+                                      mesh.made_group + grp_off, -1)
+                    n_grp = int(max(mesh.feeds_group.max(initial=-1),
+                                    mesh.made_group.max(initial=-1))) + 1
+                else:
+                    feeds_t = np.full(ncl_g, -1, np.int32)
+                    made_t = np.full(ncl_g, -1, np.int32)
+                    n_grp = 0
+                if grp_off + n_grp > c.max_groups:
+                    raise ValueError("streaming group capacity exceeded")
+                grp_off += n_grp
+                g_off += ncl_g
+                template[:, 7] += t_off  # mesh-local -> global tri offsets
+                tcl[t_off:t_off + nt] = mesh.tri_cluster + cl_off  # first inst
+                mesh_pack[r.mesh_id] = (template, feeds_t, made_t)
+                v_off += nv
+                t_off += nt
+            template, feeds_t, made_t = mesh_pack[r.mesh_id]
+            ncl = len(template)
+            if cl_off + ncl > c.max_clusters:
+                raise ValueError("cluster capacity exceeded")
+            rows = template.copy()
+            rows[:, 9] = r.material_id
+            m = self.materials.get(r.material_id)
+            # Surface class: 0 opaque, 1 transparent (OIT), 2 alpha-MASK.
+            if m.alpha_blend or m.base_color[3] < 0.999 \
+                    or m.transmission_weight > 0.0:
+                rows[:, 10] = 1.0
+            elif m.alpha_cutoff >= 0.0:
+                rows[:, 10] = 2.0
+            else:
+                rows[:, 10] = 0.0
+            cluster_table[cl_off:cl_off + ncl] = rows
+            cluster_feeds[cl_off:cl_off + ncl] = feeds_t
+            cluster_made[cl_off:cl_off + ncl] = made_t
+            cluster_object[cl_off:cl_off + ncl] = obj
+            cl_off += ncl
             bc, br = mesh.bounding_sphere()
             local_bounds[obj, :3] = bc
             local_bounds[obj, 3] = br
             ent2obj[eid] = obj
             obj += 1
-        self.packed = PackedGeometry(pos, nrm, tan, uv, vobj, idx, tmat, tobj,
-                                     v_off, t_off, ent2obj, local_bounds)
+        self.packed = PackedGeometry(
+            pos, nrm, tan, uv, vobj, idx, tmat, tobj, v_off, t_off, ent2obj,
+            local_bounds, tcl, cluster_table, cluster_object, cl_off,
+            cluster_verts, cluster_dequant, cluster_feeds, cluster_made)
         return self.packed
 
     # -- hot path ----------------------------------------------------------
@@ -205,7 +344,7 @@ class SceneRenderBridge:
         n_dir = int(np.sum(table[:n, 3] == 0.0))
         return table, n, n_dir
 
-    def build_scene_buffers(self, device="cpu") -> SceneBuffers:
+    def build_scene_buffers(self, device="cuda") -> SceneBuffers:
         """Full upload to `device` (cold start or after geometry changes)."""
         if self.packed is None:
             self.pack_geometry()
@@ -213,9 +352,17 @@ class SceneRenderBridge:
         mats, nmats, bounds, ovalid = self.snapshot_objects()
         lights, num_lights, num_dir = self.snapshot_lights()
         mat_table = self.materials.packed_table(self.caps.max_materials)
+        if self.textures is not None and len(self.textures):
+            strips, tex_flags = self.textures.strip_pyramid()
+        else:
+            strips = np.full((strip_layout(4)[1], 128), 0xFFFFFFFF, np.uint32)
+            tex_flags = np.zeros((1,), np.int32)
 
         def t(x, dtype=None):
-            return torch.as_tensor(np.asarray(x, dtype), device=device)
+            a = np.asarray(x, dtype)
+            if a.dtype == np.uint32:    # the same bits as i32
+                a = a.view(np.int32)
+            return torch.as_tensor(a, device=device)
 
         return SceneBuffers(
             positions=t(p.positions), normals=t(p.normals),
@@ -229,6 +376,17 @@ class SceneRenderBridge:
             material_table=t(mat_table),
             lights=t(lights), num_lights=t(num_lights, np.int32),
             num_dir_lights=t(num_dir, np.int32),
+            tri_cluster=t(p.tri_cluster), cluster_table=t(p.cluster_table),
+            cluster_object=t(p.cluster_object),
+            num_clusters=t(p.num_clusters, np.int32),
+            cluster_verts=t(p.cluster_verts),
+            cluster_dequant=t(p.cluster_dequant),
+            cluster_feeds=t(p.cluster_feeds), cluster_made=t(p.cluster_made),
+            geom_slot=t(np.arange(p.cluster_verts.shape[0], dtype=np.int32)),
+            group_resident=t(np.ones((self.caps.max_groups,), bool)),
+            cluster_windows=t(pack_cluster_windows(
+                p.cluster_table, p.cluster_object, p.num_clusters)),
+            tex_strips=t(strips), tex_flags=t(tex_flags),
         )
 
     def update_dynamic(self, buffers: SceneBuffers) -> SceneBuffers:

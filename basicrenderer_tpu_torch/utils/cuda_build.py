@@ -50,25 +50,54 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def load(source: Path) -> CudaLibrary:
-    """Build `source` if its library is missing, load it once per process."""
-    source = Path(source).resolve()
-    if source in _loaded:
-        return _loaded[source]
+def _library_path(source: Path) -> Path:
     digest = hashlib.sha256(source.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"{source.stem}-{digest}.so"
-    log = ""
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}) for {source.name}:\n"
-                               f"{res.stdout}\n{res.stderr}")
-        os.replace(tmp, out)
-        log = res.stdout + res.stderr
-    lib = CudaLibrary(ctypes.CDLL(str(out)), out, log)
-    _loaded[source] = lib
-    return lib
+    return BUILD_DIR / f"{source.stem}-{digest}.so"
+
+
+def _start_build(source: Path, out: Path):
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), tmp
+
+
+def _finish_build(source: Path, out: Path, proc, tmp: Path) -> str:
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}) for "
+                           f"{source.name}:\n{log}")
+    os.replace(tmp, out)
+    return log
+
+
+def build_all(sources) -> Dict[Path, CudaLibrary]:
+    """Build every missing library of `sources` with one nvcc each, all
+    started together, then load them all. Raises on the first failure."""
+    sources = [Path(s).resolve() for s in sources]
+    jobs = []
+    for src in sources:
+        out = _library_path(src)
+        if src not in _loaded and not out.exists():
+            jobs.append((src, out) + _start_build(src, out))
+    try:
+        logs = {src: _finish_build(src, out, proc, tmp)
+                for src, out, proc, tmp in jobs}
+    finally:
+        for _src, _out, proc, _tmp in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for src in sources:
+        if src not in _loaded:
+            out = _library_path(src)
+            _loaded[src] = CudaLibrary(ctypes.CDLL(str(out)), out,
+                                       logs.get(src, ""))
+    return {src: _loaded[src] for src in sources}
+
+
+def load(source: Path) -> CudaLibrary:
+    """Build `source` if its library is missing, load it once per process."""
+    return build_all([source])[Path(source).resolve()]

@@ -2,17 +2,34 @@
 """Smoke run of basicrenderer_tpu_torch, the PyTorch + CUDA port, on one
 NVIDIA GPU (written for an H100).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase
+    python3 chip_smoke.py --quick    # phases 1-5 only (build and checks)
+    python3 chip_smoke.py --profile  # every phase, then a torch.profiler
+                                     # trace of 5 slice-2 frames
 
-Run from the root of a checkout. It builds the port's CUDA kernel from
-csrc/, checks it against its plain PyTorch version, renders the golden
-scene and compares it with tests/goldens/basic_deferred.png, then renders
-a 1920x1080 frame of ~1.36M triangles through the public entry points
-(Scene -> SceneRenderBridge -> build_frame_fn) and times it. Each phase
-prints one line; any failed check raises and the exit code is non-zero.
+Run from the root of a checkout. Phases, one line each:
+ 1. the card and toolchain;
+ 2. one build of every kernel (one nvcc per source, all started together);
+ 3. every kernel against its plain PyTorch version on the card, on small
+    inputs: K1 and K2 (plain and seeded) exact on vis and depth, K3 and K4
+    within their tolerances;
+ 4. the 128x128 golden scene against tests/goldens/basic_deferred.png and
+    against the port on the CPU;
+ 5. the 512x512 cluster rig (tests/test_goldens_512.py) against
+    g512_occlusion.png and g512_clustered.png, and its alpha-MASK frame on
+    the card against the port on the CPU;
+ 6. slice 1 at full size: the triangle-soup frame of a ~1.36M-triangle
+    courtyard at 1920x1080, timed, K1 timed against its plain version;
+ 7. slice 2 at full size: the cluster-LOD frame of bench.py's
+    config1_minimal (two-phase HZB occlusion, clustered lights, alpha-MASK
+    pass) over the dense LOD courtyard with 1000 point lights, timed with
+    per-stage CUDA events; K2, K3 and K4 timed alone against their plain
+    versions on the frame's own inputs.
+Kernel launch counts are reset just before each full-size path is driven
+and read just after. Any failed check raises and the exit code is non-zero.
 The second-to-last line is the kernels' JSON record and the last line is
-{"ok": true, "device": {...}}. Without a CUDA device it exits non-zero
-and prints no result.
+{"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
+prints no result.
 """
 
 import json
@@ -23,10 +40,22 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-FRAMES_WARM = 3
-FRAMES_TIMED = 20
 GOLDEN_RMSE_MAX = 6.0        # tests/test_goldens.py
-CHANNEL_RTOL = 1e-6          # kernel vs plain channels; vis and depth exact
+CHANNEL_RTOL = 1e-6          # raster kernels vs plain: vis and depth exact
+SHADE_RTOL, SHADE_ATOL = 1e-3, 1e-4   # K3 vs plain (tests/test_lighting.py)
+TEX_ATOL = 1e-3              # K4 vs plain, on the [0, 255] scale
+# H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3.
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+# f32 operations per unit of work, counted from the kernels' sources: a
+# (row, pixel) raster test (three planes at 4 each, e2 2); a (pixel, light)
+# of the tiled shade; a pixel of the texture window evaluation.
+RASTER_FLOPS_PER_ROW_PIXEL = 14
+SHADE_FLOPS_PER_PIXEL_LIGHT = 118
+SHADE_FLOPS_PER_PIXEL = 30
+TEX_FLOPS_PER_PIXEL = 60
+SLICE1_FRAMES = (2, 10)      # (warm, timed)
+SLICE2_FRAMES = (3, 20)
 
 
 class CheckFailed(RuntimeError):
@@ -42,46 +71,52 @@ def say(line):
     print(line, flush=True)
 
 
-def build_random_pairs(torch, seed, n, cfg, dev):
-    """Random clip-space triangles (tests/test_raster.py's generator) set up
-    and binned by the port's front end."""
+def rmse(a, b):
     import numpy as np
-    from basicrenderer_tpu_torch.ops import raster_setup
-    rng = np.random.default_rng(seed)
-    w = rng.uniform(2.0, 10.0, size=(n, 3, 1)).astype(np.float32)
-    xy = rng.uniform(-0.9, 0.9, size=(n, 3, 2)).astype(np.float32) * w
-    z = rng.uniform(0.05, 0.95, size=(n, 3, 1)).astype(np.float32) * w
-    clip = torch.as_tensor(np.concatenate([xy, z, w], -1).reshape(-1, 4),
-                           device=dev)
-    idx = torch.arange(3 * n, dtype=torch.int32, device=dev).view(n, 3)
-    lanes, bbox, valid, _ = raster_setup.triangle_setup_packed(
-        clip, idx, torch.ones(n, dtype=torch.bool, device=dev), cfg,
-        None, None)
-    return raster_setup.bin_pairs(lanes, bbox, valid, cfg)
+    return float(np.sqrt(np.mean((np.asarray(a, np.float32)
+                                  - np.asarray(b, np.float32)) ** 2)))
 
 
-def compare_kernel(torch, pairs, cfg, label):
-    """Kernel vs plain version on the same pairs: vis and depth exactly,
-    channels within CHANNEL_RTOL. Returns (max abs err, plain seconds,
-    coverage)."""
-    from basicrenderer_tpu_torch.ops import raster
-    kd, kv, kch = raster.raster_tiles_cuda(pairs, cfg)
+def bound(flops, nbytes):
+    """(bound ms, "operations" | "bytes") at the card's published peaks."""
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def cuda_ms(torch, fn, reps):
+    """Mean ms of `fn()` over `reps` launches by CUDA events, after a warm
+    launch."""
+    fn()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def host_ms(torch, fn):
+    """(result, ms) of one call of `fn()` ending in a synchronise."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    pd, pv, pch = raster.raster_tiles_plain(pairs, cfg)
+    out = fn()
     torch.cuda.synchronize()
-    plain_s = time.perf_counter() - t0
-    nvis = int((kv != pv).sum())
-    ndepth = int((kd != pd).sum())
-    check(nvis == 0 and ndepth == 0,
-          f"{label}: kernel differs from plain on {nvis} vis / {ndepth} depth")
-    torch.testing.assert_close(kch, pch, rtol=CHANNEL_RTOL, atol=CHANNEL_RTOL)
-    err = max(float((kd - pd).abs().max()), float((kch - pch).abs().max()))
-    return err, plain_s, float((kv > 0).float().mean())
+    return out, (time.perf_counter() - t0) * 1e3
 
+
+def reset_launches(kernels):
+    for k in kernels:
+        k.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Scenes (built from the port's own modules)
+# ---------------------------------------------------------------------------
 
 def golden_scene(np):
-    """tests/test_frame_e2e.build_test_scene, from the port's modules."""
+    """tests/test_frame_e2e.build_test_scene."""
     from basicrenderer_tpu_torch.models import procedural
     from basicrenderer_tpu_torch.models.materials import Material, MaterialRegistry
     from basicrenderer_tpu_torch.models.mesh import MeshRegistry
@@ -105,11 +140,70 @@ def golden_scene(np):
     return sc, SceneRenderBridge(sc, meshes, mats, caps)
 
 
-def courtyard_scene(np, grid=12, seed=42):
-    """The dense courtyard of basicrenderer_tpu/models/scenes.py:86-140
-    (palette, placement, lights, camera) with every object registered as
-    its own mesh: fractal terrain (60, 256 segments, height 2) and grid^2
-    objects cycling a 64x128 UV sphere, a 96x48 torus and a 0.8 cube."""
+def g512_scene(np):
+    """The shared scene of tests/test_goldens_512.py (without the voxel
+    pyramid): a LOD sphere, a cube, a checkered floor, a glass quad, an
+    alpha-MASK leaf quad, directional + point + spot lights."""
+    from basicrenderer_tpu_torch.models import clusters, procedural
+    from basicrenderer_tpu_torch.models.materials import Material, MaterialRegistry
+    from basicrenderer_tpu_torch.models.mesh import MeshRegistry
+    from basicrenderer_tpu_torch.models.textures import TextureRegistry
+    from basicrenderer_tpu_torch.scene.bridge import BridgeCapacities, SceneRenderBridge
+    from basicrenderer_tpu_torch.scene.scene import Scene
+    half = np.float32(np.pi / 4)
+    qx90 = np.array([np.sin(half), 0, 0, np.cos(half)], np.float32)
+    meshes, mats = MeshRegistry(), MaterialRegistry()
+    tex = TextureRegistry(resolution=64)
+    checker = tex.checkerboard(a=(1, 1, 1), b=(0.15, 0.15, 0.15), squares=8)
+    r = tex.resolution
+    yy, xx = np.mgrid[0:r, 0:r]
+    hole = (((yy * 4 // r) + (xx * 4 // r)) % 2).astype(np.float32)
+    leaf = tex.add(np.dstack([np.full((r, r), 0.2, np.float32),
+                              np.full((r, r), 0.7, np.float32),
+                              np.full((r, r), 0.2, np.float32), hole]),
+                   srgb=False)
+    sphere = meshes.add(clusters.to_mesh_data(clusters.build_cluster_lod(
+        procedural.make_uv_sphere(0.8, rings=24, sectors=48))))
+    plane = meshes.add(procedural.make_plane(8.0, 2))
+    cube = meshes.add(procedural.make_cube(0.7))
+    quad = meshes.add(procedural.make_plane(1.2, 1))
+    floor_m = mats.add(Material(
+        base_color=np.array([0.7, 0.7, 0.72, 1], np.float32),
+        roughness=0.25, metallic=0.1, base_color_texture=checker))
+    gold_m = mats.add(Material(
+        base_color=np.array([0.9, 0.6, 0.25, 1], np.float32),
+        roughness=0.35, metallic=0.8))
+    glass_m = mats.add(Material(
+        base_color=np.array([0.4, 0.6, 0.9, 0.45], np.float32),
+        roughness=0.1, alpha_blend=True))
+    leaf_m = mats.add(Material(
+        base_color=np.array([1, 1, 1, 1], np.float32), roughness=0.7,
+        alpha_cutoff=0.5, base_color_texture=leaf))
+    sc = Scene()
+    sc.create_renderable(plane, floor_m)
+    sc.create_renderable(sphere, gold_m, position=(0, 0.8, 0))
+    sc.create_renderable(cube, 0, position=(-1.4, 0.35, 0.6))
+    sc.create_renderable(quad, glass_m, position=(0.9, 0.7, 1.2), rotation=qx90)
+    sc.create_renderable(quad, leaf_m, position=(-0.6, 0.7, 1.6), rotation=qx90)
+    sc.create_directional_light(direction=(-0.5, -1, -0.35), intensity=2.5)
+    sc.create_point_light(position=(1.5, 1.8, -0.5), color=(1.0, 0.4, 0.2),
+                          intensity=6.0)
+    sc.create_spot_light(position=(-2.0, 2.5, 1.5), direction=(0.6, -1, -0.4),
+                         intensity=8.0, outer_cone=0.5)
+    sc.set_camera(position=(2.6, 2.0, 3.2), target=(0, 0.6, 0), aspect=1.0)
+    sc.propagate_transforms()
+    caps = BridgeCapacities(max_vertices=1 << 15, max_triangles=1 << 15,
+                            max_objects=16, max_materials=8, max_lights=8,
+                            max_clusters=1 << 10, max_geom_clusters=1 << 10)
+    return sc, SceneRenderBridge(sc, meshes, mats, caps, textures=tex)
+
+
+def soup_courtyard(np, grid=12, seed=42):
+    """The dense courtyard of basicrenderer_tpu/models/scenes.py:86-140 with
+    every object registered as its own mesh (the soup frame draws one
+    instance per mesh): fractal terrain (60, 256 segments, height 2) and
+    grid^2 objects cycling a 64x128 UV sphere, a 0.8 cube and a 96x48
+    torus."""
     from basicrenderer_tpu_torch.models import procedural
     from basicrenderer_tpu_torch.models.materials import Material, MaterialRegistry
     from basicrenderer_tpu_torch.models.mesh import MeshRegistry
@@ -158,11 +252,111 @@ def courtyard_scene(np, grid=12, seed=42):
     sc.propagate_transforms()
     nv = sum(meshes.get(m).num_vertices for m in range(len(meshes)))
     nt = sum(meshes.get(m).num_triangles for m in range(len(meshes)))
+    ncl = sum((meshes.get(m).num_triangles + 127) // 128
+              for m in range(len(meshes)))
     caps = BridgeCapacities(max_vertices=nv, max_triangles=nt,
                             max_objects=grid * grid + 1, max_materials=16,
-                            max_lights=8)
+                            max_lights=8, max_clusters=ncl,
+                            max_geom_clusters=ncl)
     return sc, SceneRenderBridge(sc, meshes, mats, caps), nt
 
+
+def random_groups(torch, np, seed, n, cfg, dev):
+    """Random clip-space triangles (tests/test_raster.py's generator) set up
+    and group-binned by the port's front end."""
+    from basicrenderer_tpu_torch.ops import raster_setup
+    rng = np.random.default_rng(seed)
+    w = rng.uniform(2.0, 10.0, size=(n, 3, 1)).astype(np.float32)
+    xy = rng.uniform(-0.9, 0.9, size=(n, 3, 2)).astype(np.float32) * w
+    z = rng.uniform(0.05, 0.95, size=(n, 3, 1)).astype(np.float32) * w
+    clip = torch.as_tensor(np.concatenate([xy, z, w], -1).reshape(-1, 4),
+                           device=dev)
+    idx = torch.arange(3 * n, dtype=torch.int32, device=dev).view(n, 3)
+    lanes, bbox, valid, _ = raster_setup.triangle_setup_packed(
+        clip, idx, torch.ones(n, dtype=torch.bool, device=dev), cfg,
+        None, None)
+    return lanes, bbox, valid
+
+
+# ---------------------------------------------------------------------------
+# Kernel-vs-plain comparisons
+# ---------------------------------------------------------------------------
+
+def compare_raster(torch, kernel_out, plain_out, label):
+    """Raster kernel vs plain: vis and depth exactly, channels within
+    CHANNEL_RTOL. Returns the max abs error over depth and channels."""
+    kd, kv, kch = kernel_out
+    pd, pv, pch = plain_out
+    nvis, ndepth = int((kv != pv).sum()), int((kd != pd).sum())
+    check(nvis == 0 and ndepth == 0,
+          f"{label}: kernel differs from plain on {nvis} vis / {ndepth} depth")
+    torch.testing.assert_close(kch, pch, rtol=CHANNEL_RTOL, atol=CHANNEL_RTOL)
+    return max(float((kd - pd).abs().max()), float((kch - pch).abs().max()))
+
+
+def k1_check(torch, pairs, cfg, label):
+    from basicrenderer_tpu_torch.ops import raster
+    return compare_raster(torch, raster.raster_tiles_cuda(pairs, cfg),
+                          raster.raster_tiles_plain(pairs, cfg), label)
+
+
+def k2_check(torch, pairs, cfg, label, init=None):
+    from basicrenderer_tpu_torch.ops import raster
+    return compare_raster(torch, raster.raster_groups_cuda(pairs, cfg, 0, init),
+                          raster.raster_groups_plain(pairs, cfg, 0, init),
+                          label)
+
+
+def k3_check(torch, args, label):
+    from basicrenderer_tpu_torch.ops import lighting
+    k = lighting.tiled_shade_cuda(*args)
+    p = lighting.tiled_shade_plain(*args)
+    try:
+        torch.testing.assert_close(k, p, rtol=SHADE_RTOL, atol=SHADE_ATOL)
+    except AssertionError as e:
+        raise CheckFailed(f"{label}: tiled shade kernel vs plain: {e}")
+    return float((k - p).abs().max())
+
+
+def k4_check(torch, args, label):
+    from basicrenderer_tpu_torch.ops import textures
+    k = textures.tex_block_eval_cuda(*args)
+    p = textures.tex_block_eval_plain(*args)
+    err = float((k - p).abs().max())
+    check(err <= TEX_ATOL, f"{label}: texture kernel vs plain max abs err "
+          f"{err} > {TEX_ATOL}")
+    return err
+
+
+class Capture:
+    """Records the inputs and outputs of every call of the named module
+    functions while installed. The functions still run; a kernel wrapper
+    counts its launches on the module's name, so the count moves to the
+    stand-in while it is installed and back when it is removed."""
+
+    def __init__(self, module, names):
+        self.module, self.names, self.calls = module, names, []
+
+    def __enter__(self):
+        self.saved = {n: getattr(self.module, n) for n in self.names}
+        for n, fn in self.saved.items():
+            def wrapped(*a, _fn=fn, _n=n, **kw):
+                out = _fn(*a, **kw)
+                self.calls.append((_n, a, kw, out))
+                return out
+            if hasattr(fn, "launches"):
+                wrapped.launches = fn.launches
+            setattr(self.module, n, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            if hasattr(fn, "launches"):
+                fn.launches = getattr(self.module, n).launches
+            setattr(self.module, n, fn)
+
+
+# ---------------------------------------------------------------------------
 
 def main():
     import numpy as np
@@ -172,14 +366,19 @@ def main():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false)", file=sys.stderr)
         return 2
+    quick = "--quick" in sys.argv[1:]
     sys.path.insert(0, REPO)
-    from basicrenderer_tpu_torch.graph.frame import build_frame_fn
+    from basicrenderer_tpu_torch.graph.frame import build_frame_fn, geometry_pass
     from basicrenderer_tpu_torch.graph.framedata import (FrameConfig,
                                                          FrameParams, make_view)
-    from basicrenderer_tpu_torch.ops import raster
+    from basicrenderer_tpu_torch.ops import (lighting, raster, raster_setup,
+                                             textures)
     from basicrenderer_tpu_torch.utils import cuda_build
     from basicrenderer_tpu_torch.utils.png import read_png
     dev = torch.device("cuda", 0)
+    kernels = (raster.raster_tiles_cuda, raster.raster_groups_cuda,
+               lighting.tiled_shade_cuda, textures.tex_block_eval_cuda)
+    t_start = time.perf_counter()
 
     # -- 1. the card -------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -193,68 +392,139 @@ def main():
 
     # -- 2. kernel build ---------------------------------------------------
     t0 = time.perf_counter()
-    lib = raster.build_kernel()
-    regs = [ln.split("info    : ")[-1] for ln in lib.build_log.splitlines()
-            if "registers" in ln]
-    say(f"phase 2 build: {os.path.relpath(lib.path, REPO)} in "
-        f"{time.perf_counter() - t0:.2f} s; ptxas: {' / '.join(regs) or 'cached'}")
+    libs = cuda_build.build_all([raster.SOURCE, lighting.SOURCE,
+                                 textures.SOURCE])
+    reports = []
+    for src, lib in libs.items():
+        regs = [ln.split("info    : ")[-1] for ln in lib.build_log.splitlines()
+                if "registers" in ln or "spill" in ln]
+        reports.append(f"{src.name}: {' / '.join(regs) or 'cached'}")
+    say(f"phase 2 build: {len(libs)} libraries in {time.perf_counter() - t0:.2f}"
+        f" s | ptxas: {' || '.join(reports)}")
 
-    # -- 3. kernel vs plain on the card ------------------------------------
-    results = []
+    # -- 3. kernels vs plain on the card -----------------------------------
+    res = []
     for seed in (0, 5):
         cfg = FrameConfig(width=256, height=64, tile_h=16, tile_w=128,
                           max_pairs=1 << 12)
-        pairs = build_random_pairs(torch, seed, 60, cfg, dev)
-        results.append((f"random{seed}", compare_kernel(torch, pairs, cfg,
-                                                        f"random seed {seed}")))
+        lanes, bbox, valid = random_groups(torch, np, seed, 60, cfg, dev)
+        res.append((f"K1 random{seed}", k1_check(
+            torch, raster_setup.bin_pairs(lanes, bbox, valid, cfg), cfg,
+            f"K1 random seed {seed}")))
     cfg512 = FrameConfig(width=512, height=512, tile_h=32, tile_w=128,
-                         max_pairs=1 << 16, max_tiles_per_tri=8)
-    pairs = build_random_pairs(torch, 9, 3000, cfg512, dev)
+                         max_pairs=1 << 16, max_tiles_per_tri=8,
+                         max_tiles_per_group=4, max_group_pairs=1 << 13)
+    lanes, bbox, valid = random_groups(torch, np, 9, 3008, cfg512, dev)
+    pairs = raster_setup.bin_pairs(lanes, bbox, valid, cfg512)
     check(int(pairs.big_count) > 0, "512x512 scene has no big triangles")
-    results.append(("random512", compare_kernel(torch, pairs, cfg512,
-                                                "512x512 scene")))
+    res.append(("K1 random512", k1_check(torch, pairs, cfg512, "K1 512x512")))
+    gpairs = raster_setup.bin_groups(lanes, bbox, valid, cfg512)
+    check(int(gpairs.big_count) > 0, "512x512 scene has no big groups")
+    res.append(("K2 random512", k2_check(torch, gpairs, cfg512, "K2 512x512")))
+    lanes2, bbox2, valid2 = random_groups(torch, np, 10, 1024, cfg512, dev)
+    seed_bufs = raster.raster_groups_plain(
+        raster_setup.bin_groups(lanes2, bbox2, valid2, cfg512), cfg512)
+    res.append(("K2 seeded random512", k2_check(
+        torch, gpairs, cfg512, "K2 seeded 512x512", init=seed_bufs)))
     gsc, gbridge = golden_scene(np)
     gcfg = FrameConfig(width=128, height=128, tile_h=16, tile_w=128,
                        max_pairs=1 << 12)
     gview = make_view(*gsc.camera_matrices(aspect=1.0), device=dev)
     gbuf = gbridge.build_scene_buffers(device=dev)
-    from basicrenderer_tpu_torch.graph.frame import geometry_pass
-    gpairs = geometry_pass(gbuf, gview, gcfg)[-1]
-    results.append(("golden", compare_kernel(torch, gpairs, gcfg, "golden scene")))
-    say("phase 3 kernel vs plain: " + "; ".join(
-        f"{k} max_abs_err {e:.3g} coverage {c:.3f}" for k, (e, _, c) in results)
-        + f" (vis, depth exact; channels rtol {CHANNEL_RTOL})")
+    res.append(("K1 golden", k1_check(torch, geometry_pass(gbuf, gview, gcfg)[-1],
+                                      gcfg, "K1 golden scene")))
+    rsc, rbridge = g512_scene(np)
+    rbuf = rbridge.build_scene_buffers(device=dev)
+    rview = make_view(*rsc.camera_matrices(aspect=1.0), device=dev)
+    rcfg = FrameConfig(width=512, height=512, tile_h=32, tile_w=128,
+                       max_pairs=1 << 15, enable_clod=True,
+                       max_visible_clusters=1024, enable_clustered=True,
+                       enable_alpha_mask=True)
+    rparams = FrameParams.default(dev)
+    with Capture(raster, ["raster_groups_cuda"]) as rc, \
+            Capture(lighting, ["tiled_shade_cuda"]) as lc, \
+            Capture(textures, ["tex_block_eval_cuda"]) as tc:
+        build_frame_fn(rcfg)(rbuf, rview, rparams)
+    rig_pairs = rc.calls[0][1][0]
+    res.append(("K2 rig", k2_check(torch, rig_pairs, rcfg, "K2 rig")))
+    res.append(("K2 seeded rig", k2_check(torch, rig_pairs, rcfg, "K2 seeded rig",
+                                          init=rc.calls[1][3])))
+    res.append(("K3 rig", k3_check(torch, lc.calls[0][1], "K3 rig")))
+    res.append(("K4 rig", k4_check(torch, tc.calls[0][1], "K4 rig")))
+    say("phase 3 kernels vs plain: " + "; ".join(f"{k} max_abs_err {e:.3g}"
+                                                  for k, e in res)
+        + f" (K1/K2 vis, depth exact, channels rtol {CHANNEL_RTOL}; K3 rtol "
+        f"{SHADE_RTOL} atol {SHADE_ATOL}; K4 atol {TEX_ATOL} on 0-255)")
 
     # -- 4. golden on the card ---------------------------------------------
     frame = build_frame_fn(gcfg)
     out = frame(gbuf, gview, FrameParams.default(dev))
     img = out["image"].cpu().numpy()
     golden = read_png(os.path.join(REPO, "tests", "goldens", "basic_deferred.png"))
-    rmse = float(np.sqrt(np.mean((img.astype(np.float32)
-                                  - golden.astype(np.float32)) ** 2)))
+    r_gold = rmse(img, golden)
     cpu_out = frame(gbridge.build_scene_buffers(device="cpu"),
-                    make_view(*gsc.camera_matrices(aspect=1.0)),
-                    FrameParams.default())
-    rmse_cpu = float(np.sqrt(np.mean((img.astype(np.float32)
-                                      - cpu_out["image"].numpy()) ** 2)))
+                    make_view(*gsc.camera_matrices(aspect=1.0), device="cpu"),
+                    FrameParams.default("cpu"))
+    r_cpu = rmse(img, cpu_out["image"].numpy())
     vis_agree = float((out["vis"].cpu() == cpu_out["vis"]).float().mean())
-    check(rmse <= GOLDEN_RMSE_MAX, f"golden RMSE {rmse} > {GOLDEN_RMSE_MAX}")
+    check(r_gold <= GOLDEN_RMSE_MAX, f"golden RMSE {r_gold} > {GOLDEN_RMSE_MAX}")
     check(vis_agree >= 0.999, f"card vs CPU vis agreement {vis_agree}")
-    say(f"phase 4 golden: 128x128 RMSE vs basic_deferred.png {rmse:.4f} "
-        f"(limit {GOLDEN_RMSE_MAX}); vs the port on the CPU: RMSE {rmse_cpu:.4f},"
+    say(f"phase 4 golden: 128x128 RMSE vs basic_deferred.png {r_gold:.4f} "
+        f"(limit {GOLDEN_RMSE_MAX}); vs the port on the CPU: RMSE {r_cpu:.4f},"
         f" vis agreement {vis_agree:.5f}")
 
-    # -- 5. the slice at full size -----------------------------------------
-    t0 = time.perf_counter()
-    sc, bridge, ntris = courtyard_scene(np)
-    buf = bridge.build_scene_buffers(device=dev)
-    view = make_view(*sc.camera_matrices(aspect=16 / 9), device=dev)
-    params = FrameParams.default(dev)
-    setup_s = time.perf_counter() - t0
-    cfg = FrameConfig(width=1920, height=1080, tile_h=32, tile_w=128,
-                      max_pairs=1 << 22, near_clip_tris=4096)
-    frame = build_frame_fn(cfg)
+    # -- 5. the 512x512 cluster rig ----------------------------------------
+    base = dict(width=512, height=512, tile_h=16, tile_w=128,
+                max_pairs=1 << 15, enable_clod=True, max_visible_clusters=1024)
+    goldens = {}
+    for name, flags, steps in (("g512_occlusion", dict(enable_occlusion=True), 3),
+                               ("g512_clustered", dict(enable_clustered=True), 1)):
+        cfg = FrameConfig(**base, **flags)
+        fr = build_frame_fn(cfg)
+        prev = torch.zeros((cfg.padded_height, cfg.padded_width), device=dev) \
+            if cfg.enable_occlusion else None
+        for _ in range(steps):
+            o = fr(rbuf, rview, rparams, prev_depth=prev)
+            prev = o["depth_padded"] if cfg.enable_occlusion else None
+        goldens[name] = rmse(o["image"].cpu().numpy(), read_png(
+            os.path.join(REPO, "tests", "goldens", f"{name}.png")))
+        check(goldens[name] <= GOLDEN_RMSE_MAX,
+              f"{name}: RMSE {goldens[name]} > {GOLDEN_RMSE_MAX}")
+    mcfg = FrameConfig(**base, enable_alpha_mask=True)
+    mo = build_frame_fn(mcfg)(rbuf, rview, rparams)
+    mo_cpu = build_frame_fn(mcfg)(
+        rbridge.build_scene_buffers(device="cpu"),
+        make_view(*rsc.camera_matrices(aspect=1.0), device="cpu"),
+        FrameParams.default("cpu"))
+    m_agree = float((mo["vis"].cpu() == mo_cpu["vis"]).float().mean())
+    m_rmse = rmse(mo["image"].cpu().numpy(), mo_cpu["image"].numpy())
+    check(m_agree >= 0.999 and m_rmse <= 1.0,
+          f"alpha-mask frame card vs CPU: vis agreement {m_agree}, RMSE {m_rmse}")
+    say("phase 5 cluster rig 512x512: " + ", ".join(
+        f"{k} RMSE {v:.4f}" for k, v in goldens.items())
+        + f" (limit {GOLDEN_RMSE_MAX}); alpha-MASK frame card vs CPU: vis "
+        f"agreement {m_agree:.5f}, RMSE {m_rmse:.4f} (limits 0.999, 1.0)")
+    if quick:
+        say(f"quick run: phases 6-7 skipped; {time.perf_counter() - t_start:.1f} s")
+        return 0
 
+    records = {}
+    records.update(slice1(np, torch, dev, kernels))
+    records.update(slice2(np, torch, dev, kernels, smi,
+                          profile="--profile" in sys.argv[1:]))
+
+    print(json.dumps({"kernels": [records[k] for k in ("K1", "K2", "K3", "K4")]}),
+          flush=True)
+    say(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def timed_frames(torch, fr, args, warm, timed, prev_key=None):
+    """Run warm + timed frames, feeding `prev_key` output back as
+    prev_depth. Returns (last output, frame ms list, stage ms medians)."""
     marks = []
 
     def hook(name):
@@ -262,74 +532,280 @@ def main():
         ev.record()
         marks.append((name, ev))
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    raster.raster_tiles_cuda.launches = 0
     frame_ms, stage_ms = [], {}
-    for i in range(FRAMES_WARM + FRAMES_TIMED):
+    prev = None
+    out = None
+    for i in range(warm + timed):
         marks.clear()
         t0 = time.perf_counter()
-        out = frame(buf, view, params, stage_hook=hook)
+        out = fr(*args, prev_depth=prev, stage_hook=hook) if prev_key else \
+            fr(*args, stage_hook=hook)
         torch.cuda.synchronize()
         dt = (time.perf_counter() - t0) * 1e3
-        if i >= FRAMES_WARM:
+        if prev_key:
+            prev = out[prev_key]
+        if i >= warm:
             frame_ms.append(dt)
             for (name, a), (_, b) in zip(marks, marks[1:]):
                 stage_ms.setdefault(name, []).append(a.elapsed_time(b))
-    launches = raster.raster_tiles_cuda.launches
-    peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-    n_frames = FRAMES_WARM + FRAMES_TIMED
-    check(launches == n_frames,
-          f"raster kernel launched {launches} times in {n_frames} frames")
+    return out, frame_ms, {k: statistics.median(v) for k, v in stage_ms.items()}
 
-    img, hdr, vis = out["image"], out["hdr"], out["vis"]
+
+def slice1(np, torch, dev, kernels):
+    """Phase 6: the soup frame at full size; K1 timed alone and plain."""
+    from basicrenderer_tpu_torch.graph.frame import build_frame_fn, geometry_pass
+    from basicrenderer_tpu_torch.graph.framedata import (FrameConfig,
+                                                         FrameParams, make_view)
+    from basicrenderer_tpu_torch.ops import raster
+    t0 = time.perf_counter()
+    sc, bridge, ntris = soup_courtyard(np)
+    buf = bridge.build_scene_buffers(device=dev)
+    view = make_view(*sc.camera_matrices(aspect=16 / 9), device=dev)
+    params = FrameParams.default(dev)
+    setup_s = time.perf_counter() - t0
+    cfg = FrameConfig(width=1920, height=1080, tile_h=32, tile_w=128,
+                      max_pairs=1 << 22, near_clip_tris=4096)
+    fr = build_frame_fn(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches(kernels)
+    warm, timed = SLICE1_FRAMES
+    out, frame_ms, stages = timed_frames(torch, fr, (buf, view, params),
+                                         warm, timed)
+    launches = [k.launches for k in kernels]
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    check(launches[0] == warm + timed,
+          f"K1 launched {launches[0]} times in {warm + timed} frames")
+    check(sum(launches[1:]) == 0, f"slice 1 launched other kernels {launches}")
+    img, vis = out["image"], out["vis"]
+    coverage = float((vis > 0).float().mean())
     counters = {k: int(out[k]) for k in ("bin_overflow", "cluster_overflow",
                                          "num_pairs")}
-    coverage = float((vis > 0).float().mean())
     check(tuple(img.shape) == (1080, 1920, 3) and img.dtype == torch.uint8,
           f"image {tuple(img.shape)} {img.dtype}")
-    check(bool(torch.isfinite(hdr).all()), "non-finite HDR values")
+    check(bool(torch.isfinite(out["hdr"]).all()), "non-finite HDR values")
     check(counters["bin_overflow"] == 0 and counters["cluster_overflow"] == 0,
           f"overflow {counters}")
     check(0.5 < coverage < 1.0, f"coverage {coverage}")
     check(float(img.float().std()) > 5.0, "flat image")
 
-    # K1 alone and its plain version, on the frame's own pairs.
     pairs = geometry_pass(buf, view, cfg)[-1]
-    torch.cuda.synchronize()
-    for _ in range(2):
-        raster.raster_tiles_cuda(pairs, cfg)
-    reps = 10
-    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(reps):
-        raster.raster_tiles_cuda(pairs, cfg)
-    e1.record()
-    torch.cuda.synchronize()
-    k1_ms = e0.elapsed_time(e1) / reps
-    err, plain_s, _ = compare_kernel(torch, pairs, cfg, "1080p frame")
-    med = statistics.median(frame_ms)
-    stages = " ".join(f"{k} {statistics.median(v):.3f}" for k, v in stage_ms.items())
-    say(f"phase 5 slice: 1920x1080 tile 32x128, {ntris} triangles "
-        f"({bridge.packed.num_tris} packed), host scene build {setup_s:.1f} s | "
-        f"median {med:.3f} ms/frame over {FRAMES_TIMED} (min {min(frame_ms):.3f},"
-        f" max {max(frame_ms):.3f}) | stage ms (CUDA events, median): {stages} |"
-        f" K1 {k1_ms:.3f} ms vs plain {plain_s * 1e3:.1f} ms, max_abs_err {err:.3g}"
-        f" | K1 launches {launches} in {n_frames} frames | overflow "
-        f"bin {counters['bin_overflow']} clip {counters['cluster_overflow']},"
-        f" pairs {counters['num_pairs']}, big {int(pairs.big_count)} | coverage"
-        f" {coverage:.4f} | peak {peak_gib:.2f} GiB | {smi}")
-
-    print(json.dumps({"kernels": [{
+    k1_ms = cuda_ms(torch, lambda: raster.raster_tiles_cuda(pairs, cfg), 10)
+    plain, plain_ms = host_ms(torch, lambda: raster.raster_tiles_plain(pairs, cfg))
+    err = compare_raster(torch, raster.raster_tiles_cuda(pairs, cfg), plain,
+                         "K1 1080p frame")
+    offs = pairs.tile_offsets.long()
+    rows_walked = int((offs[1:] - offs[:-1]).sum())   # big list empty below
+    check(int(pairs.big_count) == 0, "slice 1 big list not empty")
+    npix = cfg.tile_h * cfg.tile_w
+    b_ms, b_by = bound(rows_walked * npix * RASTER_FLOPS_PER_ROW_PIXEL,
+                       rows_walked * 128 + cfg.padded_height
+                       * cfg.padded_width * 40)
+    say(f"phase 6 slice 1: soup 1920x1080 tile 32x128, {ntris} triangles, host "
+        f"scene build {setup_s:.1f} s | median {statistics.median(frame_ms):.3f} "
+        f"ms/frame over {timed} (min {min(frame_ms):.3f}, max {max(frame_ms):.3f})"
+        f" | stage ms (CUDA events, median): "
+        + " ".join(f"{k} {v:.3f}" for k, v in stages.items())
+        + f" | K1 {k1_ms:.3f} ms (bound {b_ms:.3f} ms, {b_by}) vs plain "
+        f"{plain_ms:.1f} ms, max_abs_err {err:.3g} | K1 launches {launches[0]}"
+        f" | pairs {counters['num_pairs']}, (row, tile) walked {rows_walked} |"
+        f" coverage {coverage:.4f} | peak {peak_gib:.2f} GiB")
+    return {"K1": {
         "name": "raster_tiles (K1, plain mode)", "route": "cuda",
         "source": "basicrenderer_tpu_torch/csrc/raster.cu",
         "replaces": "basicrenderer_tpu/ops/raster_pallas.py:135",
-        "launches": launches, "max_abs_err": err, "ms": k1_ms,
-        "plain_ms": plain_s * 1e3}]}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+        "launches": launches[0], "max_abs_err": err, "ms": k1_ms,
+        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None}}
+
+
+def slice2(np, torch, dev, kernels, smi, profile=False):
+    """Phase 7: bench.py's config1_minimal over the dense LOD courtyard."""
+    from basicrenderer_tpu_torch.graph.frame import build_frame_fn
+    from basicrenderer_tpu_torch.graph.framedata import (FrameConfig,
+                                                         FrameParams, make_view)
+    from basicrenderer_tpu_torch.models.scenes import build_courtyard
+    from basicrenderer_tpu_torch.models.textures import TextureRegistry
+    from basicrenderer_tpu_torch.ops import clod, lighting, raster, textures
+    from basicrenderer_tpu_torch.scene.bridge import BridgeCapacities, SceneRenderBridge
+    t0 = time.perf_counter()
+    tex = TextureRegistry(256)
+    built = build_courtyard(grid=16, dense=True, lod=True,
+                            num_point_lights=1000, textures=tex)
+    caps = BridgeCapacities(max_vertices=1 << 22, max_triangles=1 << 22,
+                            max_objects=512, max_materials=64,
+                            max_lights=1024 + 8, max_clusters=1 << 16,
+                            max_geom_clusters=1 << 15, max_groups=1 << 13)
+    bridge = SceneRenderBridge(built.scene, built.meshes, built.materials,
+                               caps, textures=tex)
+    buf = bridge.build_scene_buffers(device=dev)
+    view = make_view(*built.scene.camera_matrices(aspect=16 / 9), device=dev)
+    params = FrameParams.default(dev)
+    setup_s = time.perf_counter() - t0
+    cfg = FrameConfig(width=1920, height=1080, tile_h=32, tile_w=128,
+                      max_pairs=1 << 18, max_tiles_per_tri=8,
+                      enable_clod=True, max_visible_clusters=3072,
+                      max_phase2_clusters=256, shadow_clusters=768,
+                      enable_clustered=True, enable_alpha_mask=True,
+                      enable_occlusion=True)
+    fr = build_frame_fn(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches(kernels)
+    warm, timed = SLICE2_FRAMES
+    out, frame_ms, stages = timed_frames(torch, fr, (buf, view, params), warm,
+                                         timed, prev_key="depth_padded")
+    launches = [k.launches for k in kernels]
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    n = warm + timed
+    # Frame 1 (no previous depth) takes one group raster; the rest take
+    # phase 1, phase 2 and the mask pass.
+    check(launches[0] == 0, f"slice 2 launched K1 {launches[0]} times")
+    check(launches[1] == 2 + 3 * (n - 1),
+          f"K2 launched {launches[1]} times in {n} frames")
+    check(launches[2] == n and launches[3] == n,
+          f"K3 / K4 launched {launches[2:]} times in {n} frames")
+    img, vis = out["image"], out["vis"]
+    coverage = float((vis > 0).float().mean())
+    check(tuple(img.shape) == (1080, 1920, 3) and img.dtype == torch.uint8,
+          f"image {tuple(img.shape)} {img.dtype}")
+    check(bool(torch.isfinite(out["hdr"]).all()), "non-finite HDR values")
+    check(0.3 < coverage < 1.0, f"coverage {coverage}")
+    check(float(img.float().std()) > 5.0, "flat image")
+    counters = {k: int(out[k]) for k in ("bin_overflow", "cluster_overflow",
+                                         "light_overflow", "num_pairs")}
+
+    # One more frame with the kernels' inputs captured, then each kernel
+    # alone against its plain version on those inputs.
+    with Capture(raster, ["raster_groups_cuda"]) as rc, \
+            Capture(lighting, ["tiled_shade_cuda"]) as lc, \
+            Capture(textures, ["tex_block_eval_cuda"]) as tc, \
+            Capture(clod, ["compact_visible_tris"]) as cc:
+        fr(buf, view, params, prev_depth=out["depth_padded"])
+    torch.cuda.synchronize()
+    live = [int((c[3].slot_cluster >= 0).sum()) for c in cc.calls]
+    check(len(rc.calls) == 3 and len(lc.calls) == 1 and len(tc.calls) == 1,
+          "captured frame launched an unexpected kernel mix")
+    reps = 10
+    recs = {}
+    k2_ms = k2_plain = k2_bound = 0.0
+    k2_err = k2_big = 0.0
+    k2_by = "operations"
+    k2_parts = []
+    npix = cfg.tile_h * cfg.tile_w
+    for label, (_n, a, kw, kout) in zip(("phase1", "phase2", "mask"), rc.calls):
+        p_, c_, r0_, init = a[0], a[1], a[2], a[3] if len(a) > 3 else None
+        ms = cuda_ms(torch, lambda: raster.raster_groups_cuda(p_, c_, r0_, init),
+                     reps)
+        pd, pmsd = host_ms(torch, lambda: raster.raster_groups_plain(
+            p_, c_, r0_, init))
+        err = compare_raster(torch, kout, pd, f"K2 {label} 1080p")
+        walked = raster.expand_group_pairs(p_, c_, r0_)[0].shape[0]
+        nbytes = walked * 128 + c_.padded_height * c_.padded_width * 40 * (
+            2 if init is not None else 1)
+        b_ms, b_by = bound(walked * npix * RASTER_FLOPS_PER_ROW_PIXEL, nbytes)
+        if b_ms > k2_big:
+            k2_big, k2_by = b_ms, b_by
+        k2_ms, k2_plain, k2_bound = k2_ms + ms, k2_plain + pmsd, k2_bound + b_ms
+        k2_err = max(k2_err, err)
+        k2_parts.append(f"{label} {ms:.3f} ms (bound {b_ms:.3f}, plain "
+                        f"{pmsd:.0f}, rows walked {walked}, pairs "
+                        f"{int(p_.num_pairs)})")
+    recs["K2"] = {
+        "name": "raster_groups (K2, plain + seeded modes; per frame: phase 1,"
+                " phase 2 seeded, mask pass)", "route": "cuda",
+        "source": "basicrenderer_tpu_torch/csrc/raster.cu",
+        "replaces": "basicrenderer_tpu/ops/raster_pallas.py:252",
+        "launches": launches[1], "max_abs_err": k2_err, "ms": k2_ms,
+        "plain_ms": k2_plain, "bound_ms": k2_bound, "bound_by": k2_by,
+        "library_ms": None}
+
+    a3 = lc.calls[0][1]
+    k3_ms = cuda_ms(torch, lambda: lighting.tiled_shade_cuda(*a3), reps)
+    _, k3_plain = host_ms(torch, lambda: lighting.tiled_shade_plain(*a3))
+    k3_err = k3_check(torch, a3, "K3 1080p")
+    shade_in, payload, counts = a3[0], a3[1], a3[2]
+    pix_lights = int(counts.long().sum()) * npix
+    hw = shade_in.shape[1] * shade_in.shape[2]
+    b3_ms, b3_by = bound(pix_lights * SHADE_FLOPS_PER_PIXEL_LIGHT
+                         + hw * SHADE_FLOPS_PER_PIXEL,
+                         shade_in.numel() * 4 + payload.numel() * 4
+                         + counts.numel() * 4 + hw * 12)
+    recs["K3"] = {
+        "name": "tiled_shade (K3)", "route": "cuda",
+        "source": "basicrenderer_tpu_torch/csrc/tiled_shade.cu",
+        "replaces": "basicrenderer_tpu/ops/lighting.py:133",
+        "launches": launches[2], "max_abs_err": k3_err, "ms": k3_ms,
+        "plain_ms": k3_plain, "bound_ms": b3_ms, "bound_by": b3_by,
+        "library_ms": None}
+
+    a4 = tc.calls[0][1]
+    k4_ms = cuda_ms(torch, lambda: textures.tex_block_eval_cuda(*a4), reps)
+    _, k4_plain = host_ms(torch, lambda: textures.tex_block_eval_plain(*a4))
+    k4_err = k4_check(torch, a4, "K4 1080p")
+    strips, rows, x_hat = a4[0], a4[1], a4[2]
+    jobs, pix = x_hat.shape
+    uniq = int(torch.unique(rows).numel())
+    b4_ms, b4_by = bound(jobs * pix * TEX_FLOPS_PER_PIXEL,
+                         uniq * 512 + rows.numel() * 4 + x_hat.numel() * 8
+                         + jobs * pix * 16)
+    recs["K4"] = {
+        "name": "tex_block_eval (K4, RGBA8)", "route": "cuda",
+        "source": "basicrenderer_tpu_torch/csrc/tex_block.cu",
+        "replaces": "basicrenderer_tpu/ops/textures.py:508",
+        "launches": launches[3], "max_abs_err": k4_err, "ms": k4_ms,
+        "plain_ms": k4_plain, "bound_ms": b4_ms, "bound_by": b4_by,
+        "library_ms": None}
+
+    order = ["cut", "hzb", "setup", "bin", "raster", "hzb2", "cut2", "setup2",
+             "bin2", "raster2", "mask", "gbuffer", "light_cull", "tiled_shade",
+             "shade"]
+    say(f"phase 7 slice 2: config1_minimal 1920x1080 over build_courtyard(grid="
+        f"16, dense, lod, 1000 point lights, textures 256): "
+        f"{built.num_triangles} source triangles, {int(buf.num_clusters)} "
+        f"clusters, host scene build {setup_s:.1f} s | median "
+        f"{statistics.median(frame_ms):.3f} ms/frame over {timed} (min "
+        f"{min(frame_ms):.3f}, max {max(frame_ms):.3f}) | stage ms (CUDA "
+        f"events, median): " + " ".join(f"{k} {stages[k]:.3f}" for k in order
+                                        if k in stages)
+        + f" | K2 {k2_ms:.3f} ms per frame = " + "; ".join(k2_parts)
+        + f" | K3 {k3_ms:.3f} ms (bound {b3_ms:.3f} {b3_by}, plain "
+        f"{k3_plain:.1f}, {pix_lights // npix} tile-lights) | K4 {k4_ms:.3f} ms "
+        f"(bound {b4_ms:.4f} {b4_by}, plain {k4_plain:.1f}, {jobs} jobs) | "
+        f"launches K1 {launches[0]} K2 {launches[1]} K3 {launches[2]} K4 "
+        f"{launches[3]} in {n} frames | visible clusters {live[0]}, phase-2 "
+        f"clusters {live[1]}, mask clusters {live[2]} | overflow bin "
+        f"{counters['bin_overflow']} cluster {counters['cluster_overflow']} "
+        f"light {counters['light_overflow']}, group pairs "
+        f"{counters['num_pairs']} | coverage {coverage:.4f} | peak "
+        f"{peak_gib:.2f} GiB | {smi}")
+    if profile:
+        profile_frames(torch, fr, (buf, view, params), out["depth_padded"],
+                       statistics.median(frame_ms))
+    return recs
+
+
+def profile_frames(torch, fr, args, prev, wall_ms, n=5):
+    """torch.profiler over n steady frames: device time per frame (sum of
+    kernel times on the one stream), its share of the unprofiled wall time,
+    kernel launches per frame, and the kernels by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            prev = fr(*args, prev_depth=prev)["depth_padded"]
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3 / n
+    launches = sum(e.count for e in kern) / n
+    top = sorted(kern, key=lambda e: e.self_device_time_total, reverse=True)
+    say(f"phase 7 profile ({n} frames, torch.profiler): device busy {busy:.3f} "
+        f"ms/frame = {100 * busy / wall_ms:.1f}% of the unprofiled median "
+        f"{wall_ms:.3f} ms | {launches:.0f} kernel launches/frame | top: "
+        + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3 / n:.3f} ms"
+                    f" x{e.count / n:.0f}" for e in top[:12]))
 
 
 if __name__ == "__main__":

@@ -112,11 +112,10 @@ def test_scene_buffers_match_jax(variant):
     from basicrenderer_tpu_torch.scene.components import Position as PPos
     jsc, jb = build_scene(JAX_PKG, variant)
     psc, pb = build_scene(PORT_PKG, variant)
-    jbuf, pbuf = jb.build_scene_buffers(), pb.build_scene_buffers()
+    jbuf, pbuf = jb.build_scene_buffers(), pb.build_scene_buffers(device="cpu")
     names = [f for f in SceneBuffers.__dataclass_fields__]
     for f in names:
-        np.testing.assert_array_equal(getattr(pbuf, f).numpy(),
-                                      np.asarray(getattr(jbuf, f)), err_msg=f)
+        assert_field_equal(getattr(pbuf, f), getattr(jbuf, f), f)
     # Move the last renderable in both worlds, refresh the dynamic fields.
     for sc, Pos in ((jsc, JPos), (psc, PPos)):
         ents = sorted(e for e, _ in sc.world.query(Pos))
@@ -124,22 +123,59 @@ def test_scene_buffers_match_jax(variant):
         sc.propagate_transforms()
     jbuf, pbuf = jb.update_dynamic(jbuf), pb.update_dynamic(pbuf)
     for f in names:
-        np.testing.assert_array_equal(getattr(pbuf, f).numpy(),
-                                      np.asarray(getattr(jbuf, f)), err_msg=f)
+        assert_field_equal(getattr(pbuf, f), getattr(jbuf, f), f)
 
 
-def test_instanced_mesh_is_refused():
-    """The soup packs each mesh once; a second instance needs the cluster
-    path, which the port does not have yet."""
-    m = _pkg(PORT_PKG)
-    meshes, mats = m.mesh.MeshRegistry(), m.materials.MaterialRegistry()
-    cube = meshes.add(m.procedural.make_cube(1.0))
-    sc = m.scene.Scene()
-    sc.create_renderable(cube, 0)
-    sc.create_renderable(cube, 0, position=(2, 0, 0))
-    sc.propagate_transforms()
-    with pytest.raises(NotImplementedError, match="enable_clod"):
-        m.bridge.SceneRenderBridge(sc, meshes, mats).pack_geometry()
+def test_instanced_mesh_packs_like_jax():
+    """A mesh instanced twice packs its geometry and vertex pages once and
+    gets one set of cluster rows per instance, as in the JAX bridge."""
+    bufs = []
+    for root in (JAX_PKG, PORT_PKG):
+        m = _pkg(root)
+        meshes, mats = m.mesh.MeshRegistry(), m.materials.MaterialRegistry()
+        cube = meshes.add(m.procedural.make_cube(1.0))
+        sphere = meshes.add(m.procedural.make_uv_sphere(0.5, 12, 24))
+        sc = m.scene.Scene()
+        sc.create_renderable(cube, 0)
+        sc.create_renderable(sphere, 0, position=(0, 1, 0))
+        sc.create_renderable(cube, 0, position=(2, 0, 0))
+        sc.propagate_transforms()
+        caps = m.bridge.BridgeCapacities(max_vertices=1 << 11,
+                                         max_triangles=1 << 11, max_objects=8,
+                                         max_clusters=64, max_geom_clusters=32)
+        b = m.bridge.SceneRenderBridge(sc, meshes, mats, caps)
+        bufs.append(b.build_scene_buffers(**({"device": "cpu"}
+                                             if root == PORT_PKG else {})))
+    jbuf, pbuf = bufs
+    assert int(pbuf.num_clusters) == int(jbuf.num_clusters) == 7  # 1 + 5 + 1
+    for f in ("cluster_table", "cluster_object", "cluster_verts",
+              "cluster_dequant", "tri_cluster", "cluster_windows"):
+        assert_field_equal(getattr(pbuf, f), getattr(jbuf, f), f)
+
+
+def test_entry_points_default_to_the_card():
+    """The port's entry points place data on the card unless the caller
+    names another device."""
+    import inspect
+    from basicrenderer_tpu_torch import interop
+    from basicrenderer_tpu_torch.graph import framedata
+    from basicrenderer_tpu_torch.scene.bridge import SceneRenderBridge
+    fns = [SceneRenderBridge.build_scene_buffers, framedata.make_view,
+           framedata.FrameParams.default, interop.scene_buffers,
+           interop.view_data, interop.frame_params, interop.binned_pairs,
+           interop.group_binned_pairs]
+    for fn in fns:
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+
+
+def assert_field_equal(p, j, name):
+    """A port tensor equals a JAX array; int32 tensors holding uint32 words
+    are compared bit for bit."""
+    j = np.asarray(j)
+    p = p.numpy()
+    if j.dtype == np.uint32:
+        p = p.view(np.uint32)
+    np.testing.assert_array_equal(p, j, err_msg=name)
 
 
 def test_scene_buffers_move_between_devices():

@@ -49,8 +49,8 @@ def _frames(variant):
     psc, pb = build_scene(PORT_PKG, variant)
     view, proj, pos = psc.camera_matrices(aspect=1.0)
     pout = build_frame_fn(FrameConfig(**CFG_KW))(
-        pb.build_scene_buffers(), make_view(view, proj, pos),
-        FrameParams.default())
+        pb.build_scene_buffers(device="cpu"),
+        make_view(view, proj, pos, device="cpu"), FrameParams.default("cpu"))
     return ({k: np.asarray(v) for k, v in jout.items()},
             {k: v.numpy() for k, v in pout.items()})
 
@@ -96,7 +96,7 @@ def test_frame_with_local_lights_matches_jax():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("enable_clod", True), ("enable_clustered", True), ("enable_shadows", True),
+    ("enable_gtao", True), ("enable_ssr", True), ("enable_shadows", True),
     ("enable_ibl", True), ("enable_bloom", True), ("enable_taa", True),
     ("enable_oit", True), ("enable_textures", True), ("debug_view", "normals"),
     ("wireframe", True), ("enable_vertex_tangents", True),

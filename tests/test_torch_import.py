@@ -30,8 +30,11 @@ def test_port_never_imports_jax():
     assert res.returncode == 0, res.stderr
     out = json.loads(res.stdout.strip().splitlines()[-1])
     for mod in ("graph.frame", "graph.framedata", "ops.raster",
-                "ops.raster_setup", "ops.shade", "ops.culling",
-                "scene.bridge", "interop", "utils.cuda_build"):
+                "ops.raster_setup", "ops.shade", "ops.culling", "ops.clod",
+                "ops.lighting", "ops.textures", "ops.shadows",
+                "models.clusters", "models.pageblob", "models.scenes",
+                "models.textures", "scene.bridge", "interop",
+                "utils.cuda_build"):
         assert f"basicrenderer_tpu_torch.{mod}" in out["modules"], mod
     assert out["jax"] == []
     assert out["tf32"] == [False, False]

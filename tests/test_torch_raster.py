@@ -41,7 +41,7 @@ def _compare(jc, pc, jpairs):
     jd, jv, jch = (np.asarray(x) for x in
                    raster_tiles_pallas(jpairs, jc, interpret=True))
     pd, pv, pch = (x.numpy() for x in praster.raster_tiles(
-        interop.binned_pairs(_np_fields(jpairs)), pc))
+        interop.binned_pairs(_np_fields(jpairs), device="cpu"), pc))
     np.testing.assert_array_equal(pv, jv)
     np.testing.assert_array_equal(pd, jd)
     np.testing.assert_allclose(pch, jch, rtol=1e-6, atol=1e-6)

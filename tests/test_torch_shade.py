@@ -56,8 +56,8 @@ def inputs():
     depth, vis, ch = (np.asarray(x) for x in raster(buf, vd))
     assert (vis > 0).mean() > 0.3
     return dict(jscene=buf, jview=vd, depth=depth, vis=vis, ch=ch,
-                pscene=interop.scene_buffers(_fields(buf)),
-                pview=interop.view_data(_fields(vd)))
+                pscene=interop.scene_buffers(_fields(buf), device="cpu"),
+                pview=interop.view_data(_fields(vd), device="cpu"))
 
 
 def _gbuffers(inputs):
