@@ -22,7 +22,15 @@ Ported paths:
   (K4) and surviving texels depth-merge into the opaque targets;
 - clustered lighting (enable_clustered): per-tile light culling and the
   tiled local-light shading (K3), directional lights full-screen.
-Then G-buffer -> deferred shade -> sky -> ACES -> sRGB.
+Then G-buffer -> deferred shade -> sky, and the post stack: screen-space
+reflections (enable_ssr), GTAO (enable_gtao), the IBL ambient composite
+(enable_ibl: SH diffuse + split-sum specular, SSR hits replacing the
+prefiltered environment; without IBL the reflection is added with the
+Fresnel-at-normal tint and AO darkens the lit frame), TAA (enable_taa:
+with `prev_viewproj` the motion-vector resolve, whose per-tile history
+warp is K5, else the static resolve), bloom (enable_bloom), auto-exposure
+(enable_auto_exposure) -> ACES -> sRGB. graph/temporal.py drives the TAA
+inputs from frame to frame.
 
 Every other structural toggle raises NotImplementedError naming its field.
 """
@@ -35,24 +43,26 @@ from typing import Callable, Dict, Optional
 import torch
 
 from ..ops import clod as clod_ops
-from ..ops import culling, lighting, raster_setup
+from ..ops import culling, ibl, lighting, motion, post, raster_setup
 from ..ops import shade as shade_ops
+from ..ops import ssr as ssr_ops
 from ..ops import textures as tex_ops
 from ..ops.raster import raster_tiles
 from ..ops.shadows import downsample2d
 from .framedata import FrameConfig, FrameParams, SceneBuffers, ViewData
 
 # FrameConfig fields that switch on passes this port does not have yet,
-# with the value that leaves the pass off.
+# with the value that leaves the pass off. The voxel, ray-traced, coat,
+# fuzz and energy branches of the IBL composite stay behind their fields
+# here.
 _UNPORTED_TOGGLES = (
     ("enable_textures", False), ("enable_texture_streaming", False),
     ("enable_shadows", False), ("max_shadow_lights", 0),
-    ("max_shadow_cubes", 0), ("enable_vsm", False), ("enable_ibl", False),
-    ("enable_ssr", False), ("enable_gtao", False), ("enable_bloom", False),
-    ("enable_taa", False), ("enable_oit", False), ("enable_skinning", False),
+    ("max_shadow_cubes", 0), ("enable_vsm", False),
+    ("enable_oit", False), ("enable_skinning", False),
     ("enable_reyes", False), ("enable_voxel_rt", False),
     ("enable_voxel_fallback", False), ("enable_rt_reflect", False),
-    ("enable_streaming", False), ("enable_auto_exposure", False),
+    ("enable_streaming", False),
     ("output_width", 0), ("output_height", 0), ("debug_view", "none"),
     ("wireframe", False), ("enable_vertex_tangents", False),
     ("enable_coat", False), ("enable_fuzz", False),
@@ -195,7 +205,11 @@ def _pad_to(x: torch.Tensor, cfg: FrameConfig) -> torch.Tensor:
 
 def _render_body(scene: SceneBuffers, view: ViewData, params: FrameParams,
                  prev_depth: Optional[torch.Tensor], config: FrameConfig,
-                 stage_hook: Callable[[str], None] = None
+                 stage_hook: Callable[[str], None] = None,
+                 taa_history: Optional[torch.Tensor] = None,
+                 prev_viewproj: Optional[torch.Tensor] = None,
+                 moving_rel: Optional[torch.Tensor] = None,
+                 moving_ids: Optional[torch.Tensor] = None
                  ) -> Dict[str, torch.Tensor]:
     H, W = config.height, config.width
     dev = scene.positions.device
@@ -332,8 +346,39 @@ def _render_body(scene: SceneBuffers, view: ViewData, params: FrameParams,
                                        **shade_kw)
     sky = shade_ops.procedural_sky(view, H, W, params.sky_intensity)
     hdr = torch.where(gb.valid[..., None], hdr, sky)
+    hdr = _post_composite(hdr, depth, gb, scene, view, params, config, stage)
+
+    if config.enable_taa and taa_history is not None:
+        if prev_viewproj is not None:
+            # Motion-vector reprojection: per-pixel motion from depth and
+            # object ids, history warped per tile (K5), pixels whose motion
+            # disagrees with their tile's reject history.
+            stage("motion")
+            if moving_rel is None:
+                moving_rel = torch.zeros((motion.MAX_MOVING, 4, 4),
+                                         dtype=torch.float32, device=dev)
+                moving_ids = torch.full((motion.MAX_MOVING,), -1,
+                                        dtype=torch.int32, device=dev)
+            du, dv, mvalid, mds = motion.motion_field(
+                depth_p, channels[4], view, prev_viewproj, moving_rel,
+                moving_ids, config, full_h=H, full_w=config.width)
+            tdy, tdx, resid = motion.tile_motion(du, dv, mvalid, config, mds)
+            stage("taa")
+            hdr = post.taa_resolve_mv(hdr, taa_history, params.taa_blend,
+                                      tdy, tdx, resid, config.tile_h,
+                                      config.tile_w)
+        else:
+            stage("taa")
+            hdr = post.taa_resolve(hdr, taa_history, params.taa_blend)
     taa_out = hdr
-    ldr = shade_ops.aces_tonemap(hdr * params.exposure)
+    if config.enable_bloom:
+        stage("bloom")
+        hdr = post.bloom(hdr, params.bloom_threshold, params.bloom_intensity)
+    exposure = params.exposure
+    if config.enable_auto_exposure:
+        stage("exposure")
+        exposure = exposure * post.auto_exposure(hdr)
+    ldr = shade_ops.aces_tonemap(hdr * exposure)
     srgb = shade_ops.linear_to_srgb(ldr)
     image = (srgb * 255.0 + 0.5).to(torch.uint8)
     stage("end")
@@ -351,6 +396,60 @@ def _render_body(scene: SceneBuffers, view: ViewData, params: FrameParams,
         "oit_overflow": zero,
         "taa_out": taa_out,
     }
+
+
+def _post_composite(hdr: torch.Tensor, depth: torch.Tensor,
+                    gb: shade_ops.GBuffer, scene: SceneBuffers,
+                    view: ViewData, params: FrameParams, config: FrameConfig,
+                    stage: Callable[[str], None]) -> torch.Tensor:
+    """Screen-space reflections, GTAO and the IBL ambient composite on the
+    lit frame (sky included). SSR marches the direct-lit frame; with IBL
+    its hits replace the prefiltered environment in the env-specular slot
+    and AO scales the ambient term; without IBL the reflection is added
+    with the Fresnel-at-normal tint and AO darkens the lit frame."""
+    valid3 = gb.valid[..., None]
+    H = depth.shape[0]
+    ssr_col = ssr_wgt = None
+    if config.enable_ssr:
+        stage("ssr")
+        ssr_col, ssr_wgt = ssr_ops.ssr(hdr, depth, gb.normal, gb.roughness,
+                                       gb.metallic, view, config, full_h=H)
+    ao = None
+    if config.enable_gtao:
+        stage("gtao")
+        ao = post.gtao(depth, gb.normal, view, view.near, params.gtao_radius,
+                       params.gtao_intensity, params.frame_index)
+        ao = torch.where(gb.valid, ao, 1.0)
+    metal3 = gb.metallic[..., None]
+    if config.enable_ibl:
+        stage("ibl")
+        v = view.cam_pos - gb.world_pos
+        v = v / torch.clamp(torch.linalg.vector_norm(v, dim=-1, keepdim=True),
+                            min=1e-9)
+        ndv = torch.clamp(torch.sum(gb.normal * v, -1), min=1e-4)
+        irr = ibl.eval_sh_irradiance(scene.env_sh, gb.normal)
+        f0 = 0.04 * (1 - metal3) + gb.albedo * metal3
+        kd = (1.0 - f0) * (1.0 - metal3)
+        diffuse_ibl = kd * gb.albedo * irr
+        scale, bias = ibl.env_brdf_karis(ndv, gb.roughness)
+        prefiltered = ibl.runtime_specular_ibl(
+            gb.normal, v, gb.roughness, scene.env_specular,
+            downscale=config.ibl_specular_downscale)
+        if ssr_col is not None:
+            prefiltered = prefiltered * (1.0 - ssr_wgt[..., None]) \
+                + ssr_col * ssr_wgt[..., None]
+        spec_ibl = prefiltered * (f0 * scale[..., None] + bias[..., None])
+        ambient = (diffuse_ibl + spec_ibl) * params.ibl_intensity
+        if ao is not None:
+            ambient = ambient * ao[..., None]
+        hdr = hdr + torch.where(valid3, ambient, 0.0)
+    elif ao is not None:
+        hdr = hdr * (0.5 + 0.5 * ao[..., None])
+    if config.enable_ssr and not config.enable_ibl:
+        f0 = 0.04 * (1 - metal3) + gb.albedo * metal3
+        refl = ssr_col * ssr_wgt[..., None]
+        hdr = hdr + torch.where(valid3, refl * f0, 0.0)
+    return hdr
 
 
 def _mask_alpha_keep(scene: SceneBuffers, view: ViewData, config: FrameConfig,
@@ -393,11 +492,17 @@ def _mask_alpha_keep(scene: SceneBuffers, view: ViewData, config: FrameConfig,
 
 def build_frame_fn(config: FrameConfig) -> Callable[..., Dict[str, torch.Tensor]]:
     """Returns the frame function `frame(scene, view, params,
-    prev_depth=None)` for `config`, after checking that every structural
-    choice of `config` is ported. With enable_occlusion the frame takes the
-    previous frame's padded depth (its "depth_padded" output); the first
-    frame passes None and takes the single-phase cluster path. The outputs
-    carry the JAX frame's keys for these paths.
+    prev_depth=None, taa_history=None, *, prev_viewproj=None,
+    moving_rel=None, moving_ids=None, stage_hook=None)` for `config`,
+    after checking that every structural choice of `config` is ported.
+    With enable_occlusion the frame takes the previous frame's padded depth
+    (its "depth_padded" output); the first frame passes None and takes the
+    single-phase cluster path. With enable_taa it takes the previous
+    frame's "taa_out" as `taa_history` (None on the first frame); with
+    `prev_viewproj` (the previous un-jittered view-projection) and the
+    moved objects' `moving_rel` (MAX_MOVING, 4, 4) / `moving_ids`
+    (MAX_MOVING,) it resolves with motion vectors. graph/temporal.py makes
+    these inputs. The outputs carry the JAX frame's keys for these paths.
 
     `frame(..., stage_hook=fn)` calls fn(name) as the frame enters each
     stage, so a caller can time the stages with CUDA events: "setup",
@@ -405,14 +510,21 @@ def build_frame_fn(config: FrameConfig) -> Callable[..., Dict[str, torch.Tensor]
     the cluster path; with occlusion "cut", "hzb", "setup", "bin",
     "raster", "hzb2", "cut2", "setup2", "bin2", "raster2"; then "mask"
     (alpha-MASK pass), "gbuffer", "light_cull" and "tiled_shade"
-    (clustered), "shade" and "end"."""
+    (clustered), "shade", then the post stages "ssr", "gtao", "ibl",
+    "motion", "taa", "bloom", "exposure" of the enabled passes, and
+    "end"."""
     check_config(config)
 
     def frame(scene: SceneBuffers, view: ViewData, params: FrameParams,
               prev_depth: torch.Tensor = None,
+              taa_history: torch.Tensor = None, *,
+              prev_viewproj: torch.Tensor = None,
+              moving_rel: torch.Tensor = None,
+              moving_ids: torch.Tensor = None,
               stage_hook: Callable[[str], None] = None
               ) -> Dict[str, torch.Tensor]:
         return _render_body(scene, view, params, prev_depth, config,
-                            stage_hook)
+                            stage_hook, taa_history, prev_viewproj,
+                            moving_rel, moving_ids)
 
     return frame

@@ -4,9 +4,9 @@ consumes, and the static frame configuration.
 Port of basicrenderer_tpu/graph/framedata.py. `FrameConfig` is copied field
 for field, so that the same keyword arguments describe the same frame in
 both packages. The buffer types are dataclasses of tensors with an explicit
-`.to(device)`; `SceneBuffers` holds the triangle-soup, cluster-LOD and
-texture-atlas fields the ported frames read (later slices add the
-environment, skinning and voxel fields). Words that the JAX package keeps
+`.to(device)`; `SceneBuffers` holds the triangle-soup, cluster-LOD,
+texture-atlas and environment fields the ported frames read (later slices
+add the skinning and voxel fields). Words that the JAX package keeps
 as uint32 (quantized vertex pages, packed RGBA8 texels) are int32 tensors
 here holding the same bits.
 """
@@ -86,6 +86,12 @@ class SceneBuffers:
     # 128-texel RGBA8 strips; flag bit 0 = sRGB-stored.
     tex_strips: torch.Tensor       # (N * rows_per_layer, 128) i32 (u32 bits)
     tex_flags: torch.Tensor        # (N,) i32
+    # Environment lighting (models/environment.py): SH radiance, the
+    # prefiltered radiance mips at one resolution, and the split-sum BRDF
+    # LUT (carried; the runtime uses the analytic fit).
+    env_sh: torch.Tensor           # (9, 3) f32
+    env_specular: torch.Tensor     # (mips, 6, R, R, 3) f32
+    env_brdf_lut: torch.Tensor     # (32, 32, 2) f32
 
     def to(self, device) -> "SceneBuffers":
         return _to(self, device)

@@ -45,7 +45,8 @@ def _fill(cls, data: Mapping, device):
 
 
 def scene_buffers(data: Mapping, device="cuda") -> SceneBuffers:
-    """JAX SceneBuffers fields -> the port's SceneBuffers (soup fields)."""
+    """JAX SceneBuffers fields -> the port's SceneBuffers (soup, cluster,
+    texture and environment fields)."""
     return _fill(SceneBuffers, data, device)
 
 

@@ -10,8 +10,9 @@ Port of basicrenderer_tpu/scene/bridge.py:
   geometry can flow through the cluster path.
 - `snapshot_objects` / `snapshot_lights` (hot, per frame): object matrices
   + lights as small numpy arrays.
-- `build_scene_buffers(device)` / `update_dynamic`: the tensor upload,
-  with the texture strip atlas (models/textures.py).
+- `build_scene_buffers(env_sh, env_specular, env_brdf_lut, device)` /
+  `update_dynamic`: the tensor upload, with the texture strip atlas
+  (models/textures.py) and the environment (models/environment.py).
 
 Skinned meshes are refused (the skinning slice is not ported). As in
 the JAX package, the soup fields (positions ... tri_object) carry each
@@ -344,14 +345,23 @@ class SceneRenderBridge:
         n_dir = int(np.sum(table[:n, 3] == 0.0))
         return table, n, n_dir
 
-    def build_scene_buffers(self, device="cuda") -> SceneBuffers:
-        """Full upload to `device` (cold start or after geometry changes)."""
+    def build_scene_buffers(self, env_sh=None, env_specular=None,
+                            env_brdf_lut=None, device="cuda") -> SceneBuffers:
+        """Full upload to `device` (cold start or after geometry changes).
+        The environment fields default to the JAX package's placeholders
+        for a scene without one (zero SH, one 8x8 black mip, a zero LUT)."""
         if self.packed is None:
             self.pack_geometry()
         p = self.packed
         mats, nmats, bounds, ovalid = self.snapshot_objects()
         lights, num_lights, num_dir = self.snapshot_lights()
         mat_table = self.materials.packed_table(self.caps.max_materials)
+        if env_sh is None:
+            env_sh = np.zeros((9, 3), np.float32)
+        if env_specular is None:
+            env_specular = np.zeros((1, 6, 8, 8, 3), np.float32)
+        if env_brdf_lut is None:
+            env_brdf_lut = np.zeros((32, 32, 2), np.float32)
         if self.textures is not None and len(self.textures):
             strips, tex_flags = self.textures.strip_pyramid()
         else:
@@ -387,6 +397,9 @@ class SceneRenderBridge:
             cluster_windows=t(pack_cluster_windows(
                 p.cluster_table, p.cluster_object, p.num_clusters)),
             tex_strips=t(strips), tex_flags=t(tex_flags),
+            env_sh=t(env_sh, np.float32),
+            env_specular=t(env_specular, np.float32),
+            env_brdf_lut=t(env_brdf_lut, np.float32),
         )
 
     def update_dynamic(self, buffers: SceneBuffers) -> SceneBuffers:

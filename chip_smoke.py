@@ -5,26 +5,38 @@ NVIDIA GPU (written for an H100).
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --quick    # phases 1-5 only (build and checks)
     python3 chip_smoke.py --profile  # every phase, then a torch.profiler
-                                     # trace of 5 slice-2 frames
+                                     # trace of 5 slice-2 and 5 slice-3
+                                     # frames
 
 Run from the root of a checkout. Phases, one line each:
  1. the card and toolchain;
  2. one build of every kernel (one nvcc per source, all started together);
  3. every kernel against its plain PyTorch version on the card, on small
     inputs: K1 and K2 (plain and seeded) exact on vis and depth, K3 and K4
-    within their tolerances;
+    within their tolerances, K5 (the TAA history warp) exact on random
+    history at 64x256 and 1088x1920 with shifts past the clip limits;
  4. the 128x128 golden scene against tests/goldens/basic_deferred.png and
     against the port on the CPU;
  5. the 512x512 cluster rig (tests/test_goldens_512.py) against
-    g512_occlusion.png and g512_clustered.png, and its alpha-MASK frame on
-    the card against the port on the CPU;
+    g512_occlusion.png, g512_clustered.png, g512_gtao_bloom.png,
+    g512_taa.png and g512_ssr.png, its alpha-MASK frame on the card
+    against the port on the CPU, and a 4-frame moving-camera TAA + SSR
+    sequence (graph/temporal.py, motion-vector resolve) on the card
+    against the same sequence on the CPU;
  6. slice 1 at full size: the triangle-soup frame of a ~1.36M-triangle
     courtyard at 1920x1080, timed, K1 timed against its plain version;
  7. slice 2 at full size: the cluster-LOD frame of bench.py's
     config1_minimal (two-phase HZB occlusion, clustered lights, alpha-MASK
     pass) over the dense LOD courtyard with 1000 point lights, timed with
     per-stage CUDA events; K2, K3 and K4 timed alone against their plain
-    versions on the frame's own inputs.
+    versions on the frame's own inputs;
+ 8. slice 3 at full size: bench.py's config4_post (GTAO, bloom, TAA,
+    auto-exposure, SSR over the config1_minimal base) over the same
+    courtyard, the camera orbiting a small angle per frame through
+    graph/temporal.py so that K5 warps history every frame after the
+    first; timed with per-stage CUDA events; K5 timed alone against its
+    plain version and against one torch grid_sample over the same history;
+    then the same with IBL over the procedural environment.
 Kernel launch counts are reset just before each full-size path is driven
 and read just after. Any failed check raises and the exit code is non-zero.
 The second-to-last line is the kernels' JSON record and the last line is
@@ -44,6 +56,7 @@ GOLDEN_RMSE_MAX = 6.0        # tests/test_goldens.py
 CHANNEL_RTOL = 1e-6          # raster kernels vs plain: vis and depth exact
 SHADE_RTOL, SHADE_ATOL = 1e-3, 1e-4   # K3 vs plain (tests/test_lighting.py)
 TEX_ATOL = 1e-3              # K4 vs plain, on the [0, 255] scale
+WARP_ATOL = 1e-5             # K5 vs plain (the same f32 operations: 0 expected)
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -54,8 +67,11 @@ RASTER_FLOPS_PER_ROW_PIXEL = 14
 SHADE_FLOPS_PER_PIXEL_LIGHT = 118
 SHADE_FLOPS_PER_PIXEL = 30
 TEX_FLOPS_PER_PIXEL = 60
+WARP_FLOPS_PER_VALUE = 9     # K5: two taps x2 rows, then x2 columns
+ORBIT_RAD_PER_FRAME = 0.004  # phase 8 camera orbit about the scene's y axis
 SLICE1_FRAMES = (2, 10)      # (warm, timed)
 SLICE2_FRAMES = (3, 20)
+SLICE3_FRAMES = (3, 20)
 
 
 class CheckFailed(RuntimeError):
@@ -328,6 +344,51 @@ def k4_check(torch, args, label):
     return err
 
 
+def random_warp(torch, np, seed, shape, dev, tile=(32, 128)):
+    """Random history (H, W, 3) and per-tile shifts on `dev`: uniform over
+    +-80 rows / +-220 columns (past the clip limits), the first tiles
+    exactly on the limits and on negative fractions."""
+    rng = np.random.default_rng(seed)
+    H, W = shape
+    T = (H // tile[0]) * (W // tile[1])
+    dy = rng.uniform(-80, 80, T).astype(np.float32)
+    dx = rng.uniform(-220, 220, T).astype(np.float32)
+    dy[:4] = (70.0, -70.0, -0.25, -69.5)
+    dx[:4] = (190.0, -190.0, -0.75, -189.25)
+    hist = rng.random((H, W, 3)).astype(np.float32)
+    return (torch.as_tensor(hist, device=dev), torch.as_tensor(dy, device=dev),
+            torch.as_tensor(dx, device=dev)) + tile
+
+
+def k5_check(torch, args, label):
+    from basicrenderer_tpu_torch.ops import taa_warp
+    k = taa_warp.warp_history_tiles(*args)
+    p = taa_warp.warp_history_plain(*args)
+    err = float((k - p).abs().max())
+    check(err <= WARP_ATOL, f"{label}: history warp kernel vs plain max abs "
+          f"err {err} > {WARP_ATOL}")
+    return err
+
+
+def entity_at(np, sc, position):
+    """The entity whose Position is `position`."""
+    from basicrenderer_tpu_torch.scene.components import Position
+    for eid, (pos,) in sc.world.query(Position):
+        if np.allclose(pos.value, position):
+            return eid
+    raise CheckFailed(f"no entity at {position}")
+
+
+def orbit_camera(np, sc, pos0, target, angle, aspect):
+    """Camera at pos0 turned by `angle` about the vertical axis through
+    `target`."""
+    c, s = np.cos(angle), np.sin(angle)
+    d = np.asarray(pos0, np.float64) - target
+    sc.set_camera(position=(target[0] + c * d[0] - s * d[2], pos0[1],
+                            target[2] + s * d[0] + c * d[2]),
+                  target=tuple(target), aspect=aspect)
+
+
 class Capture:
     """Records the inputs and outputs of every call of the named module
     functions while installed. The functions still run; a kernel wrapper
@@ -372,12 +433,13 @@ def main():
     from basicrenderer_tpu_torch.graph.framedata import (FrameConfig,
                                                          FrameParams, make_view)
     from basicrenderer_tpu_torch.ops import (lighting, raster, raster_setup,
-                                             textures)
+                                             taa_warp, textures)
     from basicrenderer_tpu_torch.utils import cuda_build
     from basicrenderer_tpu_torch.utils.png import read_png
     dev = torch.device("cuda", 0)
     kernels = (raster.raster_tiles_cuda, raster.raster_groups_cuda,
-               lighting.tiled_shade_cuda, textures.tex_block_eval_cuda)
+               lighting.tiled_shade_cuda, textures.tex_block_eval_cuda,
+               taa_warp.warp_history_tiles)
     t_start = time.perf_counter()
 
     # -- 1. the card -------------------------------------------------------
@@ -393,7 +455,7 @@ def main():
     # -- 2. kernel build ---------------------------------------------------
     t0 = time.perf_counter()
     libs = cuda_build.build_all([raster.SOURCE, lighting.SOURCE,
-                                 textures.SOURCE])
+                                 textures.SOURCE, taa_warp.SOURCE])
     reports = []
     for src, lib in libs.items():
         regs = [ln.split("info    : ")[-1] for ln in lib.build_log.splitlines()
@@ -451,10 +513,15 @@ def main():
                                           init=rc.calls[1][3])))
     res.append(("K3 rig", k3_check(torch, lc.calls[0][1], "K3 rig")))
     res.append(("K4 rig", k4_check(torch, tc.calls[0][1], "K4 rig")))
+    for seed, shape in ((12, (64, 256)), (13, (1088, 1920))):
+        label = f"K5 random {shape[0]}x{shape[1]}"
+        res.append((label, k5_check(torch, random_warp(torch, np, seed, shape,
+                                                       dev), label)))
     say("phase 3 kernels vs plain: " + "; ".join(f"{k} max_abs_err {e:.3g}"
                                                   for k, e in res)
         + f" (K1/K2 vis, depth exact, channels rtol {CHANNEL_RTOL}; K3 rtol "
-        f"{SHADE_RTOL} atol {SHADE_ATOL}; K4 atol {TEX_ATOL} on 0-255)")
+        f"{SHADE_RTOL} atol {SHADE_ATOL}; K4 atol {TEX_ATOL} on 0-255; K5 "
+        f"atol {WARP_ATOL})")
 
     # -- 4. golden on the card ---------------------------------------------
     frame = build_frame_fn(gcfg)
@@ -477,15 +544,22 @@ def main():
     base = dict(width=512, height=512, tile_h=16, tile_w=128,
                 max_pairs=1 << 15, enable_clod=True, max_visible_clusters=1024)
     goldens = {}
-    for name, flags, steps in (("g512_occlusion", dict(enable_occlusion=True), 3),
-                               ("g512_clustered", dict(enable_clustered=True), 1)):
+    for name, flags, steps in (
+            ("g512_occlusion", dict(enable_occlusion=True), 3),
+            ("g512_clustered", dict(enable_clustered=True), 1),
+            ("g512_gtao_bloom", dict(enable_gtao=True, enable_bloom=True,
+                                     enable_auto_exposure=True), 1),
+            ("g512_taa", dict(enable_taa=True), 3),
+            ("g512_ssr", dict(enable_ssr=True, ssr_downscale=2), 1)):
         cfg = FrameConfig(**base, **flags)
         fr = build_frame_fn(cfg)
         prev = torch.zeros((cfg.padded_height, cfg.padded_width), device=dev) \
             if cfg.enable_occlusion else None
+        hist = None
         for _ in range(steps):
-            o = fr(rbuf, rview, rparams, prev_depth=prev)
+            o = fr(rbuf, rview, rparams, prev_depth=prev, taa_history=hist)
             prev = o["depth_padded"] if cfg.enable_occlusion else None
+            hist = o["taa_out"] if cfg.enable_taa else None
         goldens[name] = rmse(o["image"].cpu().numpy(), read_png(
             os.path.join(REPO, "tests", "goldens", f"{name}.png")))
         check(goldens[name] <= GOLDEN_RMSE_MAX,
@@ -500,20 +574,28 @@ def main():
     m_rmse = rmse(mo["image"].cpu().numpy(), mo_cpu["image"].numpy())
     check(m_agree >= 0.999 and m_rmse <= 1.0,
           f"alpha-mask frame card vs CPU: vis agreement {m_agree}, RMSE {m_rmse}")
+    s_agree, s_rmse, s_k5, s_ms = moving_sequence(np, torch, dev)
     say("phase 5 cluster rig 512x512: " + ", ".join(
         f"{k} RMSE {v:.4f}" for k, v in goldens.items())
         + f" (limit {GOLDEN_RMSE_MAX}); alpha-MASK frame card vs CPU: vis "
-        f"agreement {m_agree:.5f}, RMSE {m_rmse:.4f} (limits 0.999, 1.0)")
+        f"agreement {m_agree:.5f}, RMSE {m_rmse:.4f} (limits 0.999, 1.0); "
+        f"moving-camera TAA + SSR sequence, 4 frames, last frame card vs CPU:"
+        f" vis agreement {s_agree:.5f}, RMSE {s_rmse:.4f} (limits 0.999, "
+        f"1.0), K5 launches {s_k5}, CPU {s_ms / 1e3:.1f} s")
     if quick:
-        say(f"quick run: phases 6-7 skipped; {time.perf_counter() - t_start:.1f} s")
+        say(f"quick run: phases 6-8 skipped; {time.perf_counter() - t_start:.1f} s")
         return 0
 
     records = {}
     records.update(slice1(np, torch, dev, kernels))
-    records.update(slice2(np, torch, dev, kernels, smi,
+    yard = courtyard(np, torch, dev)
+    records.update(slice2(np, torch, dev, kernels, smi, yard,
+                          profile="--profile" in sys.argv[1:]))
+    records.update(slice3(np, torch, dev, kernels, smi, yard,
                           profile="--profile" in sys.argv[1:]))
 
-    print(json.dumps({"kernels": [records[k] for k in ("K1", "K2", "K3", "K4")]}),
+    print(json.dumps({"kernels": [records[k] for k in
+                                  ("K1", "K2", "K3", "K4", "K5")]}),
           flush=True)
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
@@ -619,14 +701,21 @@ def slice1(np, torch, dev, kernels):
         "library_ms": None}}
 
 
-def slice2(np, torch, dev, kernels, smi, profile=False):
-    """Phase 7: bench.py's config1_minimal over the dense LOD courtyard."""
-    from basicrenderer_tpu_torch.graph.frame import build_frame_fn
-    from basicrenderer_tpu_torch.graph.framedata import (FrameConfig,
-                                                         FrameParams, make_view)
+CONFIG1_MINIMAL = dict(width=1920, height=1080, tile_h=32, tile_w=128,
+                       max_pairs=1 << 18, max_tiles_per_tri=8,
+                       enable_clod=True, max_visible_clusters=3072,
+                       max_phase2_clusters=256, shadow_clusters=768,
+                       enable_clustered=True, enable_alpha_mask=True,
+                       enable_occlusion=True)   # bench.py:217-224
+CONFIG4_POST = dict(enable_gtao=True, enable_bloom=True, enable_taa=True,
+                    enable_auto_exposure=True, enable_ssr=True)  # bench.py:233-235
+
+
+def courtyard(np, torch, dev):
+    """The dense LOD courtyard of phases 7 and 8 (grid 16, 1000 point
+    lights, 256^2 textures) on the card: (built, bridge, buffers, host s)."""
     from basicrenderer_tpu_torch.models.scenes import build_courtyard
     from basicrenderer_tpu_torch.models.textures import TextureRegistry
-    from basicrenderer_tpu_torch.ops import clod, lighting, raster, textures
     from basicrenderer_tpu_torch.scene.bridge import BridgeCapacities, SceneRenderBridge
     t0 = time.perf_counter()
     tex = TextureRegistry(256)
@@ -639,15 +728,19 @@ def slice2(np, torch, dev, kernels, smi, profile=False):
     bridge = SceneRenderBridge(built.scene, built.meshes, built.materials,
                                caps, textures=tex)
     buf = bridge.build_scene_buffers(device=dev)
+    return built, bridge, buf, time.perf_counter() - t0
+
+
+def slice2(np, torch, dev, kernels, smi, yard, profile=False):
+    """Phase 7: bench.py's config1_minimal over the dense LOD courtyard."""
+    from basicrenderer_tpu_torch.graph.frame import build_frame_fn
+    from basicrenderer_tpu_torch.graph.framedata import (FrameConfig,
+                                                         FrameParams, make_view)
+    from basicrenderer_tpu_torch.ops import clod, lighting, raster, textures
+    built, bridge, buf, setup_s = yard
     view = make_view(*built.scene.camera_matrices(aspect=16 / 9), device=dev)
     params = FrameParams.default(dev)
-    setup_s = time.perf_counter() - t0
-    cfg = FrameConfig(width=1920, height=1080, tile_h=32, tile_w=128,
-                      max_pairs=1 << 18, max_tiles_per_tri=8,
-                      enable_clod=True, max_visible_clusters=3072,
-                      max_phase2_clusters=256, shadow_clusters=768,
-                      enable_clustered=True, enable_alpha_mask=True,
-                      enable_occlusion=True)
+    cfg = FrameConfig(**CONFIG1_MINIMAL)
     fr = build_frame_fn(cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -663,8 +756,8 @@ def slice2(np, torch, dev, kernels, smi, profile=False):
     check(launches[0] == 0, f"slice 2 launched K1 {launches[0]} times")
     check(launches[1] == 2 + 3 * (n - 1),
           f"K2 launched {launches[1]} times in {n} frames")
-    check(launches[2] == n and launches[3] == n,
-          f"K3 / K4 launched {launches[2:]} times in {n} frames")
+    check(launches[2] == n and launches[3] == n and launches[4] == 0,
+          f"K3 / K4 / K5 launched {launches[2:]} times in {n} frames")
     img, vis = out["image"], out["vis"]
     coverage = float((vis > 0).float().mean())
     check(tuple(img.shape) == (1080, 1920, 3) and img.dtype == torch.uint8,
@@ -780,28 +873,278 @@ def slice2(np, torch, dev, kernels, smi, profile=False):
         f"{counters['num_pairs']} | coverage {coverage:.4f} | peak "
         f"{peak_gib:.2f} GiB | {smi}")
     if profile:
-        profile_frames(torch, fr, (buf, view, params), out["depth_padded"],
-                       statistics.median(frame_ms))
+        prev = [out["depth_padded"]]
+
+        def step():
+            prev[0] = fr(buf, view, params, prev_depth=prev[0])["depth_padded"]
+        profile_frames(torch, step, statistics.median(frame_ms), "phase 7")
     return recs
 
+def moving_sequence(np, torch, dev, frames=4):
+    """Phase 5: the 512x512 rig over `frames` frames with TAA and SSR, the
+    camera orbiting and the cube sliding, driven by graph/temporal.py on
+    the card and on the CPU from the same scene. Returns (vis agreement,
+    image RMSE) of the last frame, the K5 launches and the CPU run's ms."""
+    from basicrenderer_tpu_torch.graph.frame import build_frame_fn
+    from basicrenderer_tpu_torch.graph.framedata import FrameConfig
+    from basicrenderer_tpu_torch.graph.temporal import TemporalState
+    from basicrenderer_tpu_torch.ops import taa_warp
+    from basicrenderer_tpu_torch.scene.components import Position
+    sc, bridge = g512_scene(np)
+    cfg = FrameConfig(width=512, height=512, tile_h=16, tile_w=128,
+                      max_pairs=1 << 15, enable_clod=True,
+                      max_visible_clusters=256, enable_taa=True,
+                      enable_ssr=True, ssr_downscale=2)
+    fr = build_frame_fn(cfg)
+    devices = (dev, torch.device("cpu"))
+    states = [TemporalState(cfg, device=d) for d in devices]
+    bufs = [bridge.build_scene_buffers(device=d) for d in devices]
+    cube0 = np.array([-1.4, 0.35, 0.6], np.float32)
+    cube = entity_at(np, sc, cube0)
+    pos0 = sc.camera_matrices(aspect=1.0)[2].copy()
+    before = taa_warp.warp_history_tiles.launches
+    cpu_ms = 0.0
+    outs = [None, None]
+    for i in range(frames):
+        orbit_camera(np, sc, pos0, np.array([0.0, 0.6, 0.0]), 0.03 * i, 1.0)
+        sc.world.set(cube, Position(cube0 + np.array([0.06 * i, 0, 0],
+                                                     np.float32)))
+        sc.propagate_transforms()
+        for k, state in enumerate(states):
+            t0 = time.perf_counter()
+            bufs[k] = bridge.update_dynamic(bufs[k])
+            view, params, kw = state.inputs(sc, bridge)
+            outs[k] = fr(bufs[k], view, params, **kw)
+            state.carry(outs[k])
+            if k == 1:
+                cpu_ms += (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    launches = taa_warp.warp_history_tiles.launches - before
+    card, cpu = outs
+    agree = float((card["vis"].cpu() == cpu["vis"]).float().mean())
+    err = rmse(card["image"].cpu().numpy(), cpu["image"].numpy())
+    check(agree >= 0.999 and err <= 1.0,
+          f"moving TAA sequence card vs CPU: vis agreement {agree}, RMSE {err}")
+    check(launches == frames - 1,
+          f"K5 launched {launches} times in a {frames}-frame sequence")
+    check(bool(torch.isfinite(card["hdr"]).all()), "non-finite HDR values")
+    return agree, err, launches, cpu_ms
 
-def profile_frames(torch, fr, args, prev, wall_ms, n=5):
-    """torch.profiler over n steady frames: device time per frame (sum of
-    kernel times on the one stream), its share of the unprofiled wall time,
-    kernel launches per frame, and the kernels by device time."""
+
+def temporal_frames(torch, np, fr, buf, built, bridge, temporal, warm, timed,
+                    pos0, target, first=0):
+    """Run warm + timed frames of an orbiting camera through `temporal`.
+    Returns (last output, frame ms list, temporal ms list, stage ms medians):
+    frame ms from the frame call to its synchronise, temporal ms the host
+    work of temporal.inputs."""
+    marks = []
+
+    def hook(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+
+    frame_ms, inputs_ms, stage_ms = [], [], {}
+    out = None
+    for i in range(first, first + warm + timed):
+        orbit_camera(np, built.scene, pos0, target, ORBIT_RAD_PER_FRAME * i,
+                     16 / 9)
+        marks.clear()
+        t0 = time.perf_counter()
+        view, params, kw = temporal.inputs(built.scene, bridge)
+        t1 = time.perf_counter()
+        out = fr(buf, view, params, stage_hook=hook, **kw)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        temporal.carry(out)
+        if i >= first + warm:
+            frame_ms.append((t2 - t1) * 1e3)
+            inputs_ms.append((t1 - t0) * 1e3)
+            for (name, a), (_, b) in zip(marks, marks[1:]):
+                stage_ms.setdefault(name, []).append(a.elapsed_time(b))
+    return out, frame_ms, inputs_ms, {k: statistics.median(v)
+                                      for k, v in stage_ms.items()}
+
+
+def slice3(np, torch, dev, kernels, smi, yard, profile=False):
+    """Phase 8: bench.py's config4_post over the dense LOD courtyard with
+    an orbiting camera; K5 alone against its plain version and grid_sample;
+    then the same run with IBL over the procedural environment."""
+    import dataclasses
+    from basicrenderer_tpu_torch.graph.frame import build_frame_fn
+    from basicrenderer_tpu_torch.graph.framedata import FrameConfig
+    from basicrenderer_tpu_torch.graph.temporal import TemporalState
+    from basicrenderer_tpu_torch.models.environment import Environment
+    from basicrenderer_tpu_torch.ops import taa_warp
+    built, bridge, buf, _setup_s = yard
+    pos0 = built.scene.camera_matrices(aspect=16 / 9)[2].copy()
+    target = np.asarray(built.scene._camera_target, np.float64)
+    cfg = FrameConfig(**CONFIG1_MINIMAL, **CONFIG4_POST)
+    warm, timed = SLICE3_FRAMES
+    n = warm + timed
+    order = ["cut", "hzb", "setup", "bin", "raster", "hzb2", "cut2", "setup2",
+             "bin2", "raster2", "mask", "gbuffer", "light_cull", "tiled_shade",
+             "shade", "ssr", "gtao", "ibl", "motion", "taa", "bloom",
+             "exposure"]
+    rec = None
+    lines = []
+    for label in ("config4_post", "config4_post + IBL"):
+        ibl = label.endswith("IBL")
+        run_cfg = dataclasses.replace(cfg, enable_ibl=True) if ibl else cfg
+        run_buf = buf
+        env_s = 0.0
+        if ibl:
+            t0 = time.perf_counter()
+            env = Environment.procedural(device=dev, use_cache=False)
+            env_s = time.perf_counter() - t0
+            run_buf = dataclasses.replace(
+                buf, env_sh=torch.as_tensor(env.sh, device=dev),
+                env_specular=torch.as_tensor(env.spec_mips, device=dev))
+        fr = build_frame_fn(run_cfg)
+        temporal = TemporalState(run_cfg, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches(kernels)
+        out, frame_ms, inputs_ms, stages = temporal_frames(
+            torch, np, fr, run_buf, built, bridge, temporal, warm, timed, pos0,
+            target)
+        launches = [k.launches for k in kernels]
+        peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        # The temporal state passes a zero previous depth on the first frame, so
+        # every frame takes phase 1, phase 2 and the mask pass; history
+        # exists from the second frame on.
+        check(launches[0] == 0, f"{label} launched K1 {launches[0]} times")
+        check(launches[1] == 3 * n, f"{label}: K2 launched {launches[1]} "
+              f"times in {n} frames")
+        check(launches[2] == n and launches[3] == n,
+              f"{label}: K3 / K4 launched {launches[2:4]} times in {n} frames")
+        check(launches[4] == n - 1, f"{label}: K5 launched {launches[4]} "
+              f"times in {n} frames")
+        img, vis = out["image"], out["vis"]
+        coverage = float((vis > 0).float().mean())
+        check(tuple(img.shape) == (1080, 1920, 3) and img.dtype == torch.uint8,
+              f"image {tuple(img.shape)} {img.dtype}")
+        check(bool(torch.isfinite(out["hdr"]).all())
+              and bool(torch.isfinite(out["taa_out"]).all()),
+              "non-finite HDR values")
+        check(0.3 < coverage < 1.0, f"coverage {coverage}")
+        check(float(img.float().std()) > 5.0, "flat image")
+        counters = {k: int(out[k]) for k in ("bin_overflow", "cluster_overflow",
+                                             "light_overflow")}
+
+        # One more frame with K5's inputs captured; K5 alone on them.
+        with Capture(taa_warp, ["warp_history_tiles"]) as wc:
+            out = temporal_frames(torch, np, fr, run_buf, built, bridge,
+                                  temporal, 1, 0, pos0, target, first=n)[0]
+        check(len(wc.calls) == 1, f"captured frame launched K5 "
+              f"{len(wc.calls)} times")
+        _name, a5, _kw, k5_out = wc.calls[0]
+        hist, tdy, tdx, th, tw = a5
+        shift = max(float(tdy.abs().max()), float(tdx.abs().max()))
+        check(shift > 0.01, f"{label}: tile motion {shift} px: the orbit "
+              "did not move the tiles")
+        k5_ms = cuda_ms(torch, lambda: taa_warp.warp_history_tiles(*a5), 20)
+        plain, k5_plain = host_ms(torch, lambda: taa_warp.warp_history_plain(
+            *a5))
+        k5_err = float((k5_out - plain).abs().max())
+        check(k5_err <= WARP_ATOL, f"{label}: K5 vs plain on the frame's "
+              f"inputs: max abs err {k5_err}")
+        lib_ms, lib_err = grid_sample_warp(torch, hist, tdy, tdx, th, tw,
+                                           plain)
+        Hp, Wp, C = hist.shape
+        b5_ms, b5_by = bound(Hp * Wp * C * WARP_FLOPS_PER_VALUE,
+                             2 * hist.numel() * 4 + 2 * tdy.numel() * 4)
+        if profile and not ibl:
+            first = [n + 1]
+
+            def step():
+                temporal_frames(torch, np, fr, run_buf, built, bridge,
+                                temporal, 1, 0, pos0, target, first=first[0])
+                first[0] += 1
+            profile_frames(torch, step, statistics.median(frame_ms),
+                           f"phase 8 {label}")
+        if rec is None:
+            rec = {"K5": {
+                "name": "warp_history_tiles (K5, TAA history warp)",
+                "route": "cuda",
+                "source": "basicrenderer_tpu_torch/csrc/taa_warp.cu",
+                "replaces": "basicrenderer_tpu/ops/taa_warp.py:44",
+                "launches": launches[4], "max_abs_err": k5_err, "ms": k5_ms,
+                "plain_ms": k5_plain, "bound_ms": b5_ms, "bound_by": b5_by,
+                "library_ms": lib_ms}}
+        lines.append(
+            f"{label}: median {statistics.median(frame_ms):.3f} ms/frame over "
+            f"{timed} (min {min(frame_ms):.3f}, max {max(frame_ms):.3f}; "
+            f"temporal state host {statistics.median(inputs_ms):.3f} ms"
+            + (f"; environment precompute {env_s:.1f} s" if ibl else "")
+            + ") | stage ms (CUDA events, median): "
+            + " ".join(f"{k} {stages[k]:.3f}" for k in order if k in stages)
+            + f" | launches per frame K1 {launches[0] / n:.2f} K2 "
+            f"{launches[1] / n:.2f} K3 {launches[2] / n:.2f} K4 "
+            f"{launches[3] / n:.2f} K5 {launches[4] / n:.2f} ({launches} in "
+            f"{n} frames) | K5 {k5_ms:.4f} ms (bound {b5_ms:.4f} ms "
+            f"{b5_by}) vs plain {k5_plain:.3f} ms vs grid_sample {lib_ms:.4f}"
+            f" ms (max diff {lib_err:.2g}), max_abs_err {k5_err:.3g}, max "
+            f"tile shift {shift:.3f} px | overflow {counters} | coverage "
+            f"{coverage:.4f} | peak {peak_gib:.2f} GiB")
+    say("phase 8 slice 3: config4_post 1920x1080 over the phase-7 courtyard, "
+        f"camera orbit {ORBIT_RAD_PER_FRAME} rad/frame | " + " || ".join(lines)
+        + f" | {smi}")
+    return rec
+
+
+def grid_sample_warp(torch, hist, tdy, tdx, th, tw, ref):
+    """(ms, max abs diff vs `ref`) of one torch grid_sample (bilinear,
+    border padding) warping (1, C, H, W) history by the same clipped
+    per-tile shifts; the grid and layout are made outside the timing. A
+    yardstick only: the port never calls it. Its normalised f32 grid
+    places samples to ~1e-4 px, so at HDR edges it differs from K5 by up
+    to ~1e-3 of the history's range."""
+    from basicrenderer_tpu_torch.ops import taa_warp
+    Hp, Wp, C = hist.shape
+    ty, tx = Hp // th, Wp // tw
+    dy = torch.clamp(tdy, -(taa_warp.PAD_Y - 2.0), taa_warp.PAD_Y - 2.0)
+    dx = torch.clamp(tdx, -(taa_warp.PAD_XL - 2.0), taa_warp.PAD_XL - 2.0)
+    dyp = dy.view(ty, tx).repeat_interleave(th, 0).repeat_interleave(tw, 1)
+    dxp = dx.view(ty, tx).repeat_interleave(th, 0).repeat_interleave(tw, 1)
+    ys = torch.arange(Hp, device=hist.device, dtype=torch.float64)[:, None]
+    xs = torch.arange(Wp, device=hist.device, dtype=torch.float64)[None, :]
+    gx = (2.0 * (xs + dxp.double() + 0.5) / Wp - 1.0).float()
+    gy = (2.0 * (ys + dyp.double() + 0.5) / Hp - 1.0).float()
+    grid = torch.stack([gx, gy], -1)[None].contiguous()
+    planes = hist.permute(2, 0, 1)[None].contiguous()
+
+    def run():
+        return torch.nn.functional.grid_sample(
+            planes, grid, mode="bilinear", padding_mode="border",
+            align_corners=False)
+
+    ms = cuda_ms(torch, run, 20)
+    err = float((run()[0].permute(1, 2, 0) - ref).abs().max())
+    scale = float(hist.abs().max())
+    check(err <= 1e-2 * scale, f"grid_sample yardstick differs from K5 by "
+          f"{err} (history range {scale})")
+    return ms, err
+
+
+def profile_frames(torch, step, wall_ms, label, n=5):
+    """torch.profiler over n calls of `step()` (one steady frame each):
+    device time per frame (sum of kernel times on the one stream), its
+    share of the unprofiled wall time, kernel launches per frame, and the
+    kernels by device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
-            prev = fr(*args, prev_depth=prev)["depth_padded"]
+            step()
         torch.cuda.synchronize()
     kern = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy = sum(e.self_device_time_total for e in kern) / 1e3 / n
     launches = sum(e.count for e in kern) / n
     top = sorted(kern, key=lambda e: e.self_device_time_total, reverse=True)
-    say(f"phase 7 profile ({n} frames, torch.profiler): device busy {busy:.3f} "
+    say(f"{label} profile ({n} frames, torch.profiler): device busy {busy:.3f} "
         f"ms/frame = {100 * busy / wall_ms:.1f}% of the unprofiled median "
         f"{wall_ms:.3f} ms | {launches:.0f} kernel launches/frame | top: "
         + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3 / n:.3f} ms"

@@ -44,7 +44,8 @@ from basicrenderer_tpu_torch.ops import raster_setup as prs
 from basicrenderer_tpu_torch.ops.shadows import downsample2d
 
 from tests.test_torch_bridge import assert_field_equal
-from tests.test_torch_cluster_frame import BASE, JAX_PKG, build_rig
+from tests.test_torch_cluster_frame import (BASE, JAX_PKG, build_rig,
+                                            wait_for_jax_native)
 from tests.test_torch_raster_setup import EXACT_LANES
 
 PLANE_LANES = ((0, 1, 2), (3, 4, 5), (6, 7, 8), (15, 16, 17), (18, 19, 20))
@@ -76,6 +77,7 @@ def test_cluster_builder_matches_jax(shape):
     from basicrenderer_tpu_torch.models import clusters as pcl, procedural as pp
     make = {"sphere": lambda m: m.make_uv_sphere(0.8, rings=24, sectors=48),
             "torus": lambda m: m.make_torus(0.5, 0.2, rings=24, sides=12)}[shape]
+    wait_for_jax_native()
     j = jcl.build_cluster_lod(make(jp), use_cache=False)
     p = pcl.build_cluster_lod(make(pp), use_cache=False)
     for f in ("positions", "normals", "uvs", "indices", "tri_cluster",
@@ -86,10 +88,14 @@ def test_cluster_builder_matches_jax(shape):
         jcl.CLUSTER_STRIDE, jcl.MESHLET_TRIS, jcl.SLAB_VERTS)
 
 
-def test_courtyard_scene_buffers_match_jax():
+def test_courtyard_scene_buffers_match_jax(tmp_path, monkeypatch):
     """build_courtyard with LOD meshes and a texture set packs to the same
     buffers in both packages (cluster pages, windows, strip atlas, material
-    texture lanes)."""
+    texture lanes). The JAX package builds its DAGs afresh, into an empty
+    cache, with its native library loaded."""
+    from basicrenderer_tpu.models import clusters as jcl
+    monkeypatch.setattr(jcl, "CACHE_DIR", str(tmp_path))
+    wait_for_jax_native()
     from basicrenderer_tpu.models import scenes as js
     from basicrenderer_tpu.models.textures import TextureRegistry as JTex
     from basicrenderer_tpu.scene import bridge as jb

@@ -45,10 +45,45 @@ COUNTERS = ("bin_overflow", "num_pairs", "cluster_overflow", "light_overflow",
             "oit_overflow")
 
 
+def wait_for_jax_native(timeout_s: float = 120.0):
+    """Load the JAX package's native QEM library, waiting for it to be
+    whole, and return it.
+
+    The JAX package builds native/libclod.so in place with g++ at first
+    use, and a checkout has none (*.so is gitignored). Under pytest-xdist
+    several workers build it at once: a worker can open a half-written
+    file (ctypes raises OSError "file too short"), or its g++ fails and
+    the package falls back to its numpy decimator, whose clusters differ
+    from the port's. Reset the package's handle and load again until the
+    library loads, within `timeout_s`; then require a real library, so a
+    fallback fails here and not as an array mismatch."""
+    import ctypes
+    import time
+    from basicrenderer_tpu.models import clusters as jcl
+    deadline = time.monotonic() + timeout_s
+    while True:
+        try:
+            lib = jcl._load_native()
+        except OSError:
+            lib = None
+        if isinstance(lib, ctypes.CDLL) or time.monotonic() > deadline:
+            break
+        jcl._NATIVE = None
+        time.sleep(0.5)
+    assert isinstance(lib, ctypes.CDLL), (
+        f"the JAX package's native QEM library did not load within "
+        f"{timeout_s} s (got {lib!r})")
+    return lib
+
+
 def build_rig(root):
-    """(scene, bridge) of the rig, from `root`'s own modules."""
+    """(scene, bridge) of the rig, from `root`'s own modules. The LOD
+    sphere is built afresh (no DAG cache), with the JAX package's native
+    library loaded first."""
     def mod(name):
         return importlib.import_module(f"{root}.{name}")
+    if root == JAX_PKG:
+        wait_for_jax_native()
     clusters, procedural = mod("models.clusters"), mod("models.procedural")
     materials, br = mod("models.materials"), mod("scene.bridge")
     Material = materials.Material
@@ -63,7 +98,8 @@ def build_rig(root):
                               np.full((r, r), 0.2, np.float32), hole]),
                    srgb=False)
     sphere = meshes.add(clusters.to_mesh_data(clusters.build_cluster_lod(
-        procedural.make_uv_sphere(0.8, rings=24, sectors=48))))
+        procedural.make_uv_sphere(0.8, rings=24, sectors=48),
+        use_cache=False)))
     plane = meshes.add(procedural.make_plane(8.0, 2))
     cube = meshes.add(procedural.make_cube(0.7))
     quad = meshes.add(procedural.make_plane(1.2, 1))

@@ -96,8 +96,8 @@ def test_frame_with_local_lights_matches_jax():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("enable_gtao", True), ("enable_ssr", True), ("enable_shadows", True),
-    ("enable_ibl", True), ("enable_bloom", True), ("enable_taa", True),
+    ("enable_vsm", True), ("enable_reyes", True), ("enable_shadows", True),
+    ("enable_voxel_rt", True), ("enable_coat", True), ("enable_skinning", True),
     ("enable_oit", True), ("enable_textures", True), ("debug_view", "normals"),
     ("wireframe", True), ("enable_vertex_tangents", True),
     ("output_width", 256),

@@ -29,9 +29,11 @@ def test_port_never_imports_jax():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     out = json.loads(res.stdout.strip().splitlines()[-1])
-    for mod in ("graph.frame", "graph.framedata", "ops.raster",
+    for mod in ("graph.frame", "graph.framedata", "graph.temporal", "ops.raster",
                 "ops.raster_setup", "ops.shade", "ops.culling", "ops.clod",
-                "ops.lighting", "ops.textures", "ops.shadows",
+                "ops.lighting", "ops.textures", "ops.shadows", "ops.post",
+                "ops.motion", "ops.taa_warp", "ops.ssr", "ops.ibl",
+                "models.environment",
                 "models.clusters", "models.pageblob", "models.scenes",
                 "models.textures", "scene.bridge", "interop",
                 "utils.cuda_build"):
