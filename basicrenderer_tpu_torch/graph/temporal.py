@@ -49,14 +49,13 @@ class TemporalState:
         self.prev_viewproj: Optional[np.ndarray] = None
         self.prev_object_mats: Optional[np.ndarray] = None
 
-    def inputs(self, scene, bridge, frame_index: int = None
+    def inputs(self, scene, bridge
                ) -> Tuple[ViewData, FrameParams, Dict[str, object]]:
-        """(view, params, frame kwargs) for the frame `frame_index`
-        (default: its own count) of `scene`'s camera. Records this
-        frame's un-jittered view-projection and object matrices for the
-        next frame's motion."""
+        """(view, params, frame kwargs) for this state's current frame of
+        `scene`'s camera. Records this frame's un-jittered view-projection
+        and object matrices for the next frame's motion."""
         cfg = self.config
-        fi = self.frame_index if frame_index is None else int(frame_index)
+        fi = self.frame_index
         view_np, proj_np, cam_pos = scene.camera_matrices(
             aspect=cfg.width / cfg.height)
         vp_unjit = (proj_np @ view_np).astype(np.float32)

@@ -28,8 +28,7 @@ MAX_MOVING = 16   # budget for per-object motion corrections per frame
 def motion_field(depth: torch.Tensor, combo_ch: torch.Tensor, view: ViewData,
                  prev_viewproj: torch.Tensor, moving_rel: torch.Tensor,
                  moving_ids: torch.Tensor, config: FrameConfig,
-                 ds: int = 2, row0: int = 0, full_h: int = None,
-                 full_w: int = None
+                 ds: int = 2, full_h: int = None, full_w: int = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
     """Returns (du, dv, valid, effective_ds) at 1/ds rate, in full-rate
     pixel units: (du, dv) = previous screen xy - current screen xy.
@@ -51,7 +50,7 @@ def motion_field(depth: torch.Tensor, combo_ch: torch.Tensor, view: ViewData,
     dev = d.device
 
     sx = _iota(w, 1, (h, w), dev) * ds + 0.5
-    sy = _iota(h, 0, (h, w), dev) * ds + 0.5 + row0
+    sy = _iota(h, 0, (h, w), dev) * ds + 0.5
     ndc_x = sx / full_w * 2.0 - 1.0
     ndc_y = 1.0 - sy / full_h * 2.0
     inv_vp = _inverse(view.viewproj)
@@ -70,7 +69,7 @@ def motion_field(depth: torch.Tensor, combo_ch: torch.Tensor, view: ViewData,
     front = cw > 1e-6
     qi = 1.0 / torch.where(front, cw, 1.0)
     prev_sx = (cx * qi * 0.5 + 0.5) * full_w
-    prev_sy = (0.5 - cy * qi * 0.5) * full_h - row0
+    prev_sy = (0.5 - cy * qi * 0.5) * full_h
     du = prev_sx - sx
     dv = prev_sy - sy
     valid = (d > 0.0) & front

@@ -130,8 +130,9 @@ def luminance_histogram(hdr: torch.Tensor, bins: int = 256,
                         downscale: int = 4) -> torch.Tensor:
     """(bins,) i32 counts of log2 luminance over the image point-sampled
     every `downscale` pixels, each sample counting downscale^2 pixels.
-    `torch.bincount` gives the integer counts the JAX package sums from a
-    one-hot matrix."""
+    An integer scatter-add gives the counts the JAX package sums from a
+    one-hot matrix, with no read-back (`torch.bincount` reads its largest
+    index back to the host)."""
     lum = hdr[..., 0] * 0.2126 + hdr[..., 1] * 0.7152 + hdr[..., 2] * 0.0722
     ds = downscale
     h, w = lum.shape
@@ -140,7 +141,9 @@ def luminance_histogram(hdr: torch.Tensor, bins: int = 256,
     loglum = torch.log2(torch.clamp(lum, min=1e-6))
     t = torch.clamp((loglum - log_min) / (log_max - log_min), 0.0, 1.0)
     idx = torch.clamp((t * bins).to(torch.int32), 0, bins - 1)
-    counts = torch.bincount(idx.reshape(-1), minlength=bins)
+    idx = idx.reshape(-1).to(torch.int64)
+    counts = torch.zeros(bins, dtype=torch.int64, device=idx.device) \
+        .scatter_add_(0, idx, torch.ones_like(idx))
     return (counts * (downscale * downscale)).to(torch.int32)
 
 

@@ -26,7 +26,7 @@ from .textures import resize_bilinear
 
 def ssr(hdr: torch.Tensor, depth: torch.Tensor, normal: torch.Tensor,
         roughness: torch.Tensor, metallic: torch.Tensor, view: ViewData,
-        config: FrameConfig, row0: int = 0, full_h: int = None):
+        config: FrameConfig, full_h: int = None):
     """Returns (reflection (H, W, 3), weight (H, W)) to composite into the
     specular term. All inputs full-rate; the march runs at
     config.ssr_downscale."""
@@ -45,7 +45,7 @@ def ssr(hdr: torch.Tensor, depth: torch.Tensor, normal: torch.Tensor,
     rg = downsample2d(roughness, ds)
 
     sx = _iota(w, 1, (h, w), dev) * ds + 0.5
-    sy = _iota(h, 0, (h, w), dev) * ds + 0.5 + row0
+    sy = _iota(h, 0, (h, w), dev) * ds + 0.5
     ndc_x = sx / W * 2.0 - 1.0
     ndc_y = 1.0 - sy / full_h * 2.0
     inv_vp = _inverse(view.viewproj)
@@ -69,7 +69,7 @@ def ssr(hdr: torch.Tensor, depth: torch.Tensor, normal: torch.Tensor,
         view.viewproj, px + rx * dist, py + ry * dist, pz + rz * dist)
     wv = torch.where(torch.abs(cw) > 1e-6, cw, 1e-6)
     ex = (cx / wv * 0.5 + 0.5) * W
-    ey = (0.5 - cy / wv * 0.5) * full_h - row0
+    ey = (0.5 - cy / wv * 0.5) * full_h
     ez = cz / wv
     behind = cw <= 1e-4
 

@@ -62,8 +62,8 @@ def warp_history(history: torch.Tensor, tile_dy: torch.Tensor,
                  ) -> torch.Tensor:
     """history (H, W, C) + per-tile fractional motion (T,) each, in
     row-major tile order -> warped history (H, W, C). H and W must be tile
-    multiples (callers pass the padded frame)."""
-    _check_inputs(history, tile_dy, tile_dx, tile_h, tile_w)
+    multiples (callers pass the padded frame). Each implementation checks
+    its inputs."""
     dev = history.device
     if dev.type == "cuda":
         return warp_history_tiles(history, tile_dy, tile_dx, tile_h, tile_w)

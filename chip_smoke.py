@@ -21,8 +21,8 @@ Run from the root of a checkout. Phases, one line each:
     g512_occlusion.png, g512_clustered.png, g512_gtao_bloom.png,
     g512_taa.png and g512_ssr.png, its alpha-MASK frame on the card
     against the port on the CPU, and a 4-frame moving-camera TAA + SSR
-    sequence (graph/temporal.py, motion-vector resolve) on the card
-    against the same sequence on the CPU;
+    sequence (graph/temporal.py, motion-vector resolve), once without and
+    once with IBL, on the card against the same sequence on the CPU;
  6. slice 1 at full size: the triangle-soup frame of a ~1.36M-triangle
     courtyard at 1920x1080, timed, K1 timed against its plain version;
  7. slice 2 at full size: the cluster-LOD frame of bench.py's
@@ -574,14 +574,17 @@ def main():
     m_rmse = rmse(mo["image"].cpu().numpy(), mo_cpu["image"].numpy())
     check(m_agree >= 0.999 and m_rmse <= 1.0,
           f"alpha-mask frame card vs CPU: vis agreement {m_agree}, RMSE {m_rmse}")
-    s_agree, s_rmse, s_k5, s_ms = moving_sequence(np, torch, dev)
+    seqs = []
+    for label, ibl in (("TAA + SSR", False), ("TAA + SSR + IBL", True)):
+        s_agree, s_rmse, s_k5, s_ms = moving_sequence(np, torch, dev, ibl)
+        seqs.append(f"{label}: vis agreement {s_agree:.5f}, RMSE "
+                    f"{s_rmse:.4f}, K5 launches {s_k5}, CPU {s_ms / 1e3:.1f} s")
     say("phase 5 cluster rig 512x512: " + ", ".join(
         f"{k} RMSE {v:.4f}" for k, v in goldens.items())
         + f" (limit {GOLDEN_RMSE_MAX}); alpha-MASK frame card vs CPU: vis "
         f"agreement {m_agree:.5f}, RMSE {m_rmse:.4f} (limits 0.999, 1.0); "
-        f"moving-camera TAA + SSR sequence, 4 frames, last frame card vs CPU:"
-        f" vis agreement {s_agree:.5f}, RMSE {s_rmse:.4f} (limits 0.999, "
-        f"1.0), K5 launches {s_k5}, CPU {s_ms / 1e3:.1f} s")
+        "moving-camera sequences, 4 frames, last frame card vs CPU (limits "
+        "0.999, 1.0): " + "; ".join(seqs))
     if quick:
         say(f"quick run: phases 6-8 skipped; {time.perf_counter() - t_start:.1f} s")
         return 0
@@ -604,46 +607,16 @@ def main():
     return 0
 
 
-def timed_frames(torch, fr, args, warm, timed, prev_key=None):
-    """Run warm + timed frames, feeding `prev_key` output back as
-    prev_depth. Returns (last output, frame ms list, stage ms medians)."""
-    marks = []
-
-    def hook(name):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        marks.append((name, ev))
-
-    frame_ms, stage_ms = [], {}
-    prev = None
-    out = None
-    for i in range(warm + timed):
-        marks.clear()
-        t0 = time.perf_counter()
-        out = fr(*args, prev_depth=prev, stage_hook=hook) if prev_key else \
-            fr(*args, stage_hook=hook)
-        torch.cuda.synchronize()
-        dt = (time.perf_counter() - t0) * 1e3
-        if prev_key:
-            prev = out[prev_key]
-        if i >= warm:
-            frame_ms.append(dt)
-            for (name, a), (_, b) in zip(marks, marks[1:]):
-                stage_ms.setdefault(name, []).append(a.elapsed_time(b))
-    return out, frame_ms, {k: statistics.median(v) for k, v in stage_ms.items()}
-
-
 def slice1(np, torch, dev, kernels):
     """Phase 6: the soup frame at full size; K1 timed alone and plain."""
     from basicrenderer_tpu_torch.graph.frame import build_frame_fn, geometry_pass
-    from basicrenderer_tpu_torch.graph.framedata import (FrameConfig,
-                                                         FrameParams, make_view)
+    from basicrenderer_tpu_torch.graph.framedata import FrameConfig, make_view
+    from basicrenderer_tpu_torch.graph.temporal import TemporalState
     from basicrenderer_tpu_torch.ops import raster
     t0 = time.perf_counter()
     sc, bridge, ntris = soup_courtyard(np)
     buf = bridge.build_scene_buffers(device=dev)
     view = make_view(*sc.camera_matrices(aspect=16 / 9), device=dev)
-    params = FrameParams.default(dev)
     setup_s = time.perf_counter() - t0
     cfg = FrameConfig(width=1920, height=1080, tile_h=32, tile_w=128,
                       max_pairs=1 << 22, near_clip_tris=4096)
@@ -652,8 +625,9 @@ def slice1(np, torch, dev, kernels):
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launches(kernels)
     warm, timed = SLICE1_FRAMES
-    out, frame_ms, stages = timed_frames(torch, fr, (buf, view, params),
-                                         warm, timed)
+    out, frame_ms, _, stages = timed_frames(
+        torch, np, fr, buf, sc, bridge, TemporalState(cfg, device=dev), warm,
+        timed)
     launches = [k.launches for k in kernels]
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     check(launches[0] == warm + timed,
@@ -736,6 +710,7 @@ def slice2(np, torch, dev, kernels, smi, yard, profile=False):
     from basicrenderer_tpu_torch.graph.frame import build_frame_fn
     from basicrenderer_tpu_torch.graph.framedata import (FrameConfig,
                                                          FrameParams, make_view)
+    from basicrenderer_tpu_torch.graph.temporal import TemporalState
     from basicrenderer_tpu_torch.ops import clod, lighting, raster, textures
     built, bridge, buf, setup_s = yard
     view = make_view(*built.scene.camera_matrices(aspect=16 / 9), device=dev)
@@ -746,15 +721,16 @@ def slice2(np, torch, dev, kernels, smi, yard, profile=False):
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launches(kernels)
     warm, timed = SLICE2_FRAMES
-    out, frame_ms, stages = timed_frames(torch, fr, (buf, view, params), warm,
-                                         timed, prev_key="depth_padded")
+    out, frame_ms, _, stages = timed_frames(
+        torch, np, fr, buf, built.scene, bridge, TemporalState(cfg, device=dev),
+        warm, timed)
     launches = [k.launches for k in kernels]
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     n = warm + timed
-    # Frame 1 (no previous depth) takes one group raster; the rest take
-    # phase 1, phase 2 and the mask pass.
+    # The temporal state passes a zero previous depth on the first frame, so
+    # every frame takes phase 1, phase 2 and the mask pass.
     check(launches[0] == 0, f"slice 2 launched K1 {launches[0]} times")
-    check(launches[1] == 2 + 3 * (n - 1),
+    check(launches[1] == 3 * n,
           f"K2 launched {launches[1]} times in {n} frames")
     check(launches[2] == n and launches[3] == n and launches[4] == 0,
           f"K3 / K4 / K5 launched {launches[2:]} times in {n} frames")
@@ -880,25 +856,32 @@ def slice2(np, torch, dev, kernels, smi, yard, profile=False):
         profile_frames(torch, step, statistics.median(frame_ms), "phase 7")
     return recs
 
-def moving_sequence(np, torch, dev, frames=4):
-    """Phase 5: the 512x512 rig over `frames` frames with TAA and SSR, the
-    camera orbiting and the cube sliding, driven by graph/temporal.py on
-    the card and on the CPU from the same scene. Returns (vis agreement,
-    image RMSE) of the last frame, the K5 launches and the CPU run's ms."""
+def moving_sequence(np, torch, dev, ibl, frames=4):
+    """Phase 5: the 512x512 rig over `frames` frames with TAA and SSR (and
+    with `ibl`, image-based lighting over the procedural environment, one
+    precompute on the card feeding both runs), the camera orbiting and the
+    cube sliding, driven by graph/temporal.py on the card and on the CPU
+    from the same scene. Returns (vis agreement, image RMSE) of the last
+    frame, the K5 launches and the CPU run's ms."""
     from basicrenderer_tpu_torch.graph.frame import build_frame_fn
     from basicrenderer_tpu_torch.graph.framedata import FrameConfig
     from basicrenderer_tpu_torch.graph.temporal import TemporalState
+    from basicrenderer_tpu_torch.models.environment import Environment
     from basicrenderer_tpu_torch.ops import taa_warp
     from basicrenderer_tpu_torch.scene.components import Position
     sc, bridge = g512_scene(np)
     cfg = FrameConfig(width=512, height=512, tile_h=16, tile_w=128,
                       max_pairs=1 << 15, enable_clod=True,
                       max_visible_clusters=256, enable_taa=True,
-                      enable_ssr=True, ssr_downscale=2)
+                      enable_ssr=True, ssr_downscale=2, enable_ibl=ibl)
+    env = {}
+    if ibl:
+        e = Environment.procedural(device=dev, use_cache=False)
+        env = dict(env_sh=e.sh, env_specular=e.spec_mips)
     fr = build_frame_fn(cfg)
     devices = (dev, torch.device("cpu"))
     states = [TemporalState(cfg, device=d) for d in devices]
-    bufs = [bridge.build_scene_buffers(device=d) for d in devices]
+    bufs = [bridge.build_scene_buffers(**env, device=d) for d in devices]
     cube0 = np.array([-1.4, 0.35, 0.6], np.float32)
     cube = entity_at(np, sc, cube0)
     pos0 = sc.camera_matrices(aspect=1.0)[2].copy()
@@ -924,19 +907,22 @@ def moving_sequence(np, torch, dev, frames=4):
     agree = float((card["vis"].cpu() == cpu["vis"]).float().mean())
     err = rmse(card["image"].cpu().numpy(), cpu["image"].numpy())
     check(agree >= 0.999 and err <= 1.0,
-          f"moving TAA sequence card vs CPU: vis agreement {agree}, RMSE {err}")
+          f"moving TAA sequence (IBL {ibl}) card vs CPU: vis agreement "
+          f"{agree}, RMSE {err}")
     check(launches == frames - 1,
           f"K5 launched {launches} times in a {frames}-frame sequence")
     check(bool(torch.isfinite(card["hdr"]).all()), "non-finite HDR values")
     return agree, err, launches, cpu_ms
 
 
-def temporal_frames(torch, np, fr, buf, built, bridge, temporal, warm, timed,
-                    pos0, target, first=0):
-    """Run warm + timed frames of an orbiting camera through `temporal`.
-    Returns (last output, frame ms list, temporal ms list, stage ms medians):
-    frame ms from the frame call to its synchronise, temporal ms the host
-    work of temporal.inputs."""
+def timed_frames(torch, np, fr, buf, scene, bridge, temporal, warm, timed,
+                 orbit=None, first=0):
+    """Run warm + timed frames of `scene` with the inputs of `temporal`
+    (graph/temporal.py). With `orbit` = (pos0, target, aspect) the camera
+    turns ORBIT_RAD_PER_FRAME per frame about the vertical through target;
+    without, it stays. Returns (last output, frame ms list, temporal ms
+    list, stage ms medians): frame ms from the frame call to its
+    synchronise, temporal ms the host work of temporal.inputs."""
     marks = []
 
     def hook(name):
@@ -947,11 +933,13 @@ def temporal_frames(torch, np, fr, buf, built, bridge, temporal, warm, timed,
     frame_ms, inputs_ms, stage_ms = [], [], {}
     out = None
     for i in range(first, first + warm + timed):
-        orbit_camera(np, built.scene, pos0, target, ORBIT_RAD_PER_FRAME * i,
-                     16 / 9)
+        if orbit is not None:
+            pos0, target, aspect = orbit
+            orbit_camera(np, scene, pos0, target, ORBIT_RAD_PER_FRAME * i,
+                         aspect)
         marks.clear()
         t0 = time.perf_counter()
-        view, params, kw = temporal.inputs(built.scene, bridge)
+        view, params, kw = temporal.inputs(scene, bridge)
         t1 = time.perf_counter()
         out = fr(buf, view, params, stage_hook=hook, **kw)
         torch.cuda.synchronize()
@@ -979,6 +967,7 @@ def slice3(np, torch, dev, kernels, smi, yard, profile=False):
     built, bridge, buf, _setup_s = yard
     pos0 = built.scene.camera_matrices(aspect=16 / 9)[2].copy()
     target = np.asarray(built.scene._camera_target, np.float64)
+    orbit = (pos0, target, 16 / 9)
     cfg = FrameConfig(**CONFIG1_MINIMAL, **CONFIG4_POST)
     warm, timed = SLICE3_FRAMES
     n = warm + timed
@@ -1005,9 +994,9 @@ def slice3(np, torch, dev, kernels, smi, yard, profile=False):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         reset_launches(kernels)
-        out, frame_ms, inputs_ms, stages = temporal_frames(
-            torch, np, fr, run_buf, built, bridge, temporal, warm, timed, pos0,
-            target)
+        out, frame_ms, inputs_ms, stages = timed_frames(
+            torch, np, fr, run_buf, built.scene, bridge, temporal, warm, timed,
+            orbit)
         launches = [k.launches for k in kernels]
         peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
         # The temporal state passes a zero previous depth on the first frame, so
@@ -1034,8 +1023,8 @@ def slice3(np, torch, dev, kernels, smi, yard, profile=False):
 
         # One more frame with K5's inputs captured; K5 alone on them.
         with Capture(taa_warp, ["warp_history_tiles"]) as wc:
-            out = temporal_frames(torch, np, fr, run_buf, built, bridge,
-                                  temporal, 1, 0, pos0, target, first=n)[0]
+            out = timed_frames(torch, np, fr, run_buf, built.scene, bridge,
+                               temporal, 1, 0, orbit, first=n)[0]
         check(len(wc.calls) == 1, f"captured frame launched K5 "
               f"{len(wc.calls)} times")
         _name, a5, _kw, k5_out = wc.calls[0]
@@ -1058,8 +1047,8 @@ def slice3(np, torch, dev, kernels, smi, yard, profile=False):
             first = [n + 1]
 
             def step():
-                temporal_frames(torch, np, fr, run_buf, built, bridge,
-                                temporal, 1, 0, pos0, target, first=first[0])
+                timed_frames(torch, np, fr, run_buf, built.scene, bridge,
+                             temporal, 1, 0, orbit, first=first[0])
                 first[0] += 1
             profile_frames(torch, step, statistics.median(frame_ms),
                            f"phase 8 {label}")

@@ -14,6 +14,7 @@ Tolerances:
 """
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -64,7 +65,7 @@ def fields():
         torch.as_tensor(s["depth"]), torch.as_tensor(s["combo"]), s["pview"],
         torch.as_tensor(s["prev_vp"]), torch.as_tensor(s["rel"]),
         torch.as_tensor(s["ids"]), FrameConfig(**cfg))
-    j = jmotion.motion_field(
+    j = jax.jit(jmotion.motion_field, static_argnums=6)(
         jnp.asarray(s["depth"]), jnp.asarray(s["combo"]), s["jview"],
         jnp.asarray(s["prev_vp"]), jnp.asarray(s["rel"]),
         jnp.asarray(s["ids"]), JConfig(**cfg))

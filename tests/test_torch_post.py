@@ -43,22 +43,24 @@ def _hdr(seed, h=48, w=80):
 def test_blur_and_resample_pieces_match_jax(shape):
     x = _hdr(1, *shape)
     t = torch.as_tensor(x)
-    _close(ppost._downsample2(t), jpost._downsample2(jnp.asarray(x)))
-    _close(ppost._blur3(t), jpost._blur3(jnp.asarray(x)))
+    _close(ppost._downsample2(t), jax.jit(jpost._downsample2)(jnp.asarray(x)))
+    _close(ppost._blur3(t), jax.jit(jpost._blur3)(jnp.asarray(x)))
     planes = np.ascontiguousarray(x.transpose(2, 0, 1))
     tp = torch.as_tensor(planes)
-    _close(ppost._down2_p(tp), jpost._down2_p(jnp.asarray(planes)))
-    _close(ppost._blur3_p(tp), jpost._blur3_p(jnp.asarray(planes)))
+    _close(ppost._down2_p(tp), jax.jit(jpost._down2_p)(jnp.asarray(planes)))
+    _close(ppost._blur3_p(tp), jax.jit(jpost._blur3_p)(jnp.asarray(planes)))
     h, w = shape
     _close(ppost._up2_p(tp, 2 * h + 1, 2 * w + 3),
-           jpost._up2_p(jnp.asarray(planes), 2 * h + 1, 2 * w + 3))
+           jax.jit(jpost._up2_p, static_argnums=(1, 2))(
+               jnp.asarray(planes), 2 * h + 1, 2 * w + 3))
 
 
 @pytest.mark.parametrize("size", [(64, 96), (54, 90)])
 def test_bloom_matches_jax(size):
     x = _hdr(2, *size) * 3.0
     p = ppost.bloom(torch.as_tensor(x), torch.tensor(1.0), torch.tensor(0.04))
-    j = jpost.bloom(jnp.asarray(x), jnp.float32(1.0), jnp.float32(0.04))
+    j = jax.jit(jpost.bloom)(jnp.asarray(x), jnp.float32(1.0),
+                             jnp.float32(0.04))
     _close(p, j, rtol=1e-5, atol=1e-6)
     assert float((p - torch.as_tensor(x)).abs().max()) > 1e-3
 
@@ -66,14 +68,15 @@ def test_bloom_matches_jax(size):
 def test_luminance_histogram_and_exposure_match_jax():
     x = _hdr(3, 64, 128)
     p = ppost.luminance_histogram(torch.as_tensor(x))
-    j = np.asarray(jpost.luminance_histogram(jnp.asarray(x)))
+    j = np.asarray(jax.jit(jpost.luminance_histogram)(jnp.asarray(x)))
     np.testing.assert_array_equal(p.numpy(), j)
     assert p.dtype == torch.int32 and int(p.sum()) == 64 * 128
     for bins, lo, hi in ((256, -10.0, 6.0), (64, -8.0, 4.0)):
         pe = ppost.auto_exposure(torch.as_tensor(x), bins=bins, log_min=lo,
                                  log_max=hi)
-        je = jpost.auto_exposure(jnp.asarray(x), bins=bins, log_min=lo,
-                                 log_max=hi)
+        je = jax.jit(jpost.auto_exposure,
+                     static_argnames=("bins", "log_min", "log_max"))(
+            jnp.asarray(x), bins=bins, log_min=lo, log_max=hi)
         np.testing.assert_allclose(float(pe), float(je), rtol=1e-4)
 
 
@@ -115,9 +118,10 @@ def test_gtao_matches_jax(frame_index):
     p = ppost.gtao(torch.as_tensor(sc["depth"]), torch.as_tensor(sc["normal"]),
                    pv, pv.near, torch.tensor(0.5), torch.tensor(1.0),
                    torch.tensor(frame_index, dtype=torch.int32))
-    j = jpost.gtao(jnp.asarray(sc["depth"]), jnp.asarray(sc["normal"]), jv,
-                   jv.near, jnp.float32(0.5), jnp.float32(1.0),
-                   jnp.int32(frame_index))
+    j = jax.jit(jpost.gtao)(jnp.asarray(sc["depth"]),
+                            jnp.asarray(sc["normal"]), jv, jv.near,
+                            jnp.float32(0.5), jnp.float32(1.0),
+                            jnp.int32(frame_index))
     np.testing.assert_allclose(p.numpy(), np.asarray(j), atol=1e-4)
     assert float(p.min()) < 0.9   # the wall occludes the floor's corner
 
@@ -166,9 +170,10 @@ def test_taa_resolve_mv_matches_jax():
     p = ppost.taa_resolve_mv(torch.as_tensor(cur), torch.as_tensor(hist),
                              torch.tensor(0.1), torch.as_tensor(dy),
                              torch.as_tensor(dx), torch.as_tensor(resid), th, tw)
-    j = jpost.taa_resolve_mv(jnp.asarray(cur), jnp.asarray(hist),
-                             jnp.float32(0.1), jnp.asarray(dy), jnp.asarray(dx),
-                             jnp.asarray(resid), th, tw, use_kernel=False)
+    j = jax.jit(jpost.taa_resolve_mv, static_argnums=(6, 7),
+                static_argnames=("use_kernel",))(
+        jnp.asarray(cur), jnp.asarray(hist), jnp.float32(0.1), jnp.asarray(dy),
+        jnp.asarray(dx), jnp.asarray(resid), th, tw, use_kernel=False)
     np.testing.assert_allclose(p.numpy(), np.asarray(j), atol=1e-5)
     # Rejected pixels take the current frame.
     rej = ppost.resize_nearest(torch.as_tensor(resid), H, W) > 1.5

@@ -26,11 +26,11 @@ from basicrenderer_tpu.graph.frame import build_frame_fn as j_build_frame_fn
 from basicrenderer_tpu.graph.framedata import FrameConfig as JConfig
 from basicrenderer_tpu.graph.framedata import FrameParams as JParams
 from basicrenderer_tpu.graph.framedata import make_view as j_make_view
-from basicrenderer_tpu.models.environment import Environment as JEnvironment
-from basicrenderer_tpu.ops import ibl as jibl
 from basicrenderer_tpu_torch.graph.frame import build_frame_fn
 from basicrenderer_tpu_torch.graph.framedata import FrameConfig
 from basicrenderer_tpu_torch.graph.temporal import TemporalState
+from basicrenderer_tpu_torch.models.environment import Environment
+from basicrenderer_tpu_torch.ops.ibl import make_procedural_environment
 
 from tests.test_torch_cluster_frame import JAX_PKG, PORT_PKG, build_rig
 
@@ -62,14 +62,20 @@ def _move(sc, root, i):
 
 @pytest.fixture(scope="module")
 def environment():
-    """One precomputed procedural environment (16^2 cubemap) for both."""
-    env = JEnvironment.precompute(
-        np.asarray(jibl.make_procedural_environment(16)), use_cache=False)
+    """One precomputed procedural environment (16^2 cubemap) for both:
+    the port's precompute, which tests/test_torch_ibl.py holds to the JAX
+    package's."""
+    env = Environment.precompute(make_procedural_environment(16).numpy(),
+                                 use_cache=False, device="cpu")
     return dict(env_sh=env.sh, env_specular=env.spec_mips)
 
 
 @pytest.fixture(scope="module")
 def sequences(environment):
+    """Per toggle set: the 3 frames' (port kwargs, moved ids, JAX outputs,
+    port outputs). Each package's rig is built once; frame 0 puts the
+    camera and the cube back where every sequence starts."""
+    (jsc, jb), (psc, pb) = build_rig(JAX_PKG), build_rig(PORT_PKG)
     cache = {}
 
     def get(name):
@@ -77,8 +83,6 @@ def sequences(environment):
             return cache[name]
         flags = TOGGLES[name]
         env = environment if flags.get("enable_ibl") else {}
-        jsc, jb = build_rig(JAX_PKG)
-        psc, pb = build_rig(PORT_PKG)
         jcfg = JConfig(**BASE, **flags, use_pallas_raster=False)
         pcfg = FrameConfig(**BASE, **flags)
         jf = jax.jit(j_build_frame_fn(jcfg))

@@ -16,6 +16,7 @@ two packages differs in its last bits. So:
 """
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -75,7 +76,8 @@ def _both(sc, **cfg):
     jc = JConfig(width=W, height=H, **cfg)
     names = ("hdr", "depth", "normal", "roughness", "metallic")
     p = pssr.ssr(*(torch.as_tensor(sc[k]) for k in names), sc["pview"], pc)
-    j = jssr.ssr(*(jnp.asarray(sc[k]) for k in names), sc["jview"], jc)
+    j = jax.jit(jssr.ssr, static_argnums=6)(
+        *(jnp.asarray(sc[k]) for k in names), sc["jview"], jc)
     return [x.numpy() for x in p], [np.asarray(x) for x in j]
 
 
