@@ -19,7 +19,19 @@ Ported paths:
   buffers (K2 seeded);
 - the alpha-MASK pass (enable_alpha_mask): masked clusters raster into
   their own buffers, base-texture alpha is sampled at texture_downscale
-  (K4) and surviving texels depth-merge into the opaque targets;
+  (K4; full rate at texture_downscale 1) and surviving texels
+  depth-merge into the opaque targets;
+- material textures (enable_textures): the channels of
+  FrameConfig.tex_channels (base colour + alpha, tangent-space normal,
+  metallic-roughness, emissive) in one block-window sampler call (K4, on
+  the RGBA8 or the BC3 atlas of FrameConfig.tex_format), at
+  texture_downscale and bilinearly upsampled, or at full rate; normal
+  maps perturb the G-buffer normals through the derivative tangent
+  frame;
+- virtual shadow maps (enable_vsm, with a `vsm_state`): one clipmapped
+  page cache per VSM'd directional light (ops/vsm.py), dirty pages
+  rastered through the cluster path, the shadow term multiplying each
+  directional light;
 - clustered lighting (enable_clustered): per-tile light culling and the
   tiled local-light shading (K3), directional lights full-screen.
 Then G-buffer -> deferred shade -> sky, and the post stack: screen-space
@@ -30,7 +42,7 @@ Fresnel-at-normal tint and AO darkens the lit frame), TAA (enable_taa:
 with `prev_viewproj` the motion-vector resolve, whose per-tile history
 warp is K5, else the static resolve), bloom (enable_bloom), auto-exposure
 (enable_auto_exposure) -> ACES -> sRGB. graph/temporal.py drives the TAA
-inputs from frame to frame.
+inputs (and the VSM state) from frame to frame.
 
 Every other structural toggle raises NotImplementedError naming its field.
 """
@@ -47,8 +59,10 @@ from ..ops import culling, ibl, lighting, motion, post, raster_setup
 from ..ops import shade as shade_ops
 from ..ops import ssr as ssr_ops
 from ..ops import textures as tex_ops
+from ..ops import vsm as vsm_ops
 from ..ops.raster import raster_tiles
 from ..ops.shadows import downsample2d
+from ..utils import math3d
 from .framedata import FrameConfig, FrameParams, SceneBuffers, ViewData
 
 # FrameConfig fields that switch on passes this port does not have yet,
@@ -56,9 +70,9 @@ from .framedata import FrameConfig, FrameParams, SceneBuffers, ViewData
 # fuzz and energy branches of the IBL composite stay behind their fields
 # here.
 _UNPORTED_TOGGLES = (
-    ("enable_textures", False), ("enable_texture_streaming", False),
+    ("enable_texture_streaming", False),
     ("enable_shadows", False), ("max_shadow_lights", 0),
-    ("max_shadow_cubes", 0), ("enable_vsm", False),
+    ("max_shadow_cubes", 0),
     ("enable_oit", False), ("enable_skinning", False),
     ("enable_reyes", False), ("enable_voxel_rt", False),
     ("enable_voxel_fallback", False), ("enable_rt_reflect", False),
@@ -68,8 +82,9 @@ _UNPORTED_TOGGLES = (
     ("enable_coat", False), ("enable_fuzz", False),
     ("enable_energy_comp", False), ("enable_sss", False),
     ("enable_aniso", False), ("enable_transmission", False),
-    ("cut_windows", 0), ("mask_peels", 1), ("tex_format", "rgba8"),
+    ("cut_windows", 0), ("mask_peels", 1),
 )
+_TEX_LANE = {"base": 0, "normal": 1, "mr": 2, "emissive": 3}
 
 
 def check_config(config: FrameConfig) -> None:
@@ -84,13 +99,6 @@ def check_config(config: FrameConfig) -> None:
         raise NotImplementedError(
             "object-granular two-phase occlusion of the soup frame is not "
             "ported yet (FrameConfig.enable_occlusion without enable_clod)")
-    ds = config.texture_downscale
-    if config.enable_alpha_mask and not (
-            ds > 1 and config.height % ds == 0 and config.width % ds == 0):
-        raise NotImplementedError(
-            "the alpha-MASK pass samples at a reduced rate only: "
-            "FrameConfig.texture_downscale must be > 1 and divide the "
-            "frame's width and height")
 
 
 def object_mask_to_tris(object_visible: torch.Tensor,
@@ -116,15 +124,19 @@ def _opaque_row_filter(config: FrameConfig):
 
 
 def clod_cut(scene: SceneBuffers, view: ViewData, config: FrameConfig,
-             params: FrameParams, frustum: bool = True) -> torch.Tensor:
-    """Opaque-pass LOD cut mask (C,)."""
-    cut = clod_ops.select_cluster_cut(scene, view, config,
-                                      params.clod_error_px,
-                                      frustum=frustum)[0]
+             params: FrameParams, frustum: bool = True,
+             return_bounds: bool = False):
+    """Opaque-pass LOD cut mask (C,); with `return_bounds` the tuple
+    (cut, center_w (C, 3), radius_w (C,)) of the clusters' world-space
+    tight spheres."""
+    out = clod_ops.select_cluster_cut(scene, view, config,
+                                      params.clod_error_px, frustum=frustum,
+                                      return_bounds=return_bounds)
+    cut = out[0]
     filt = _opaque_row_filter(config)
     if filt is not None:
         cut = cut & filt(scene.cluster_table[:, 10])
-    return cut
+    return (cut,) + tuple(out[2:]) if return_bounds else cut
 
 
 def clod_compact(scene: SceneBuffers, view: ViewData, config: FrameConfig,
@@ -209,8 +221,8 @@ def _render_body(scene: SceneBuffers, view: ViewData, params: FrameParams,
                  taa_history: Optional[torch.Tensor] = None,
                  prev_viewproj: Optional[torch.Tensor] = None,
                  moving_rel: Optional[torch.Tensor] = None,
-                 moving_ids: Optional[torch.Tensor] = None
-                 ) -> Dict[str, torch.Tensor]:
+                 moving_ids: Optional[torch.Tensor] = None,
+                 vsm_state=None) -> Dict[str, torch.Tensor]:
     H, W = config.height, config.width
     dev = scene.positions.device
 
@@ -222,6 +234,7 @@ def _render_body(scene: SceneBuffers, view: ViewData, params: FrameParams,
     # on the card the read then waits only for earlier frames.
     num_lights = int(scene.num_lights)
     num_dir = int(scene.num_dir_lights) if config.enable_clustered else 0
+    use_vsm = config.enable_vsm and vsm_state is not None
 
     if config.enable_occlusion and config.enable_clod \
             and prev_depth is not None:
@@ -316,6 +329,19 @@ def _render_body(scene: SceneBuffers, view: ViewData, params: FrameParams,
     gb = shade_ops.gbuffer_from_channels(
         channels[:, :H, :W], depth, vis, view, scene.material_table,
         config.width, config.height)
+    if config.enable_textures:
+        stage("textures")
+        smp = _sample_material_textures(scene, view, config, gb, channels,
+                                         depth, vis)
+        stage("normal_map")
+        gb = _apply_textures(gb, smp, config.tex_channels)
+
+    shadow_fn = None
+    vsm_out = {}
+    if use_vsm:
+        stage("vsm")
+        shadow_fn, vsm_out = _vsm_pass(scene, view, params, config,
+                                       vsm_state, depth)
     shade_kw = dict(coat=config.enable_coat, energy=config.enable_energy_comp,
                     fuzz=config.enable_fuzz, sss=config.enable_sss,
                     aniso=config.enable_aniso)
@@ -337,13 +363,14 @@ def _render_body(scene: SceneBuffers, view: ViewData, params: FrameParams,
                                      view.cam_pos.contiguous(), config)
         stage("shade")
         hdr = shade_ops.shade_deferred(gb, scene, view, num_dir,
+                                       shadow_fn=shadow_fn,
                                        directional_only=True, **shade_kw)
         hdr = hdr + local[:, :H, :W].permute(1, 2, 0)
     else:
         stage("shade")
         light_overflow = torch.zeros((), dtype=torch.int32, device=dev)
         hdr = shade_ops.shade_deferred(gb, scene, view, num_lights,
-                                       **shade_kw)
+                                       shadow_fn=shadow_fn, **shade_kw)
     sky = shade_ops.procedural_sky(view, H, W, params.sky_intensity)
     hdr = torch.where(gb.valid[..., None], hdr, sky)
     hdr = _post_composite(hdr, depth, gb, scene, view, params, config, stage)
@@ -395,7 +422,121 @@ def _render_body(scene: SceneBuffers, view: ViewData, params: FrameParams,
         "light_overflow": light_overflow,
         "oit_overflow": zero,
         "taa_out": taa_out,
+        **vsm_out,
     }
+
+
+def _sample_ds_planes(scene: SceneBuffers, view: ViewData,
+                      config: FrameConfig, depth: torch.Tensor,
+                      channels: torch.Tensor, vis: torch.Tensor,
+                      lanes) -> torch.Tensor:
+    """(K, H, W, 4) samples at texture_downscale ds: u, v (divided by the
+    depth's inverse w) and the material's texture ids of `lanes` of the
+    material table are point-sampled at ds from the raster's depth,
+    channels and vis (padded or not), ids -1 where uncovered; one sampler
+    call over the ds-rate planes, bilinearly upsampled to (H, W)."""
+    H, W = config.height, config.width
+    ds = config.texture_downscale
+    mt = scene.material_table
+    c0 = shade_ops.inv_w_from_depth(downsample2d(depth[:H, :W], ds), view.proj)
+    iw = torch.where(torch.abs(c0) > 1e-12, c0, 1.0)
+    u_ds = downsample2d(channels[2][:H, :W], ds) / iw
+    v_ds = downsample2d(channels[3][:H, :W], ds) / iw
+    mid_ds = torch.clamp(torch.remainder(
+        torch.round(downsample2d(channels[4][:H, :W], ds)).to(torch.int32),
+        raster_setup.OBJ_COMBO), 0, mt.shape[0] - 1)
+    covered_ds = downsample2d(vis[:H, :W], ds) > 0
+    trow = mt[:, 13:17][mid_ds.reshape(-1).long()]
+    tids_ds = torch.stack([
+        torch.where(covered_ds, torch.round(trow[:, lane]).to(torch.int32)
+                    .reshape(covered_ds.shape), -1) for lane in lanes])
+    smp = tex_ops.sample_pyramid_blocked_planes(
+        scene.tex_strips, scene.tex_flags, tids_ds, u_ds, v_ds, H, W, ds,
+        config.texture_filter, upsample=False, fmt=config.tex_format)
+    return halo_upsample(smp, ds, H, W, row_axis=1)
+
+
+def _sample_material_textures(scene: SceneBuffers, view: ViewData,
+                              config: FrameConfig, gb: shade_ops.GBuffer,
+                              channels: torch.Tensor, depth: torch.Tensor,
+                              vis: torch.Tensor) -> torch.Tensor:
+    """(K, H, W, 4) samples of the K texture channels of
+    config.tex_channels, all in one sampler call (one window geometry).
+    With texture_downscale ds > 1 dividing the frame, the sampler takes
+    ds-rate planes (u, v and the texture ids point-sampled from the raster
+    channels) and its result is bilinearly upsampled; otherwise it samples
+    every ds-th pixel of the G-buffer's uv."""
+    H, W = config.height, config.width
+    ds, filt = config.texture_downscale, config.texture_filter
+    chans = config.tex_channels
+    if ds > 1 and H % ds == 0 and W % ds == 0:
+        return _sample_ds_planes(scene, view, config, depth, channels, vis,
+                                 [_TEX_LANE[c] for c in chans])
+    id_of = {"base": gb.base_tex, "normal": gb.normal_tex, "mr": gb.mr_tex,
+             "emissive": gb.emissive_tex}
+    return tex_ops.sample_pyramid_blocked(
+        scene.tex_strips, scene.tex_flags, torch.stack([id_of[c] for c in chans]),
+        gb.uv, ds, filt, fmt=config.tex_format)
+
+
+def _apply_textures(gb: shade_ops.GBuffer, smp: torch.Tensor,
+                    chans) -> shade_ops.GBuffer:
+    """Texture samples multiply the material factors (glTF semantics:
+    base colour and alpha, G = roughness, B = metallic, emissive); the
+    normal map perturbs the normals."""
+    s_of = {c: smp[k] for k, c in enumerate(chans)}
+    rep = {}
+    if "base" in s_of:
+        rep["albedo"] = gb.albedo * s_of["base"][..., :3]
+        rep["alpha"] = gb.alpha * s_of["base"][..., 3]
+    if "normal" in s_of:
+        rep["normal"] = tex_ops.apply_normal_map_sampled(
+            gb.normal, gb.world_pos, gb.uv, s_of["normal"], gb.normal_tex,
+            normal_scale=gb.normal_scale[..., None])
+    if "mr" in s_of:
+        rep["roughness"] = gb.roughness * s_of["mr"][..., 1]
+        rep["metallic"] = gb.metallic * s_of["mr"][..., 2]
+    if "emissive" in s_of:
+        rep["emissive"] = gb.emissive * s_of["emissive"][..., :3]
+    return gb._replace(**rep)
+
+
+def _vsm_pass(scene: SceneBuffers, view: ViewData, params: FrameParams,
+              config: FrameConfig, vsm_state, depth: torch.Tensor):
+    """Virtual shadow maps for the first vsm_num_lights directional lights
+    (one page cache each; `vsm_state` is one VsmState, or a tuple of them
+    with vsm_num_lights > 1). Pages raster through the cluster cut with
+    the camera's LOD selection and the page's frustum. Returns
+    (shadow_fn, {"vsm_state", "vsm_stats"})."""
+    bounds = []   # the camera's cut, made when the first dirty page needs it
+
+    def page_compact(vp):
+        if not bounds:
+            bounds.extend(clod_cut(scene, view, config, params,
+                                   frustum=False, return_bounds=True))
+        cut, cw, rw = bounds
+        keep = cut & math3d.sphere_in_frustum(math3d.frustum_planes(vp),
+                                              cw, rw)
+        return clod_ops.compact_visible_tris(
+            cut=keep, scene=scene, max_visible=config.vsm_page_clusters)
+
+    nl = config.vsm_num_lights
+    states_in = (vsm_state,) if nl <= 1 else tuple(vsm_state)
+    terms, states, stats = [], [], None
+    for k in range(nl):
+        term, st, st_stats = vsm_ops.update_vsm(
+            scene, view, config, params, states_in[k], depth, page_compact,
+            light_row=k)
+        terms.append(torch.where(scene.num_dir_lights > k, term, 1.0))
+        states.append(st)
+        stats = st_stats if stats is None else {
+            key: stats[key] + st_stats[key] for key in stats}
+
+    def shadow_fn(i, world_pos, normal):
+        return terms[i] if i < nl else torch.ones_like(terms[0])
+
+    return shadow_fn, {"vsm_state": states[0] if nl <= 1 else tuple(states),
+                       "vsm_stats": stats}
 
 
 def _post_composite(hdr: torch.Tensor, depth: torch.Tensor,
@@ -457,9 +598,10 @@ def _mask_alpha_keep(scene: SceneBuffers, view: ViewData, config: FrameConfig,
                      depth_ref_p: torch.Tensor) -> torch.Tensor:
     """Padded keep mask of the masked raster: covered, nearer than the
     current depth, and the sampled base alpha times the material's alpha
-    reaches the material cutoff. Texture coordinates, material ids and
-    coverage are point-sampled at texture_downscale, sampled, and the
-    alpha bilinearly upsampled."""
+    reaches the material cutoff. With texture_downscale ds > 1 dividing
+    the frame, texture coordinates, material ids and coverage are
+    point-sampled at ds, sampled, and the alpha bilinearly upsampled;
+    otherwise the full-rate sampler reads every ds-th pixel's uv."""
     H, W = config.height, config.width
     ds, filt = config.texture_downscale, config.texture_filter
     mt = scene.material_table
@@ -469,22 +611,17 @@ def _mask_alpha_keep(scene: SceneBuffers, view: ViewData, config: FrameConfig,
     mrow = mt[torch.clamp(mid_m.reshape(-1), 0, M - 1).long()]
     cutoff = mrow[:, 11].reshape(H, W)
     factor_a = mrow[:, 3].reshape(H, W)
-    c0m = shade_ops.inv_w_from_depth(downsample2d(dm[:H, :W], ds), view.proj)
-    iw_ds = torch.where(torch.abs(c0m) > 1e-12, c0m, 1.0)
-    um_ds = downsample2d(chm[2][:H, :W], ds) / iw_ds
-    vm_ds = downsample2d(chm[3][:H, :W], ds) / iw_ds
-    midm_ds = torch.clamp(torch.remainder(
-        torch.round(downsample2d(chm[4][:H, :W], ds)).to(torch.int32),
-        raster_setup.OBJ_COMBO), 0, M - 1)
-    trow_ds = mt[:, 13:17][midm_ds.reshape(-1).long()]
-    btex_ds = torch.round(trow_ds[:, 0]).to(torch.int32).reshape(
-        midm_ds.shape)
-    covered_ds = downsample2d(vm[:H, :W], ds) > 0
-    btex_ds = torch.where(covered_ds, btex_ds, -1)
-    smp = tex_ops.sample_pyramid_blocked_planes(
-        scene.tex_strips, scene.tex_flags, btex_ds[None], um_ds, vm_ds, H, W,
-        ds, filt, upsample=False, fmt=config.tex_format)
-    smp_a = halo_upsample(smp, ds, H, W, row_axis=1)[0]
+    if ds > 1 and H % ds == 0 and W % ds == 0:
+        smp_a = _sample_ds_planes(scene, view, config, dm, chm, vm,
+                                  [_TEX_LANE["base"]])[0]
+    else:
+        iwm_p = shade_ops.inv_w_from_depth(dm, view.proj)
+        iwm = torch.where(torch.abs(iwm_p) > 1e-12, iwm_p, 1.0)
+        uv_m = torch.stack([chm[2] / iwm, chm[3] / iwm], dim=-1)[:H, :W]
+        btex = torch.round(mrow[:, 13]).to(torch.int32).reshape(H, W)
+        smp_a = tex_ops.sample_pyramid_blocked(
+            scene.tex_strips, scene.tex_flags, btex[None], uv_m, ds, filt,
+            fmt=config.tex_format)[0]
     alpha_m = _pad_to(smp_a[..., 3] * factor_a, config)
     keep = (vm > 0) & (dm > depth_ref_p)
     return keep & (alpha_m >= _pad_to(cutoff, config))
@@ -492,8 +629,9 @@ def _mask_alpha_keep(scene: SceneBuffers, view: ViewData, config: FrameConfig,
 
 def build_frame_fn(config: FrameConfig) -> Callable[..., Dict[str, torch.Tensor]]:
     """Returns the frame function `frame(scene, view, params,
-    prev_depth=None, taa_history=None, *, prev_viewproj=None,
-    moving_rel=None, moving_ids=None, stage_hook=None)` for `config`,
+    prev_depth=None, taa_history=None, *, vsm_state=None,
+    prev_viewproj=None, moving_rel=None, moving_ids=None, stage_hook=None)`
+    for `config`,
     after checking that every structural choice of `config` is ported.
     With enable_occlusion the frame takes the previous frame's padded depth
     (its "depth_padded" output); the first frame passes None and takes the
@@ -502,14 +640,18 @@ def build_frame_fn(config: FrameConfig) -> Callable[..., Dict[str, torch.Tensor]
     `prev_viewproj` (the previous un-jittered view-projection) and the
     moved objects' `moving_rel` (MAX_MOVING, 4, 4) / `moving_ids`
     (MAX_MOVING,) it resolves with motion vectors. graph/temporal.py makes
-    these inputs. The outputs carry the JAX frame's keys for these paths.
+    these inputs. With enable_vsm the frame takes the previous frame's
+    "vsm_state" (ops/vsm.init_states on the first frame; without a state
+    the frame renders no VSM) and returns the new "vsm_state" and
+    "vsm_stats". The outputs carry the JAX frame's keys for these paths.
 
     `frame(..., stage_hook=fn)` calls fn(name) as the frame enters each
     stage, so a caller can time the stages with CUDA events: "setup",
     "bin", "raster" on the soup path; "cut", "setup", "bin", "raster" on
     the cluster path; with occlusion "cut", "hzb", "setup", "bin",
     "raster", "hzb2", "cut2", "setup2", "bin2", "raster2"; then "mask"
-    (alpha-MASK pass), "gbuffer", "light_cull" and "tiled_shade"
+    (alpha-MASK pass), "gbuffer", "textures" and "normal_map"
+    (enable_textures), "vsm", "light_cull" and "tiled_shade"
     (clustered), "shade", then the post stages "ssr", "gtao", "ibl",
     "motion", "taa", "bloom", "exposure" of the enabled passes, and
     "end"."""
@@ -518,6 +660,7 @@ def build_frame_fn(config: FrameConfig) -> Callable[..., Dict[str, torch.Tensor]
     def frame(scene: SceneBuffers, view: ViewData, params: FrameParams,
               prev_depth: torch.Tensor = None,
               taa_history: torch.Tensor = None, *,
+              vsm_state=None,
               prev_viewproj: torch.Tensor = None,
               moving_rel: torch.Tensor = None,
               moving_ids: torch.Tensor = None,
@@ -525,6 +668,6 @@ def build_frame_fn(config: FrameConfig) -> Callable[..., Dict[str, torch.Tensor]
               ) -> Dict[str, torch.Tensor]:
         return _render_body(scene, view, params, prev_depth, config,
                             stage_hook, taa_history, prev_viewproj,
-                            moving_rel, moving_ids)
+                            moving_rel, moving_ids, vsm_state)
 
     return frame

@@ -1,7 +1,8 @@
-"""Frame-to-frame TAA bookkeeping: the inputs a temporal frame needs.
+"""Frame-to-frame bookkeeping: the inputs a temporal frame needs.
 
-Counterpart of the TAA part of basicrenderer_tpu/renderer.py's
-`Renderer.render` (renderer.py:459-515); the rest of the Renderer is not
+Counterpart of the TAA and VSM parts of basicrenderer_tpu/renderer.py
+(`Renderer.render`, renderer.py:459-525, and the VSM invalidation of
+`Renderer.update`, renderer.py:383-427); the rest of the Renderer is not
 ported yet. Per frame, `TemporalState.inputs` gives:
 
 - the ViewData with the Halton sub-pixel jitter in the projection (with
@@ -14,7 +15,12 @@ ported yet. Per frame, `TemporalState.inputs` gives:
   `prev_viewproj` (its UN-jittered view-projection: the jitter is a
   supersampling offset, not motion) with `moving_rel` / `moving_ids`, the
   objects whose model matrix changed since, each with prev_viewproj @
-  prev_model @ inv(cur_model).
+  prev_model @ inv(cur_model);
+- with enable_vsm, `vsm_state`: the page cache the previous frame
+  returned (its light-space z range frozen at first use), made anew on
+  first use or when the VSM geometry changes, dropped when any light
+  changes, with the pages under moved objects invalidated (up to
+  MAX_MOVING objects; more drop the whole cache).
 
 `carry(out)` takes the frame's outputs over to the next frame. The caller
 refreshes the scene buffers (`bridge.update_dynamic`) when objects move.
@@ -28,15 +34,17 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..ops import vsm as vsm_ops
 from ..ops.motion import MAX_MOVING
 from ..ops.post import taa_jitter
 from .framedata import FrameConfig, FrameParams, ViewData, make_view
 
 
 class TemporalState:
-    """TAA state across the frames of one view: previous depth, history,
-    un-jittered view-projection and object matrices, and the frame index.
-    Tensors go to `device` (the card unless the caller names another)."""
+    """Temporal state across the frames of one view: previous depth,
+    history, un-jittered view-projection and object matrices, the frame
+    index and the VSM page cache. Tensors go to `device` (the card unless
+    the caller names another)."""
 
     def __init__(self, config: FrameConfig, params: FrameParams = None,
                  device="cuda"):
@@ -48,6 +56,11 @@ class TemporalState:
         self.taa_history: Optional[torch.Tensor] = None
         self.prev_viewproj: Optional[np.ndarray] = None
         self.prev_object_mats: Optional[np.ndarray] = None
+        self.vsm_state = None
+        self._vsm_geom = None
+        self._vsm_light_hash = None
+        self._vsm_prev_mats: Optional[np.ndarray] = None
+        self._vsm_prev_bounds: Optional[np.ndarray] = None
 
     def inputs(self, scene, bridge
                ) -> Tuple[ViewData, FrameParams, Dict[str, object]]:
@@ -68,6 +81,8 @@ class TemporalState:
         params = dataclasses.replace(self.params, frame_index=torch.tensor(
             fi, dtype=torch.int32, device=self.device))
         kwargs: Dict[str, object] = {}
+        objects = (bridge.snapshot_objects()
+                   if cfg.enable_taa or cfg.enable_vsm else None)
         if cfg.enable_occlusion or cfg.enable_taa:
             shape = (cfg.padded_height, cfg.padded_width)
             if self.prev_depth is None or tuple(self.prev_depth.shape) != shape:
@@ -80,7 +95,7 @@ class TemporalState:
                                                           cfg.width, 3):
                 hist = None
             kwargs["taa_history"] = hist
-            cur_mats = bridge.snapshot_objects()[0]
+            cur_mats = objects[0]
             prev_mats = self.prev_object_mats
             if self.prev_viewproj is not None and prev_mats is not None \
                     and prev_mats.shape == cur_mats.shape:
@@ -91,7 +106,52 @@ class TemporalState:
                 kwargs["moving_ids"] = self._t(ids)
             self.prev_viewproj = vp_unjit
             self.prev_object_mats = cur_mats.copy()
+        if cfg.enable_vsm:
+            self._vsm_invalidate(bridge, objects[0], objects[2])
+            geom = (vsm_ops.geometry(cfg), cfg.vsm_num_lights)
+            if self.vsm_state is None or self._vsm_geom != geom:
+                self.vsm_state = vsm_ops.init_states(cfg, device=self.device)
+            self._vsm_geom = geom
+            kwargs["vsm_state"] = self.vsm_state
         return view, params, kwargs
+
+    def _vsm_invalidate(self, bridge, mats: np.ndarray,
+                        bounds: np.ndarray) -> None:
+        """Drop the VSM cache when a light changed (the light basis moves
+        every page) or more than MAX_MOVING objects moved; else clear the
+        pages under each moved object's old and new bounding spheres
+        (`mats`, `bounds`: this frame's object matrices and spheres)."""
+        lights = bridge.snapshot_lights()[0]
+        lh = hash(lights.tobytes())
+        if lh != self._vsm_light_hash:
+            self.vsm_state = None
+        self._vsm_light_hash = lh
+        pm, pb = self._vsm_prev_mats, self._vsm_prev_bounds
+        if pm is not None and pm.shape == mats.shape \
+                and self.vsm_state is not None:
+            moved = np.nonzero(np.abs(mats - pm).max(axis=(1, 2)) > 1e-7)[0]
+            if len(moved) > MAX_MOVING:
+                self.vsm_state = None
+            elif len(moved):
+                spheres = np.full((MAX_MOVING, 4), -1.0, np.float32)
+                for i, o in enumerate(moved):
+                    c0, r0 = pb[o, :3], pb[o, 3]
+                    c1, r1 = bounds[o, :3], bounds[o, 3]
+                    rad = float(np.linalg.norm(c1 - c0)) * 0.5 \
+                        + max(float(r0), float(r1))
+                    spheres[i] = [*((c0 + c1) * 0.5), rad]
+                sph = self._t(spheres)
+                st = self.vsm_state
+                if isinstance(st, tuple):
+                    self.vsm_state = tuple(
+                        vsm_ops.invalidate_pages(s, sph, self._t(lights[k, 4:7]),
+                                                 self.config)
+                        for k, s in enumerate(st))
+                else:
+                    self.vsm_state = vsm_ops.invalidate_pages(
+                        st, sph, self._t(lights[0, 4:7]), self.config)
+        self._vsm_prev_mats = mats.copy()
+        self._vsm_prev_bounds = bounds.copy()
 
     def carry(self, out: Dict[str, torch.Tensor]) -> None:
         """Keep this frame's outputs for the next frame and advance the
@@ -101,6 +161,8 @@ class TemporalState:
             self.prev_depth = out["depth_padded"]
         if cfg.enable_taa:
             self.taa_history = out["taa_out"]
+        if "vsm_state" in out:
+            self.vsm_state = out["vsm_state"]
         self.frame_index += 1
 
     def _t(self, a: np.ndarray) -> torch.Tensor:

@@ -19,6 +19,7 @@ import torch
 
 from .graph.framedata import FrameParams, SceneBuffers, ViewData
 from .ops.raster_setup import BinnedPairs, GroupBinnedPairs
+from .ops.vsm import VsmState
 
 
 def _tensor(x, device) -> torch.Tensor:
@@ -58,6 +59,12 @@ def view_data(data: Mapping, device="cuda") -> ViewData:
 def frame_params(data: Mapping, device="cuda") -> FrameParams:
     """JAX FrameParams fields -> the port's FrameParams."""
     return _fill(FrameParams, data, device)
+
+
+def vsm_state(data: Mapping, device="cuda") -> VsmState:
+    """JAX VsmState fields -> the port's VsmState (page tables, ages,
+    atlas, frozen z range, initialised flag)."""
+    return _fill(VsmState, data, device)
 
 
 def binned_pairs(data: Mapping, device="cuda") -> BinnedPairs:

@@ -1,6 +1,6 @@
 """Texture registry + the strip-layout atlas the block-window sampler reads.
 
-Port of basicrenderer_tpu/models/textures.py, RGBA8 only. All textures
+Port of basicrenderer_tpu/models/textures.py. All textures
 share one square power-of-two resolution; every mip row of every layer is
 stored as 128-texel strips of RGBA8 texels packed into one 32-bit word
 (R | G<<8 | B<<16 | A<<24), at x phases 0, 64, ... so that any 128-wide x
@@ -9,9 +9,14 @@ Color data is stored sRGB8 and decoded after the tap; data textures
 (normals, metallic-roughness) are stored linear; a per-layer flag word
 tells the sampler which.
 
-Not ported: the BC3-at-rest atlas (`fmt="bc3"`) and MASK alpha-coverage
-mips (`alpha_cutoff >= 0`), which need the texture processing module;
-both raise NotImplementedError.
+`strip_pyramid(fmt="bc3")` stores the same mips BC3-compressed at rest:
+one strip row is 32 BC3 blocks, a 128-texel x window by 4 texel rows
+(ops/textures.strip_layout_bc), encoded by models/texprocess.py and
+decoded by the sampler.
+
+Not ported: MASK alpha-coverage mips (`alpha_cutoff >= 0`), which need
+the rest of the texture processing module; they raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -20,7 +25,8 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from ..ops.textures import mip_layout, strip_layout
+from ..ops.textures import mip_layout, strip_layout, strip_layout_bc
+from .texprocess import bc3_encode
 
 FLAG_SRGB = 1
 
@@ -72,11 +78,12 @@ class TextureRegistry:
         int32), rows laid out by ops/textures.strip_layout(resolution).
         Mips of at most 128 texels tile x to fill the strip (wrap
         addressing for REPEAT sampling); wider mips store one strip per
-        64-texel phase."""
+        64-texel phase. fmt="bc3" stores BC3 block rows instead (layout
+        strip_layout_bc): 4x fewer bytes at rest and per window gather."""
+        if fmt == "bc3":
+            return self._strip_pyramid_bc3(capacity)
         if fmt != "rgba8":
-            raise NotImplementedError(
-                f"texture atlas format {fmt!r} is not ported to "
-                "basicrenderer_tpu_torch yet (FrameConfig.tex_format)")
+            raise ValueError(f"unknown texture atlas format {fmt!r}")
         n = capacity or max(len(self.images), 1)
         r = self.resolution
         sizes, _offsets = mip_layout(r)
@@ -100,19 +107,63 @@ class TextureRegistry:
             flags[i] = FLAG_SRGB if self.srgb[i] else 0
         return strips, flags
 
+    def _strip_pyramid_bc3(self, capacity: Optional[int] = None
+                           ) -> Tuple[np.ndarray, np.ndarray]:
+        """BC3 strip atlas: (strips (N * ROWS, 128) uint32, flags (N,)
+        int32), rows by strip_layout_bc(resolution). Each row holds 32
+        blocks interleaved [a_lo, a_hi, c_ends, c_idx]; mips below 4
+        texels wrap-fill one block row."""
+        n = capacity or max(len(self.images), 1)
+        r = self.resolution
+        sizes, _offsets = mip_layout(r)
+        row_of_mip, rows_per_layer = strip_layout_bc(r)
+        strips = np.zeros((n * rows_per_layer, 128), np.uint32)
+        flags = np.zeros((n,), np.int32)
+
+        def band_rows(band_u8: np.ndarray) -> np.ndarray:
+            """(4*R, 128, 4) u8 texel band -> (R, 128) u32 block rows."""
+            blocks = bc3_encode(band_u8)                 # (R*32, 16) u8
+            return np.ascontiguousarray(blocks).view('<u4').reshape(-1, 128)
+
+        for i in range(min(len(self.images), n)):
+            out = strips[i * rows_per_layer:(i + 1) * rows_per_layer]
+            level = self.images[i]
+            for m, sz in enumerate(sizes):
+                img8 = _quant_rgba8(level, self.srgb[i])  # (sz, sz, 4) u8
+                base = row_of_mip[m]
+                nbr = max(sz // 4, 1)
+                if sz <= 128:
+                    ys = np.arange(4 * nbr) % sz          # wrap-fill tiny
+                    xs = np.arange(128) % sz              # mips, tile x
+                    out[base:base + nbr] = band_rows(img8[ys][:, xs])
+                else:
+                    for ph in range(sz // 64 - 1):
+                        out[base + ph * nbr: base + (ph + 1) * nbr] = \
+                            band_rows(img8[:, ph * 64: ph * 64 + 128])
+                if sz > sizes[-1]:             # box-filter down (linear)
+                    level = level.reshape(sz // 2, 2, sz // 2, 2, 4).mean((1, 3))
+            flags[i] = FLAG_SRGB if self.srgb[i] else 0
+        return strips, flags
+
     def __len__(self):
         return len(self.images)
+
+
+def _quant_rgba8(img: np.ndarray, srgb: bool) -> np.ndarray:
+    """(H, W, 4) f32 linear -> (H, W, 4) uint8, rgb sRGB-encoded when
+    flagged."""
+    rgb = img[..., :3]
+    if srgb:
+        rgb = np.where(rgb <= 0.0031308, rgb * 12.92,
+                       1.055 * np.maximum(rgb, 1e-8) ** (1 / 2.4) - 0.055)
+    return np.clip(np.concatenate([rgb, img[..., 3:]], -1) * 255.0 + 0.5,
+                   0, 255).astype(np.uint8)
 
 
 def _pack_rgba8(img: np.ndarray, srgb: bool) -> np.ndarray:
     """(H, W, 4) f32 linear -> (H, W) uint32 packed (R | G<<8 | B<<16 | A<<24),
     rgb sRGB-encoded when flagged."""
-    rgb = img[..., :3]
-    if srgb:
-        rgb = np.where(rgb <= 0.0031308, rgb * 12.92,
-                       1.055 * np.maximum(rgb, 1e-8) ** (1 / 2.4) - 0.055)
-    q = np.clip(np.concatenate([rgb, img[..., 3:]], -1) * 255.0 + 0.5,
-                0, 255).astype(np.uint32)
+    q = _quant_rgba8(img, srgb).astype(np.uint32)
     return q[..., 0] | (q[..., 1] << 8) | (q[..., 2] << 16) | (q[..., 3] << 24)
 
 

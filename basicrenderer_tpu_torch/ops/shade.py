@@ -23,8 +23,8 @@ from .raster_setup import OBJ_COMBO
 
 
 class GBuffer(NamedTuple):
-    """The G-buffer fields the soup frame fills (the JAX package's GBuffer
-    also carries texture ids and OpenPBR extension inputs)."""
+    """The G-buffer fields the ported frames fill (the JAX package's
+    GBuffer also carries the OpenPBR extension inputs)."""
     world_pos: torch.Tensor   # (H, W, 3) f32
     normal: torch.Tensor      # (H, W, 3) f32 (world space, normalized)
     albedo: torch.Tensor      # (H, W, 3) f32 (linear)
@@ -37,6 +37,11 @@ class GBuffer(NamedTuple):
     uv: torch.Tensor          # (H, W, 2) f32
     alpha: torch.Tensor       # (H, W) f32 material base alpha
     object_id: torch.Tensor   # (H, W) i32 owning object (-1 = sky)
+    base_tex: torch.Tensor    # (H, W) i32 base-colour texture id (-1 none)
+    normal_tex: torch.Tensor  # (H, W) i32 normal texture id (-1 none)
+    mr_tex: torch.Tensor      # (H, W) i32 metallic-roughness texture id
+    emissive_tex: torch.Tensor  # (H, W) i32 emissive texture id
+    normal_scale: torch.Tensor  # (H, W) f32 glTF normalTexture.scale
 
 
 def _iota(n: int, dim: int, shape, dev) -> torch.Tensor:
@@ -112,6 +117,10 @@ def gbuffer_from_channels(channels: torch.Tensor, depth: torch.Tensor,
     roughness = mat[:, 5].reshape(H, W)
     emissive = mat[:, 6:9].reshape(H, W, 3)
 
+    def tex_id(lane):
+        return torch.where(covered, torch.round(mat[:, lane]).to(torch.int32)
+                           .reshape(H, W), -1)
+
     c3 = covered[..., None]
     return GBuffer(
         world_pos=torch.where(c3, wp, 0.0),
@@ -126,6 +135,9 @@ def gbuffer_from_channels(channels: torch.Tensor, depth: torch.Tensor,
         uv=torch.where(c3, uv, 0.0),
         alpha=torch.where(covered, alpha, 0.0),
         object_id=torch.where(covered, object_id, -1),
+        base_tex=tex_id(13), normal_tex=tex_id(14), mr_tex=tex_id(15),
+        emissive_tex=tex_id(16),
+        normal_scale=torch.where(covered, mat[:, 9].reshape(H, W), 1.0),
     )
 
 
@@ -227,7 +239,7 @@ def shade_one_light(gb: GBuffer, row: torch.Tensor, v: torch.Tensor,
 
 
 def shade_deferred(gb: GBuffer, scene: SceneBuffers, view: ViewData,
-                   num_lights: int, ambient: float = 0.0,
+                   num_lights: int, shadow_fn=None, ambient: float = 0.0,
                    directional_only: bool = False, coat: bool = False,
                    energy: bool = False, fuzz: bool = False,
                    sss: bool = False, aniso: bool = False,
@@ -252,9 +264,12 @@ def shade_deferred(gb: GBuffer, scene: SceneBuffers, view: ViewData,
     spec_comp, _fuzz_e = openpbr_terms(gb, v, n, energy, fuzz)
     total = torch.zeros((H, W, 3), dtype=torch.float32, device=gb.valid.device)
     for i in range(num_lights):
-        total = total + shade_one_light(gb, scene.lights[i], v, n,
-                                        directional_only=directional_only,
-                                        spec_comp=spec_comp)
+        out = shade_one_light(gb, scene.lights[i], v, n,
+                              directional_only=directional_only,
+                              spec_comp=spec_comp)
+        if shadow_fn is not None:
+            out = out * shadow_fn(i, gb.world_pos, n)[..., None]
+        total = total + out
     total = total + gb.emissive + ambient * gb.albedo
     return torch.where(gb.valid[..., None], total, 0.0)
 

@@ -12,7 +12,8 @@ Port of basicrenderer_tpu/scene/bridge.py:
   + lights as small numpy arrays.
 - `build_scene_buffers(env_sh, env_specular, env_brdf_lut, device)` /
   `update_dynamic`: the tensor upload, with the texture strip atlas
-  (models/textures.py) and the environment (models/environment.py).
+  (models/textures.py; RGBA8 or, with `tex_format="bc3"`, BC3 block rows)
+  and the environment (models/environment.py).
 
 Skinned meshes are refused (the skinning slice is not ported). As in
 the JAX package, the soup fields (positions ... tri_object) carry each
@@ -148,15 +149,12 @@ class SceneRenderBridge:
                  materials: MaterialRegistry,
                  caps: Optional[BridgeCapacities] = None, textures=None,
                  tex_format: str = "rgba8"):
-        if tex_format != "rgba8":
-            raise NotImplementedError(
-                f"texture atlas format {tex_format!r} is not ported yet "
-                "(FrameConfig.tex_format)")
         self.scene = scene
         self.meshes = meshes
         self.materials = materials
         self.caps = caps or BridgeCapacities()
         self.textures = textures    # models.textures.TextureRegistry
+        self.tex_format = tex_format  # atlas-at-rest format (FrameConfig)
         self.packed: Optional[PackedGeometry] = None
 
     # -- cold path ---------------------------------------------------------
@@ -363,7 +361,8 @@ class SceneRenderBridge:
         if env_brdf_lut is None:
             env_brdf_lut = np.zeros((32, 32, 2), np.float32)
         if self.textures is not None and len(self.textures):
-            strips, tex_flags = self.textures.strip_pyramid()
+            strips, tex_flags = self.textures.strip_pyramid(
+                fmt=self.tex_format)
         else:
             strips = np.full((strip_layout(4)[1], 128), 0xFFFFFFFF, np.uint32)
             tex_flags = np.zeros((1,), np.int32)

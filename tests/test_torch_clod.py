@@ -265,7 +265,11 @@ def test_unported_cluster_options_raise(rig):
                               enable_occlusion=True)
     with pytest.raises(NotImplementedError, match="enable_occlusion"):
         pframe.build_frame_fn(cfg)
+    # The full-rate alpha-MASK pass is ported; texture streaming is not.
+    pframe.build_frame_fn(dataclasses.replace(
+        rig["pc"], enable_alpha_mask=True, texture_downscale=1))
     cfg = dataclasses.replace(rig["pc"], enable_alpha_mask=True,
-                              texture_downscale=1)
-    with pytest.raises(NotImplementedError, match="texture_downscale"):
+                              enable_textures=True,
+                              enable_texture_streaming=True)
+    with pytest.raises(NotImplementedError, match="enable_texture_streaming"):
         pframe.build_frame_fn(cfg)

@@ -96,9 +96,10 @@ def test_frame_with_local_lights_matches_jax():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("enable_vsm", True), ("enable_reyes", True), ("enable_shadows", True),
+    ("enable_texture_streaming", True), ("enable_reyes", True),
+    ("enable_shadows", True),
     ("enable_voxel_rt", True), ("enable_coat", True), ("enable_skinning", True),
-    ("enable_oit", True), ("enable_textures", True), ("debug_view", "normals"),
+    ("enable_oit", True), ("max_shadow_lights", 2), ("debug_view", "normals"),
     ("wireframe", True), ("enable_vertex_tangents", True),
     ("output_width", 256),
 ])

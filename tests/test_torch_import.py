@@ -33,7 +33,7 @@ def test_port_never_imports_jax():
                 "ops.raster_setup", "ops.shade", "ops.culling", "ops.clod",
                 "ops.lighting", "ops.textures", "ops.shadows", "ops.post",
                 "ops.motion", "ops.taa_warp", "ops.ssr", "ops.ibl",
-                "models.environment",
+                "models.environment", "models.texprocess", "ops.vsm",
                 "models.clusters", "models.pageblob", "models.scenes",
                 "models.textures", "scene.bridge", "interop",
                 "utils.cuda_build"):

@@ -151,10 +151,12 @@ def test_unported_texture_modes_raise():
     with pytest.raises(NotImplementedError, match="alpha"):
         PTex(resolution=16).add(np.ones((16, 16, 4), np.float32),
                                 alpha_cutoff=0.5)
-    with pytest.raises(NotImplementedError, match="bc3"):
-        PTex(resolution=16).strip_pyramid(fmt="bc3")
-    with pytest.raises(NotImplementedError, match="bc3"):
-        pt.bc3_decode_rows(torch.zeros((1, 7, 128), dtype=torch.int32))
+    # BC3 is ported (tests/test_torch_texture_channels.py); a format
+    # neither package has is refused.
+    with pytest.raises(ValueError, match="bc7"):
+        PTex(resolution=16).strip_pyramid(fmt="bc7")
+    with pytest.raises(ValueError, match="bc7"):
+        pt.infer_strip_resolution(7, "bc7")
 
 
 @pytest.fixture
