@@ -1,9 +1,9 @@
 // Tile rasterizers with fused attribute resolve, for NVIDIA Hopper (sm_90a).
 //
 // Replaces basicrenderer_tpu/ops/raster_pallas.py::_raster_kernel (K1,
-// plain mode) and ::_raster_kernel_groups (K2, plain and seeded modes),
-// tangent channel off. Wrappers and plain PyTorch versions:
-// basicrenderer_tpu_torch/ops/raster.py.
+// plain, peel and accum modes) and ::_raster_kernel_groups (K2, plain,
+// seeded, peel and accum modes), tangent channel off. Wrappers and plain
+// PyTorch versions: basicrenderer_tpu_torch/ops/raster.py.
 //
 // What they compute, per tile of tile_h x tile_w pixels: walk setup rows
 // (32 f32 lanes, ops/raster_setup.py) and at each pixel centre evaluate the
@@ -26,6 +26,18 @@
 //   first and only covering groups are read. Seeded mode starts from a
 //   previous raster's depth, vis and channels (phase 2 of the two-phase
 //   occlusion) and keeps the seed's channels 5-7.
+// - Peel mode (OIT layers, further alpha-MASK layers) starts from a seed
+//   depth with vis and channels zero, and a pixel also needs z strictly
+//   in front of its peel bound.
+// - Accum mode (the OIT tail) leaves depth at its start (the seed, or 0)
+//   and vis at 0, and sums per pixel, for every passing fragment in walk
+//   order: w*a8/255 and w*rgb8/255 (payload lanes 30, 28) into channels
+//   0-3, the optical depths od8*4/255 (lanes 30, 31) into 4-6 and 1 into
+//   7, with w = u*u + 0.05, u = clip((z - seed) / max(bound - seed, 1e-6),
+//   0, 1) when a peel band is given, else 1. The weight and the four
+//   weighted sums are fused multiply-adds (the form XLA's CPU backend
+//   gives the JAX reference); the sums' order is the walk order, so one
+//   thread per pixel walks the rows in order, as in the other modes.
 //
 // Numerics: every plane is evaluated as fma(a, px, b*py) + c with each step
 // rounded to f32 -- the form XLA's CPU backend gives the JAX reference and
@@ -44,7 +56,10 @@
 //   thread owns up to 16 pixels and keeps their depth, id and five channel
 //   values in registers for the whole walk, so the walk touches no memory
 //   but the staged rows. No atomics: each block owns its pixels, so the
-//   result is deterministic.
+//   result is deterministic. Peel mode adds the bound per pixel and takes
+//   at most 8 pixels a thread, accum mode (seed, bound and 8 sums) at most
+//   4, so neither spills; a tile's pixels then spread over more blocks
+//   (blockIdx.y).
 // - Rows are staged into shared memory 128 at a time (K2: whole groups,
 //   128 / group_rows of them) with coalesced loads; every thread then reads
 //   each row as a broadcast.
@@ -63,8 +78,20 @@ namespace {
 constexpr int kLanes = 32;     // setup row width (ops/raster_setup.py)
 constexpr int kThreads = 256;  // threads per block
 constexpr int kChunk = 128;    // rows staged in shared memory at a time
-constexpr int kMaxPpt = 16;    // pixels per thread at most
+constexpr int kMaxPpt = 16;    // pixels per thread at most (plain mode)
+constexpr int kMaxPptPeel = 8;   // peel mode: + the peel bound a pixel
+constexpr int kMaxPptAccum = 4;  // accum mode: 8 sums, seed, bound a pixel
 constexpr int kAttr = 5;       // channels written in plain mode (0-4)
+constexpr int kAccumCh = 8;    // channels summed in accum mode
+// Accum mode's byte scales, rounded to f32 from their double values as the
+// JAX package's f32 constants are.
+constexpr float kInv255 = (float)(1.0 / 255.0);
+constexpr float kFour255 = (float)(4.0 / 255.0);
+constexpr float kInv256 = 1.0f / 256.0f;   // exact
+
+// kPlain: plain or seeded (K2); kPeel: depth-peeling pass; kAccum: the OIT
+// tail's sums (weighted by the depth warp when a peel band is given).
+enum Mode : int { kPlain = 0, kPeel = 1, kAccum = 2 };
 
 __device__ __forceinline__ float plane(float a, float b, float c, float px,
                                        float py) {
@@ -76,41 +103,95 @@ __device__ __forceinline__ bool row_covers(const float* r, float txf,
   return txf >= r[11] && txf <= r[12] && tyf >= r[13] && tyf <= r[14];
 }
 
-// One setup row against this thread's pixels.
-template <int PPT>
-__device__ __forceinline__ void eval_row(const float* r, const float (&px)[PPT],
-                                         const float (&py)[PPT],
-                                         float (&depth)[PPT], int (&vis)[PPT],
-                                         float (&ch)[kAttr][PPT]) {
+// One thread's pixels, in registers for the whole walk. In accum mode
+// `depth` holds the seed and is never written, and `vis` is unused.
+template <int PPT, int MODE>
+struct Pixels {
+  static constexpr int kCh = MODE == kAccum ? kAccumCh : kAttr;
+  float px[PPT], py[PPT], depth[PPT], peel[PPT];
+  int vis[PPT];
+  float ch[kCh][PPT];
+};
+
+// One setup row against this thread's pixels. `banded`: a peel bound
+// limits the pass (always in kPeel mode; in kAccum mode when a band is
+// given, which also weights each fragment by its depth warp).
+template <int PPT, int MODE>
+__device__ __forceinline__ void eval_row(const float* r,
+                                         Pixels<PPT, MODE>& s, bool banded) {
   const float id = r[9];
   if (!(id > 0.5f)) return;
   const float a0 = r[0], b0 = r[1], c0e = r[2];
   const float a1 = r[3], b1 = r[4], c1e = r[5];
   const float az = r[6], bz = r[7], cz = r[8];
+  // Accum mode's payload bytes, by the JAX package's floor-divide chain
+  // (exact: integers below 2^24), then scaled.
+  float va = 0.f, vr = 0.f, vg = 0.f, vb = 0.f, o0 = 0.f, o1 = 0.f, o2 = 0.f;
+  if constexpr (MODE == kAccum) {
+    const float p30 = r[30];
+    const float hi = floorf(__fmul_rn(p30, kInv256));
+    const float a8 = __fsub_rn(p30, __fmul_rn(hi, 256.0f));
+    const float hi2 = floorf(__fmul_rn(hi, kInv256));
+    const float odr8 = __fsub_rn(hi, __fmul_rn(hi2, 256.0f));
+    const float p28 = r[28];
+    const float c1 = floorf(__fmul_rn(p28, kInv256));
+    const float r8 = __fsub_rn(p28, __fmul_rn(c1, 256.0f));
+    const float b8 = floorf(__fmul_rn(c1, kInv256));
+    const float g8 = __fsub_rn(c1, __fmul_rn(b8, 256.0f));
+    va = __fmul_rn(a8, kInv255);
+    vr = __fmul_rn(r8, kInv255);
+    vg = __fmul_rn(g8, kInv255);
+    vb = __fmul_rn(b8, kInv255);
+    o0 = __fmul_rn(odr8, kFour255);
+    o1 = __fmul_rn(hi2, kFour255);
+    o2 = __fmul_rn(r[31], kFour255);
+  }
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
-    const float e0 = plane(a0, b0, c0e, px[k], py[k]);
-    const float e1 = plane(a1, b1, c1e, px[k], py[k]);
+    const float e0 = plane(a0, b0, c0e, s.px[k], s.py[k]);
+    const float e1 = plane(a1, b1, c1e, s.px[k], s.py[k]);
     const float e2 = __fsub_rn(__fsub_rn(1.0f, e0), e1);
-    const float z = plane(az, bz, cz, px[k], py[k]);
-    if (e0 >= 0.0f && e1 >= 0.0f && e2 >= 0.0f && z > depth[k]) {
-      depth[k] = z;
-      vis[k] = (int)id;
+    const float z = plane(az, bz, cz, s.px[k], s.py[k]);
+    if (!(e0 >= 0.0f && e1 >= 0.0f && e2 >= 0.0f && z > s.depth[k])) continue;
+    if constexpr (MODE != kPlain) {
+      if (banded && !(z < s.peel[k])) continue;
+    }
+    if constexpr (MODE == kAccum) {
+      float w = 1.0f;
+      if (banded) {
+        // u = clip((z - seed) / max(bound - seed, 1e-6), 0, 1);
+        // w = u*u + 0.05 as one fma (XLA's CPU form of the reference).
+        const float u = fminf(
+            fmaxf(__fdiv_rn(__fsub_rn(z, s.depth[k]),
+                            fmaxf(__fsub_rn(s.peel[k], s.depth[k]), 1e-6f)),
+                  0.0f),
+            1.0f);
+        w = __fmaf_rn(u, u, 0.05f);
+      }
+      s.ch[0][k] = __fmaf_rn(w, va, s.ch[0][k]);
+      s.ch[1][k] = __fmaf_rn(w, vr, s.ch[1][k]);
+      s.ch[2][k] = __fmaf_rn(w, vg, s.ch[2][k]);
+      s.ch[3][k] = __fmaf_rn(w, vb, s.ch[3][k]);
+      s.ch[4][k] = __fadd_rn(s.ch[4][k], o0);
+      s.ch[5][k] = __fadd_rn(s.ch[5][k], o1);
+      s.ch[6][k] = __fadd_rn(s.ch[6][k], o2);
+      s.ch[7][k] = __fadd_rn(s.ch[7][k], 1.0f);
+    } else {
+      s.depth[k] = z;
+      s.vis[k] = (int)id;
 #pragma unroll
       for (int c = 0; c < 4; ++c)
-        ch[c][k] = plane(r[15 + 3 * c], r[16 + 3 * c], r[17 + 3 * c], px[k],
-                         py[k]);
-      ch[4][k] = r[10];
+        s.ch[c][k] = plane(r[15 + 3 * c], r[16 + 3 * c], r[17 + 3 * c],
+                           s.px[k], s.py[k]);
+      s.ch[4][k] = r[10];
     }
   }
 }
 
-template <int PPT, bool kBBox>
+template <int PPT, int MODE, bool kBBox>
 __device__ __forceinline__ void walk_rows(
     const float* __restrict__ pair_data, long long start, long long end,
-    float* rows, float txf, float tyf, const float (&px)[PPT],
-    const float (&py)[PPT], float (&depth)[PPT], int (&vis)[PPT],
-    float (&ch)[kAttr][PPT]) {
+    float* rows, float txf, float tyf, Pixels<PPT, MODE>& s, bool banded) {
   for (long long c0 = start; c0 < end; c0 += kChunk) {
     const int n = (int)min((long long)kChunk, end - c0);
     __syncthreads();  // the previous chunk is consumed
@@ -120,18 +201,20 @@ __device__ __forceinline__ void walk_rows(
     for (int j = 0; j < n; ++j) {
       const float* r = rows + j * kLanes;
       if (kBBox && !row_covers(r, txf, tyf)) continue;
-      eval_row<PPT>(r, px, py, depth, vis, ch);
+      eval_row<PPT, MODE>(r, s, banded);
     }
   }
 }
 
-// Pixel centres of this thread's pixels; zeroed or seeded buffers.
-template <int PPT>
+// Pixel centres of this thread's pixels and their starting buffers:
+// kPlain zero, or seeded from depth0 / vis0 / chan0; kPeel the seed depth
+// depth0 and the bound peel0, vis and channels zero; kAccum the seed and
+// bound when given (else zero depth), sums zero.
+template <int PPT, int MODE>
 __device__ __forceinline__ void init_pixels(
     int tx, int ty, int tile_row0, int tile_w, int tile_h, int npix, int pix0,
     int width, size_t plane_size, const float* depth0, const int* vis0,
-    const float* chan0, float (&px)[PPT], float (&py)[PPT],
-    float (&depth)[PPT], int (&vis)[PPT], float (&ch)[kAttr][PPT]) {
+    const float* chan0, const float* peel0, Pixels<PPT, MODE>& s) {
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
     const int p = pix0 + threadIdx.x + k * kThreads;
@@ -139,29 +222,35 @@ __device__ __forceinline__ void init_pixels(
     const int x = p - y * tile_w;
     // Integer sums are exact in f32 below 2^24: the same pixel centres the
     // JAX package builds from f32 iotas.
-    px[k] = (float)(tx * tile_w + x) + 0.5f;
-    py[k] = (float)((ty + tile_row0) * tile_h + y) + 0.5f;
-    depth[k] = 0.0f;
-    vis[k] = 0;
+    s.px[k] = (float)(tx * tile_w + x) + 0.5f;
+    s.py[k] = (float)((ty + tile_row0) * tile_h + y) + 0.5f;
+    s.depth[k] = 0.0f;
+    s.peel[k] = 0.0f;
+    s.vis[k] = 0;
 #pragma unroll
-    for (int c = 0; c < kAttr; ++c) ch[c][k] = 0.0f;
-    if (depth0 != nullptr && p < npix) {
-      const size_t o = (size_t)(ty * tile_h + y) * width + (tx * tile_w + x);
-      depth[k] = depth0[o];
-      vis[k] = vis0[o];
+    for (int c = 0; c < Pixels<PPT, MODE>::kCh; ++c) s.ch[c][k] = 0.0f;
+    if (p >= npix) continue;
+    const size_t o = (size_t)(ty * tile_h + y) * width + (tx * tile_w + x);
+    if (depth0 != nullptr) s.depth[k] = depth0[o];
+    if constexpr (MODE != kPlain) {
+      if (peel0 != nullptr) s.peel[k] = peel0[o];
+    } else if (vis0 != nullptr) {
+      s.vis[k] = vis0[o];
 #pragma unroll
-      for (int c = 0; c < kAttr; ++c) ch[c][k] = chan0[c * plane_size + o];
+      for (int c = 0; c < kAttr; ++c) s.ch[c][k] = chan0[c * plane_size + o];
     }
   }
 }
 
-template <int PPT>
+// Writes depth, vis and the 8 channels: kPlain channels 5-7 from the seed
+// (zero unseeded), kPeel zero there, kAccum the 8 sums and vis zero.
+template <int PPT, int MODE>
 __device__ __forceinline__ void store_pixels(
     int tx, int ty, int tile_w, int tile_h, int npix, int pix0, int width,
-    size_t plane_size, const float* chan0, const float (&depth)[PPT],
-    const int (&vis)[PPT], const float (&ch)[kAttr][PPT],
+    size_t plane_size, const float* chan0, const Pixels<PPT, MODE>& s,
     float* __restrict__ depth_out, int* __restrict__ vis_out,
     float* __restrict__ chan_out) {
+  constexpr int kCh = Pixels<PPT, MODE>::kCh;
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
     const int p = pix0 + threadIdx.x + k * kThreads;
@@ -169,22 +258,24 @@ __device__ __forceinline__ void store_pixels(
     const int y = p / tile_w;
     const int x = p - y * tile_w;
     const size_t o = (size_t)(ty * tile_h + y) * width + (tx * tile_w + x);
-    depth_out[o] = depth[k];
-    vis_out[o] = vis[k];
+    depth_out[o] = s.depth[k];
+    vis_out[o] = MODE == kAccum ? 0 : s.vis[k];
 #pragma unroll
-    for (int c = 0; c < kAttr; ++c) chan_out[c * plane_size + o] = ch[c][k];
+    for (int c = 0; c < kCh; ++c) chan_out[c * plane_size + o] = s.ch[c][k];
 #pragma unroll
-    for (int c = kAttr; c < 8; ++c)
+    for (int c = kCh; c < 8; ++c)
       chan_out[c * plane_size + o] =
           chan0 != nullptr ? chan0[c * plane_size + o] : 0.0f;
   }
 }
 
-template <int PPT>
+template <int PPT, int MODE>
 __global__ void __launch_bounds__(kThreads, 1)
 raster_tiles_kernel(const int* __restrict__ tile_offsets,
                     const int* __restrict__ big_count,
                     const float* __restrict__ pair_data, long long n_rows,
+                    const float* __restrict__ seed,
+                    const float* __restrict__ peel,
                     float* __restrict__ depth_out, int* __restrict__ vis_out,
                     float* __restrict__ chan_out, int tiles_x, int tiles_y,
                     int tile_h, int tile_w, int tile_row0) {
@@ -196,28 +287,26 @@ raster_tiles_kernel(const int* __restrict__ tile_offsets,
   const int pix0 = blockIdx.y * (PPT * kThreads);
   const int width = tiles_x * tile_w;
   const size_t plane_size = (size_t)width * (size_t)(tiles_y * tile_h);
+  const bool banded = peel != nullptr;
 
-  float px[PPT], py[PPT], depth[PPT];
-  int vis[PPT];
-  float ch[kAttr][PPT];
-  init_pixels<PPT>(tx, ty, tile_row0, tile_w, tile_h, npix, pix0, width,
-                   plane_size, nullptr, nullptr, nullptr, px, py, depth, vis,
-                   ch);
+  Pixels<PPT, MODE> s;
+  init_pixels<PPT, MODE>(tx, ty, tile_row0, tile_w, tile_h, npix, pix0, width,
+                         plane_size, seed, nullptr, nullptr, peel, s);
   const float txf = (float)tx;
   const float tyf = (float)(ty + tile_row0);
 
   const long long start = min((long long)tile_offsets[tile], n_rows);
   const long long end = min((long long)tile_offsets[tile + 1], n_rows);
-  walk_rows<PPT, false>(pair_data, start, end, rows, txf, tyf, px, py, depth,
-                        vis, ch);
+  walk_rows<PPT, MODE, false>(pair_data, start, end, rows, txf, tyf, s,
+                              banded);
   const long long nbig = min((long long)big_count[0], n_rows);
-  walk_rows<PPT, true>(pair_data, 0, nbig, rows, txf, tyf, px, py, depth, vis,
-                       ch);
-  store_pixels<PPT>(tx, ty, tile_w, tile_h, npix, pix0, width, plane_size,
-                    nullptr, depth, vis, ch, depth_out, vis_out, chan_out);
+  walk_rows<PPT, MODE, true>(pair_data, 0, nbig, rows, txf, tyf, s, banded);
+  store_pixels<PPT, MODE>(tx, ty, tile_w, tile_h, npix, pix0, width,
+                          plane_size, nullptr, s, depth_out, vis_out,
+                          chan_out);
 }
 
-template <int PPT>
+template <int PPT, int MODE>
 __global__ void __launch_bounds__(kThreads, 1)
 raster_groups_kernel(const int* __restrict__ tile_offsets,
                      const int* __restrict__ group_ids,
@@ -230,6 +319,7 @@ raster_groups_kernel(const int* __restrict__ tile_offsets,
                      const float* __restrict__ depth0,
                      const int* __restrict__ vis0,
                      const float* __restrict__ chan0,
+                     const float* __restrict__ peel,
                      float* __restrict__ depth_out, int* __restrict__ vis_out,
                      float* __restrict__ chan_out, int tiles_x, int tiles_y,
                      int tile_h, int tile_w, int tile_row0) {
@@ -241,12 +331,11 @@ raster_groups_kernel(const int* __restrict__ tile_offsets,
   const int pix0 = blockIdx.y * (PPT * kThreads);
   const int width = tiles_x * tile_w;
   const size_t plane_size = (size_t)width * (size_t)(tiles_y * tile_h);
+  const bool banded = peel != nullptr;
 
-  float px[PPT], py[PPT], depth[PPT];
-  int vis[PPT];
-  float ch[kAttr][PPT];
-  init_pixels<PPT>(tx, ty, tile_row0, tile_w, tile_h, npix, pix0, width,
-                   plane_size, depth0, vis0, chan0, px, py, depth, vis, ch);
+  Pixels<PPT, MODE> s;
+  init_pixels<PPT, MODE>(tx, ty, tile_row0, tile_w, tile_h, npix, pix0, width,
+                         plane_size, depth0, vis0, chan0, peel, s);
   const float txf = (float)tx;
   const float tyf = (float)(ty + tile_row0);
   const int group_floats = group_rows * kLanes;
@@ -268,7 +357,7 @@ raster_groups_kernel(const int* __restrict__ tile_offsets,
     for (int j = 0; j < ng * group_rows; ++j) {
       const float* r = rows + j * kLanes;
       if (!row_covers(r, txf, tyf)) continue;
-      eval_row<PPT>(r, px, py, depth, vis, ch);
+      eval_row<PPT, MODE>(r, s, banded);
     }
   }
 
@@ -289,92 +378,114 @@ raster_groups_kernel(const int* __restrict__ tile_offsets,
     for (int j = 0; j < group_rows; ++j) {
       const float* r = rows + j * kLanes;
       if (!row_covers(r, txf, tyf)) continue;
-      eval_row<PPT>(r, px, py, depth, vis, ch);
+      eval_row<PPT, MODE>(r, s, banded);
     }
   }
-  store_pixels<PPT>(tx, ty, tile_w, tile_h, npix, pix0, width, plane_size,
-                    chan0, depth, vis, ch, depth_out, vis_out, chan_out);
+  store_pixels<PPT, MODE>(tx, ty, tile_w, tile_h, npix, pix0, width,
+                          plane_size, MODE == kPlain ? chan0 : nullptr, s,
+                          depth_out, vis_out, chan_out);
 }
 
-int pixels_per_thread(int npix) {
-  const int per_block = npix < kMaxPpt * kThreads ? npix : kMaxPpt * kThreads;
+int pixels_per_thread(int npix, int max_ppt) {
+  const int per_block = npix < max_ppt * kThreads ? npix : max_ppt * kThreads;
   int ppt = 1;
   while (ppt * kThreads < per_block) ppt *= 2;
   return ppt;
 }
 
+int max_ppt(int mode) {
+  return mode == kAccum ? kMaxPptAccum
+                        : (mode == kPeel ? kMaxPptPeel : kMaxPpt);
+}
+
+// The mode's pointer contract: kPlain takes no seed or bound; kPeel both;
+// kAccum both or neither.
+bool valid_mode(int mode, const void* seed, const void* peel) {
+  if (mode == kPlain) return peel == nullptr;
+  if (mode == kPeel) return seed != nullptr && peel != nullptr;
+  if (mode == kAccum) return (seed == nullptr) == (peel == nullptr);
+  return false;
+}
+
 }  // namespace
+
+#define BR_DISPATCH(LAUNCH)                                   \
+  switch (mode * 100 + ppt) {                                 \
+    LAUNCH(kPlain, 1) LAUNCH(kPlain, 2) LAUNCH(kPlain, 4)     \
+    LAUNCH(kPlain, 8) LAUNCH(kPlain, 16)                      \
+    LAUNCH(kPeel, 1) LAUNCH(kPeel, 2) LAUNCH(kPeel, 4)        \
+    LAUNCH(kPeel, 8)                                          \
+    LAUNCH(kAccum, 1) LAUNCH(kAccum, 2) LAUNCH(kAccum, 4)     \
+    default:                                                  \
+      return (int)cudaErrorInvalidValue;                      \
+  }
 
 // Launches K1 on `stream`; returns cudaGetLastError() (0 = launched).
 // pair_data: (n_rows, 32) f32; tile_offsets: (tiles_x*tiles_y + 1,) i32;
 // big_count: (1,) i32; depth/vis: (tiles_y*tile_h, tiles_x*tile_w);
-// channels: (8, tiles_y*tile_h, tiles_x*tile_w). All contiguous, on device.
+// channels: (8, tiles_y*tile_h, tiles_x*tile_w). mode 0 plain (seed and
+// peel null), 1 peel (seed depth and peel bound, both padded images),
+// 2 accum (both, or neither). All contiguous, on device.
 extern "C" int br_raster_tiles(const int* tile_offsets, const int* big_count,
                                const float* pair_data, long long n_rows,
+                               const float* seed, const float* peel, int mode,
                                float* depth, int* vis, float* channels,
                                int tiles_x, int tiles_y, int tile_h,
                                int tile_w, int tile_row0, void* stream) {
+  if (!valid_mode(mode, seed, peel) || (mode == kPlain && seed != nullptr))
+    return (int)cudaErrorInvalidValue;
   const int npix = tile_h * tile_w;
-  const int ppt = pixels_per_thread(npix);
+  const int ppt = pixels_per_thread(npix, max_ppt(mode));
   const dim3 grid(tiles_x * tiles_y, (npix + ppt * kThreads - 1) / (ppt * kThreads));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (ppt) {
-#define BR_CASE(P)                                                         \
-  case P:                                                                  \
-    raster_tiles_kernel<P><<<grid, kThreads, 0, s>>>(                      \
-        tile_offsets, big_count, pair_data, n_rows, depth, vis, channels,  \
-        tiles_x, tiles_y, tile_h, tile_w, tile_row0);                      \
+#define BR_TILES(M, P)                                                      \
+  case M * 100 + P:                                                         \
+    raster_tiles_kernel<P, M><<<grid, kThreads, 0, s>>>(                    \
+        tile_offsets, big_count, pair_data, n_rows, seed, peel, depth, vis, \
+        channels, tiles_x, tiles_y, tile_h, tile_w, tile_row0);             \
     break;
-    BR_CASE(1)
-    BR_CASE(2)
-    BR_CASE(4)
-    BR_CASE(8)
-    BR_CASE(16)
-#undef BR_CASE
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  BR_DISPATCH(BR_TILES)
+#undef BR_TILES
   return (int)cudaGetLastError();
 }
 
 // Launches K2 on `stream`; returns cudaGetLastError() (0 = launched).
 // lanes: (n_groups*group_rows, 32) f32; group_ids: (n_pairs_cap,) i32;
 // tile_offsets: (tiles + 1,) i32 ranges into group_ids; big_ids, big_bx,
-// big_by: (n_big_cap,) i32; big_count: (1,) i32. depth0/vis0/chan0 seed the
-// buffers (all null: zero start). Outputs as br_raster_tiles. All
-// contiguous, on device.
+// big_by: (n_big_cap,) i32; big_count: (1,) i32. mode 0: depth0/vis0/chan0
+// seed the buffers (all null: zero start), peel null; mode 1: depth0 the
+// seed depth and peel the bound, vis0/chan0 null; mode 2: as mode 1, or
+// depth0 and peel both null. Outputs as br_raster_tiles. All contiguous,
+// on device.
 extern "C" int br_raster_groups(
     const int* tile_offsets, const int* group_ids, const int* big_ids,
     const int* big_count, const int* big_bx, const int* big_by,
     const float* lanes, long long n_groups, int group_rows, int n_pairs_cap,
     int n_big_cap, const float* depth0, const int* vis0, const float* chan0,
-    float* depth, int* vis, float* channels, int tiles_x, int tiles_y,
-    int tile_h, int tile_w, int tile_row0, void* stream) {
+    const float* peel, int mode, float* depth, int* vis, float* channels,
+    int tiles_x, int tiles_y, int tile_h, int tile_w, int tile_row0,
+    void* stream) {
   if (group_rows <= 0 || group_rows > kChunk || kChunk % group_rows)
     return (int)cudaErrorInvalidValue;
-  if ((depth0 == nullptr) != (vis0 == nullptr) ||
-      (depth0 == nullptr) != (chan0 == nullptr))
+  if (!valid_mode(mode, depth0, peel)) return (int)cudaErrorInvalidValue;
+  if (mode == kPlain && ((depth0 == nullptr) != (vis0 == nullptr) ||
+                         (depth0 == nullptr) != (chan0 == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  if (mode != kPlain && (vis0 != nullptr || chan0 != nullptr))
     return (int)cudaErrorInvalidValue;
   const int npix = tile_h * tile_w;
-  const int ppt = pixels_per_thread(npix);
+  const int ppt = pixels_per_thread(npix, max_ppt(mode));
   const dim3 grid(tiles_x * tiles_y, (npix + ppt * kThreads - 1) / (ppt * kThreads));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (ppt) {
-#define BR_CASE(P)                                                          \
-  case P:                                                                   \
-    raster_groups_kernel<P><<<grid, kThreads, 0, s>>>(                      \
-        tile_offsets, group_ids, big_ids, big_count, big_bx, big_by, lanes, \
-        n_groups, group_rows, n_pairs_cap, n_big_cap, depth0, vis0, chan0,  \
-        depth, vis, channels, tiles_x, tiles_y, tile_h, tile_w, tile_row0); \
+#define BR_GROUPS(M, P)                                                      \
+  case M * 100 + P:                                                          \
+    raster_groups_kernel<P, M><<<grid, kThreads, 0, s>>>(                    \
+        tile_offsets, group_ids, big_ids, big_count, big_bx, big_by, lanes,  \
+        n_groups, group_rows, n_pairs_cap, n_big_cap, depth0, vis0, chan0,   \
+        peel, depth, vis, channels, tiles_x, tiles_y, tile_h, tile_w,        \
+        tile_row0);                                                          \
     break;
-    BR_CASE(1)
-    BR_CASE(2)
-    BR_CASE(4)
-    BR_CASE(8)
-    BR_CASE(16)
-#undef BR_CASE
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  BR_DISPATCH(BR_GROUPS)
+#undef BR_GROUPS
   return (int)cudaGetLastError();
 }

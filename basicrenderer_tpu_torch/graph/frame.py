@@ -20,7 +20,9 @@ Ported paths:
 - the alpha-MASK pass (enable_alpha_mask): masked clusters raster into
   their own buffers, base-texture alpha is sampled at texture_downscale
   (K4; full rate at texture_downscale 1) and surviving texels
-  depth-merge into the opaque targets;
+  depth-merge into the opaque targets; with mask_peels > 1 each further
+  masked layer behind the last is peeled (K1/K2 peel mode) and merged
+  the same way;
 - material textures (enable_textures): the channels of
   FrameConfig.tex_channels (base colour + alpha, tangent-space normal,
   metallic-roughness, emissive) in one block-window sampler call (K4, on
@@ -41,8 +43,11 @@ prefiltered environment; without IBL the reflection is added with the
 Fresnel-at-normal tint and AO darkens the lit frame), TAA (enable_taa:
 with `prev_viewproj` the motion-vector resolve, whose per-tile history
 warp is K5, else the static resolve), bloom (enable_bloom), auto-exposure
-(enable_auto_exposure) -> ACES -> sRGB. graph/temporal.py drives the TAA
-inputs (and the VSM state) from frame to frame.
+(enable_auto_exposure) -> ACES -> sRGB. Order-independent transparency
+(enable_oit, with enable_clod: ops/oit.py, K1/K2 peel and accum modes,
+the OpenPBR transmission split with enable_transmission) composites onto
+the lit frame after the IBL composite and before TAA. graph/temporal.py
+drives the TAA inputs (and the VSM state) from frame to frame.
 
 Every other structural toggle raises NotImplementedError naming its field.
 """
@@ -56,6 +61,7 @@ import torch
 
 from ..ops import clod as clod_ops
 from ..ops import culling, ibl, lighting, motion, post, raster_setup
+from ..ops import oit as oit_ops
 from ..ops import shade as shade_ops
 from ..ops import ssr as ssr_ops
 from ..ops import textures as tex_ops
@@ -73,7 +79,7 @@ _UNPORTED_TOGGLES = (
     ("enable_texture_streaming", False),
     ("enable_shadows", False), ("max_shadow_lights", 0),
     ("max_shadow_cubes", 0),
-    ("enable_oit", False), ("enable_skinning", False),
+    ("enable_skinning", False),
     ("enable_reyes", False), ("enable_voxel_rt", False),
     ("enable_voxel_fallback", False), ("enable_rt_reflect", False),
     ("enable_streaming", False),
@@ -81,8 +87,7 @@ _UNPORTED_TOGGLES = (
     ("wireframe", False), ("enable_vertex_tangents", False),
     ("enable_coat", False), ("enable_fuzz", False),
     ("enable_energy_comp", False), ("enable_sss", False),
-    ("enable_aniso", False), ("enable_transmission", False),
-    ("cut_windows", 0), ("mask_peels", 1),
+    ("enable_aniso", False), ("cut_windows", 0),
 )
 _TEX_LANE = {"base": 0, "normal": 1, "mr": 2, "emissive": 3}
 
@@ -317,11 +322,21 @@ def _render_body(scene: SceneBuffers, view: ViewData, params: FrameParams,
             raster_setup.setup_from_compacted(scene, comp_m, view.viewproj,
                                               config)
         pairs_m = raster_setup.bin_clustered(lanes_m, bbox_m, valid_m, config)
+        depth_pre_mask = depth_p
         dm, vm, chm = visibility_pass(pairs_m, config)
-        keep = _mask_alpha_keep(scene, view, config, dm, vm, chm, depth_p)
-        depth_p = torch.where(keep, dm, depth_p)
-        vis_p = torch.where(keep, vm, vis_p)
-        channels = torch.where(keep[None], chm, channels)
+        for k in range(config.mask_peels):
+            if k > 0:
+                # The next-farther masked layer: the peel band excludes the
+                # previous layer's fragments, and the merge admits texels
+                # only where every nearer masked texel failed its cutoff.
+                stage(f"mask_peel{k + 1}")
+                dm, vm, chm = raster_tiles(
+                    pairs_m, config,
+                    peel=(depth_pre_mask, dm * (1.0 - oit_ops.PEEL_EPS)))
+            keep = _mask_alpha_keep(scene, view, config, dm, vm, chm, depth_p)
+            depth_p = torch.where(keep, dm, depth_p)
+            vis_p = torch.where(keep, vm, vis_p)
+            channels = torch.where(keep[None], chm, channels)
 
     stage("gbuffer")
     depth = depth_p[:H, :W]
@@ -374,6 +389,10 @@ def _render_body(scene: SceneBuffers, view: ViewData, params: FrameParams,
     sky = shade_ops.procedural_sky(view, H, W, params.sky_intensity)
     hdr = torch.where(gb.valid[..., None], hdr, sky)
     hdr = _post_composite(hdr, depth, gb, scene, view, params, config, stage)
+    oit_overflow = torch.zeros((), dtype=torch.int32, device=dev)
+    if config.enable_oit and config.enable_clod:
+        hdr, oit_overflow = oit_ops.composite_oit(
+            scene, view, config, params, depth_p, hdr, num_lights, stage)
 
     if config.enable_taa and taa_history is not None:
         if prev_viewproj is not None:
@@ -409,7 +428,6 @@ def _render_body(scene: SceneBuffers, view: ViewData, params: FrameParams,
     srgb = shade_ops.linear_to_srgb(ldr)
     image = (srgb * 255.0 + 0.5).to(torch.uint8)
     stage("end")
-    zero = torch.zeros((), dtype=torch.int32, device=dev)
     return {
         "image": image,
         "hdr": hdr,
@@ -420,7 +438,7 @@ def _render_body(scene: SceneBuffers, view: ViewData, params: FrameParams,
         "num_pairs": pairs.num_pairs,
         "cluster_overflow": cluster_overflow,
         "light_overflow": light_overflow,
-        "oit_overflow": zero,
+        "oit_overflow": oit_overflow,
         "taa_out": taa_out,
         **vsm_out,
     }
@@ -650,11 +668,13 @@ def build_frame_fn(config: FrameConfig) -> Callable[..., Dict[str, torch.Tensor]
     "bin", "raster" on the soup path; "cut", "setup", "bin", "raster" on
     the cluster path; with occlusion "cut", "hzb", "setup", "bin",
     "raster", "hzb2", "cut2", "setup2", "bin2", "raster2"; then "mask"
-    (alpha-MASK pass), "gbuffer", "textures" and "normal_map"
-    (enable_textures), "vsm", "light_cull" and "tiled_shade"
-    (clustered), "shade", then the post stages "ssr", "gtao", "ibl",
-    "motion", "taa", "bloom", "exposure" of the enabled passes, and
-    "end"."""
+    (alpha-MASK pass; "mask_peel2", ... for its further peels),
+    "gbuffer", "textures" and "normal_map" (enable_textures), "vsm",
+    "light_cull" and "tiled_shade" (clustered), "shade", then the post
+    stages "ssr", "gtao", "ibl" of the enabled passes, OIT's "oit_cut",
+    "oit_setup", "oit_bin", "oit_peel0", ... (one per layer rastered),
+    "oit_accum", "oit_shade", "oit_composite", then "motion", "taa",
+    "bloom", "exposure", and "end"."""
     check_config(config)
 
     def frame(scene: SceneBuffers, view: ViewData, params: FrameParams,

@@ -2,20 +2,29 @@
 (csrc/raster.cu) and their plain PyTorch versions.
 
 Port of basicrenderer_tpu/ops/raster_pallas.py:
-- K1 `_raster_kernel` in its plain mode, over per-triangle BinnedPairs
-  (reference twins: ops/raster_ref.py::raster_tiles_ref and
-  ops/resolve_pallas.py::resolve_attributes_ref). Per tile, walk the
-  tile's binned pair rows and then the global big-triangle list.
-- K2 `_raster_kernel_groups` in its plain and seeded modes, over
-  GroupBinnedPairs: per tile, walk the rows of the tile's (group, tile)
-  pairs straight from the lane table, skipping rows whose float tile bbox
-  (lanes 11-14) misses the tile, then the global big-group list, whose
-  entries are box-tested before their rows are read. Seeded mode starts
-  from a previous raster's buffers (two-phase occlusion, phase 2).
+- K1 `_raster_kernel` in its plain, peel and accum modes, over
+  per-triangle BinnedPairs (reference twins: ops/raster_ref.py::
+  raster_tiles_ref and ops/resolve_pallas.py::resolve_attributes_ref).
+  Per tile, walk the tile's binned pair rows and then the global
+  big-triangle list.
+- K2 `_raster_kernel_groups` in its plain, seeded, peel and accum modes,
+  over GroupBinnedPairs: per tile, walk the rows of the tile's (group,
+  tile) pairs straight from the lane table, skipping rows whose float
+  tile bbox (lanes 11-14) misses the tile, then the global big-group
+  list, whose entries are box-tested before their rows are read. Seeded
+  mode starts from a previous raster's buffers (two-phase occlusion,
+  phase 2).
+Peel mode (OIT layers, further alpha-MASK layers) starts from a seed
+depth and keeps only fragments strictly in front of a per-pixel peel
+bound; accum mode (the OIT tail) sums per pixel, in walk order, the
+depth-warp-weighted alpha and premultiplied colour, the optical depths
+and the fragment count of every fragment in the band, into channels
+0-3, 4-6 and 7.
 
 At each pixel centre both evaluate the barycentric edge planes and the
 depth plane, keep the closest (reverse-Z max) depth + triangle id, and
-write the perspective attribute planes of the winner.
+write the perspective attribute planes of the winner (plain, seeded and
+peel modes).
 
 `raster_tiles` picks the implementation by the device of the pairs: CUDA
 tensors launch a kernel (or raise), CPU tensors run the plain version.
@@ -44,6 +53,15 @@ NUM_CHANNELS = 8
 _ATTR_CHANNELS = 5
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "raster.cu"
 Init = Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
+Peel = Optional[Tuple[torch.Tensor, torch.Tensor]]
+
+
+def fma32(a: torch.Tensor, b, c) -> torch.Tensor:
+    """f32 fused multiply-add a*b + c, emulated in f64: the product of two
+    f32 values is exact there, and the f64 sum rounds to f32 as a single
+    rounding would unless it lands exactly halfway between two f32
+    values (double rounding)."""
+    return (a.double() * b.double() + c.double()).float()
 
 
 def plane_eval(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
@@ -52,9 +70,9 @@ def plane_eval(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
 
     XLA's CPU backend contracts the JAX reference's planes into exactly this
     form, and the CUDA kernels spell it with __fmaf_rn. PyTorch has no f32
-    fused multiply-add, so the fma is emulated in f64: a*px is exact there,
-    and the sum is rounded back to f32 before c is added in f32."""
-    return (a.double() * px.double() + (b * py).double()).float() + c
+    fused multiply-add, so the fma is emulated in f64 (`fma32`), and c is
+    added in f32."""
+    return fma32(a, px, b * py) + c
 
 
 def _check_modes(pairs, config: FrameConfig, init, peel, accum: bool) -> None:
@@ -63,14 +81,8 @@ def _check_modes(pairs, config: FrameConfig, init, peel, accum: bool) -> None:
             "seeded per-triangle raster (the soup path's two-phase "
             "occlusion) is not ported yet (FrameConfig.enable_occlusion "
             "without enable_clod)")
-    if peel is not None:
-        raise NotImplementedError(
-            "peeled raster (OIT / alpha-mask peels) is not ported yet "
-            "(FrameConfig.enable_oit, FrameConfig.mask_peels > 1)")
-    if accum:
-        raise NotImplementedError(
-            "accumulating raster (OIT beyond-K tail) is not ported yet "
-            "(FrameConfig.enable_oit)")
+    if init is not None and (peel is not None or accum):
+        raise ValueError("a seeded raster takes neither peel nor accum")
     if config.enable_vertex_tangents:
         raise NotImplementedError(
             "the tangent channel is not ported yet "
@@ -79,7 +91,7 @@ def _check_modes(pairs, config: FrameConfig, init, peel, accum: bool) -> None:
 
 def raster_tiles(pairs: Union[BinnedPairs, GroupBinnedPairs],
                  config: FrameConfig, tile_row0: int = 0, init: Init = None,
-                 peel=None, accum: bool = False
+                 peel: Peel = None, accum: bool = False
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fused raster + attribute resolve on the padded tile grid.
 
@@ -87,19 +99,28 @@ def raster_tiles(pairs: Union[BinnedPairs, GroupBinnedPairs],
              channels (NUM_CHANNELS, H', W') f32). `tile_row0` offsets the
     tile grid vertically in global screen space (edge planes are in global
     pixels). `init` = (depth, vis, channels) seeds a group raster (two-phase
-    occlusion replay). The peeled, accum and tangent modes, and seeding a
-    per-triangle raster, raise NotImplementedError."""
+    occlusion replay). `peel` = (seed_depth, peel_depth) (H', W') runs a
+    depth-peeling pass: the depth starts at the seed, vis and channels at
+    zero, and a fragment must also lie strictly in front of peel_depth
+    (reverse-Z). `accum` sums the OIT tail's 8 channels instead (w*alpha,
+    w*r, w*g, w*b, the optical depths r, g, b, the count; w = the
+    depth-warp weight with `peel`, else 1) and leaves depth at its start
+    and vis at zero.
+    The tangent mode and seeding a per-triangle raster raise
+    NotImplementedError."""
     _check_modes(pairs, config, init, peel, accum)
     grouped = isinstance(pairs, GroupBinnedPairs)
     dev = (pairs.lanes if grouped else pairs.pair_data).device
     if dev.type == "cuda":
         if grouped:
-            return raster_groups_cuda(pairs, config, tile_row0, init)
-        return raster_tiles_cuda(pairs, config, tile_row0)
+            return raster_groups_cuda(pairs, config, tile_row0, init, peel,
+                                      accum)
+        return raster_tiles_cuda(pairs, config, tile_row0, peel, accum)
     if dev.type == "cpu":
         if grouped:
-            return raster_groups_plain(pairs, config, tile_row0, init)
-        return raster_tiles_plain(pairs, config, tile_row0)
+            return raster_groups_plain(pairs, config, tile_row0, init, peel,
+                                       accum)
+        return raster_tiles_plain(pairs, config, tile_row0, peel, accum)
     raise ValueError(f"no raster for device {dev}")
 
 
@@ -120,14 +141,53 @@ def _to_tiles(img: torch.Tensor, config: FrameConfig) -> torch.Tensor:
     return t.transpose(-3, -2).reshape(*lead, config.num_tiles, th, tw)
 
 
+_INV255 = torch.tensor(1.0 / 255.0, dtype=torch.float32)
+_FOUR255 = torch.tensor(4.0 / 255.0, dtype=torch.float32)
+_INV256 = torch.tensor(1.0 / 256.0, dtype=torch.float32)
+
+
+def unpack_payload(p28: torch.Tensor, p30: torch.Tensor,
+                   p31: torch.Tensor):
+    """The accum mode's per-row bytes, as exact floats: (a8, r8, g8, b8,
+    odr8, odg8, odb8) from payload lanes 30 (a8 + odr8*256 + odg8*65536),
+    28 (r8 + g8*256 + b8*65536) and 31 (odb8), by the floor-divide chain of
+    the JAX package."""
+    hi = torch.floor(p30 * _INV256)
+    a8 = p30 - hi * 256.0
+    hi2 = torch.floor(hi * _INV256)
+    odr8 = hi - hi2 * 256.0
+    c1 = torch.floor(p28 * _INV256)
+    r8 = p28 - c1 * 256.0
+    b8 = torch.floor(c1 * _INV256)
+    g8 = c1 - b8 * 256.0
+    return a8, r8, g8, b8, odr8, hi2, p31
+
+
+def accum_weight(z: torch.Tensor, seed: torch.Tensor,
+                 peel_z: torch.Tensor) -> torch.Tensor:
+    """The depth-warp weight u*u + 0.05 of a fragment at z in the band
+    (seed .. peel_z): u = clip((z - seed) / max(peel_z - seed, 1e-6), 0, 1).
+    The square and the add are one fused multiply-add, the form XLA's CPU
+    backend gives the JAX package."""
+    u = torch.clamp((z - seed) / torch.clamp(peel_z - seed, min=1e-6),
+                    0.0, 1.0)
+    return fma32(u, u, torch.tensor(0.05, dtype=torch.float32))
+
+
+def accum_add(chan: torch.Tensor, wgt: torch.Tensor,
+              v: torch.Tensor) -> torch.Tensor:
+    """chan + wgt * v as one fused multiply-add (XLA's CPU form)."""
+    return fma32(wgt, v, chan)
+
+
 def _plain_walk(pair_data: torch.Tensor, tile_offsets: torch.Tensor,
                 big_count: int, config: FrameConfig, tile_row0: int,
-                init: Init = None
+                init: Init = None, peel: Peel = None, accum: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K1's walk, vectorised across tiles: step s gathers row start_t + s
     of every tile t at once (masked past each tile's count), then every
     tile walks rows [0, big_count) with the bbox test. Reads the longest
-    tile's row count on the host."""
+    tile's row count on the host. Modes as `raster_tiles`."""
     th, tw = config.tile_h, config.tile_w
     tiles_x = config.tiles_x
     N = config.num_tiles
@@ -145,14 +205,21 @@ def _plain_walk(pair_data: torch.Tensor, tile_offsets: torch.Tensor,
           + (ty * th).to(f32)[:, None, None] + 0.5)
     txf, tyf = tx.to(f32), ty.to(f32)
 
-    if init is None:
-        depth = torch.zeros((N, th, tw), dtype=f32, device=dev)
-        vis = torch.zeros((N, th, tw), dtype=torch.int32, device=dev)
-        chans = torch.zeros((NUM_CHANNELS, N, th, tw), dtype=f32, device=dev)
-    else:
+    vis = torch.zeros((N, th, tw), dtype=torch.int32, device=dev)
+    chans = torch.zeros((NUM_CHANNELS, N, th, tw), dtype=f32, device=dev)
+    peel_z = None
+    if init is not None:
         depth = _to_tiles(init[0], config).clone()
         vis = _to_tiles(init[1], config).clone()
         chans = _to_tiles(init[2], config).clone()
+    elif peel is not None:
+        depth = _to_tiles(peel[0], config).clone()
+        peel_z = _to_tiles(peel[1], config)
+    else:
+        depth = torch.zeros((N, th, tw), dtype=f32, device=dev)
+    seed = depth.clone() if accum else None
+    zero = torch.zeros((), dtype=f32, device=dev)
+    one = torch.ones((), dtype=f32, device=dev)
 
     def row_step(rows: torch.Tensor, live: torch.Tensor) -> None:
         d = rows[:, :, None, None]                       # (N, 32, 1, 1)
@@ -163,6 +230,22 @@ def _plain_walk(pair_data: torch.Tensor, tile_offsets: torch.Tensor,
         tri_id_f = d[:, 9]
         ok = live[:, None, None] & (tri_id_f > 0.5)
         passd = ok & (e0 >= 0) & (e1 >= 0) & (e2 >= 0) & (z > depth)
+        if peel_z is not None:
+            passd = passd & (z < peel_z)
+        if accum:
+            a8, r8, g8, b8, odr8, odg8, odb8 = unpack_payload(
+                d[:, 28], d[:, 30], d[:, 31])
+            if peel_z is not None:
+                wgt = torch.where(passd, accum_weight(z, seed, peel_z), zero)
+            else:
+                wgt = torch.where(passd, one, zero)
+            for ch, v in enumerate((a8, r8, g8, b8)):
+                chans[ch] = accum_add(chans[ch], wgt, v * _INV255)
+            for ch, v in enumerate((odr8, odg8, odb8)):
+                chans[4 + ch] = chans[4 + ch] + torch.where(
+                    passd, v * _FOUR255, zero)
+            chans[7] = chans[7] + torch.where(passd, one, zero)
+            return
         depth.copy_(torch.where(passd, z, depth))
         vis.copy_(torch.where(passd, tri_id_f.to(torch.int32), vis))
         for ch in range(4):
@@ -188,22 +271,26 @@ def _plain_walk(pair_data: torch.Tensor, tile_offsets: torch.Tensor,
 
 
 def raster_tiles_plain(pairs: BinnedPairs, config: FrameConfig,
-                       tile_row0: int = 0
+                       tile_row0: int = 0, peel: Peel = None,
+                       accum: bool = False
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K1. Reads the big count on the host."""
     return _plain_walk(pairs.pair_data, pairs.tile_offsets,
-                       int(pairs.big_count), config, tile_row0)
+                       int(pairs.big_count), config, tile_row0, peel=peel,
+                       accum=accum)
 
 
 def expand_group_pairs(pairs: GroupBinnedPairs, config: FrameConfig,
-                       tile_row0: int = 0
+                       tile_row0: int = 0, boxed: bool = True
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The (row, tile) pairs K2 evaluates, in its order: per tile, the rows
     of its (group, tile) pairs in pair order, then the rows of every
     big-group entry whose group box covers the tile, in list order; rows
     whose float bbox (lanes 11-14) misses the tile are dropped, as the
-    kernel skips them. Returns (pair_data (R, SETUP_LANES), tile_offsets
-    (num_tiles + 1,) i32) for K1's walk."""
+    kernel skips them. With `boxed` False neither test is made: every
+    tile takes every row of the live big entries, the walk of the JAX
+    package's reference (raster_ref._group_walk). Returns (pair_data
+    (R, SETUP_LANES), tile_offsets (num_tiles + 1,) i32) for K1's walk."""
     GR = config.group_rows
     N = config.num_tiles
     lanes = pairs.lanes
@@ -227,8 +314,10 @@ def expand_group_pairs(pairs: GroupBinnedPairs, config: FrameConfig,
     tx, tyg = t % config.tiles_x, t // config.tiles_x + tile_row0
     bx, by = pairs.big_bx.long()[None], pairs.big_by.long()[None]
     pb = torch.arange(Bg, dtype=i64, device=dev)[None]
-    hit = ((pb < pairs.big_count.long()) & (tx >= bx // 2048)
-           & (tx <= bx % 2048) & (tyg >= by // 2048) & (tyg <= by % 2048))
+    hit = pb < pairs.big_count.long()
+    if boxed:
+        hit = hit & ((tx >= bx // 2048) & (tx <= bx % 2048)
+                     & (tyg >= by // 2048) & (tyg <= by % 2048))
     live_big = hit[:, :, None].expand(N, Bg, GR)
     rows_big = (pairs.big_ids.long()[None, :, None] * GR + j).expand(N, Bg, GR)
     tile_big = t[:, :, None].expand(N, Bg, GR)
@@ -239,12 +328,13 @@ def expand_group_pairs(pairs: GroupBinnedPairs, config: FrameConfig,
     seq = torch.cat([seq_own.reshape(-1), seq_big.reshape(-1)])
     live = torch.cat([live_own.reshape(-1), live_big.reshape(-1)])
     rows, tile, seq = rows[live], tile[live], seq[live]
-    box = lanes[rows, 11:15]
-    txf = (tile % config.tiles_x).to(torch.float32)
-    tyf = (tile // config.tiles_x + tile_row0).to(torch.float32)
-    keep = ((txf >= box[:, 0]) & (txf <= box[:, 1])
-            & (tyf >= box[:, 2]) & (tyf <= box[:, 3]))
-    rows, tile, seq = rows[keep], tile[keep], seq[keep]
+    if boxed:
+        box = lanes[rows, 11:15]
+        txf = (tile % config.tiles_x).to(torch.float32)
+        tyf = (tile // config.tiles_x + tile_row0).to(torch.float32)
+        keep = ((txf >= box[:, 0]) & (txf <= box[:, 1])
+                & (tyf >= box[:, 2]) & (tyf <= box[:, 3]))
+        rows, tile, seq = rows[keep], tile[keep], seq[keep]
     order = torch.argsort(tile * (Pc * GR + Bg * GR) + seq)
     rows, tile = rows[order], tile[order]
     tile_offsets = torch.searchsorted(
@@ -253,15 +343,43 @@ def expand_group_pairs(pairs: GroupBinnedPairs, config: FrameConfig,
 
 
 def raster_groups_plain(pairs: GroupBinnedPairs, config: FrameConfig,
-                        tile_row0: int = 0, init: Init = None
+                        tile_row0: int = 0, init: Init = None,
+                        peel: Peel = None, accum: bool = False
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K2: K1's walk over the expanded
     (row, tile) pairs, starting from `init` when seeded."""
     pair_data, offs = expand_group_pairs(pairs, config, tile_row0)
-    return _plain_walk(pair_data, offs, 0, config, tile_row0, init)
+    return _plain_walk(pair_data, offs, 0, config, tile_row0, init, peel,
+                       accum)
 
 
 _fns = {}
+_MODE_CODE = {"plain": 0, "seeded": 0, "peel": 1, "accum": 2}
+
+
+class ModeLaunches:
+    """The launch count of one mode of a raster kernel (`launches`). The
+    wrappers' own `launches` count every mode; `MODE_LAUNCHES[(kernel,
+    mode)]` counts one: kernel "K1" or "K2", mode "plain", "seeded" (K2),
+    "peel" or "accum"."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.launches = 0
+
+
+MODE_LAUNCHES = {(k, m): ModeLaunches(f"{k}-{m}")
+                 for k, m in (("K1", "plain"), ("K1", "peel"), ("K1", "accum"),
+                              ("K2", "plain"), ("K2", "seeded"),
+                              ("K2", "peel"), ("K2", "accum"))}
+
+
+def _mode(init, peel, accum: bool) -> str:
+    if accum:
+        return "accum"
+    if peel is not None:
+        return "peel"
+    return "plain" if init is None else "seeded"
 
 
 def _kernel_fn(name: str):
@@ -270,10 +388,10 @@ def _kernel_fn(name: str):
         fn = getattr(cuda_build.load(SOURCE).lib, name)
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         if name == "br_raster_tiles":
-            fn.argtypes = [p, p, p, ll, p, p, p, i, i, i, i, i, p]
+            fn.argtypes = [p, p, p, ll, p, p, i, p, p, p, i, i, i, i, i, p]
         else:
-            fn.argtypes = [p, p, p, p, p, p, p, ll, i, i, i, p, p, p, p, p, p,
-                           i, i, i, i, i, p]
+            fn.argtypes = [p, p, p, p, p, p, p, ll, i, i, i, p, p, p, p, i,
+                           p, p, p, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return _fns[name]
@@ -292,11 +410,26 @@ def _check_tensors(dev, named):
             raise ValueError(f"{name} must be contiguous")
 
 
+def _check_peel(dev, peel: Peel, config: FrameConfig) -> Tuple[int, int]:
+    """(seed depth, peel bound) pointers of a peel band (0, 0 without)."""
+    if peel is None:
+        return 0, 0
+    shape = (config.padded_height, config.padded_width)
+    for name, x in zip(("peel seed", "peel bound"), peel):
+        if x.dtype != torch.float32 or tuple(x.shape) != shape:
+            raise ValueError(f"{name} must be {shape} f32, got "
+                             f"{tuple(x.shape)} {x.dtype}")
+    _check_tensors(dev, zip(("peel seed", "peel bound"), peel))
+    return peel[0].data_ptr(), peel[1].data_ptr()
+
+
 def raster_tiles_cuda(pairs: BinnedPairs, config: FrameConfig,
-                      tile_row0: int = 0
+                      tile_row0: int = 0, peel: Peel = None,
+                      accum: bool = False
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel on the current stream (no synchronisation).
-    `raster_tiles_cuda.launches` counts the launches."""
+    """Launch K1 on the current stream (no synchronisation), in the mode
+    of `peel` / `accum` (as `raster_tiles`). `raster_tiles_cuda.launches`
+    counts the launches of every mode, MODE_LAUNCHES each mode's."""
     pd, offs, big = pairs.pair_data, pairs.tile_offsets, pairs.big_count
     dev = pd.device
     if dev.type != "cuda":
@@ -311,6 +444,8 @@ def raster_tiles_cuda(pairs: BinnedPairs, config: FrameConfig,
         raise ValueError(f"big_count must be one i32, got {big.dtype}")
     _check_tensors(dev, (("pair_data", pd), ("tile_offsets", offs),
                          ("big_count", big)))
+    seed_p, peel_p = _check_peel(dev, peel, config)
+    mode = _mode(None, peel, accum)
     Hp, Wp = config.padded_height, config.padded_width
     depth = torch.empty((Hp, Wp), dtype=torch.float32, device=dev)
     vis = torch.empty((Hp, Wp), dtype=torch.int32, device=dev)
@@ -320,12 +455,14 @@ def raster_tiles_cuda(pairs: BinnedPairs, config: FrameConfig,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(offs.data_ptr(), big.data_ptr(), pd.data_ptr(), pd.shape[0],
-                 depth.data_ptr(), vis.data_ptr(), channels.data_ptr(),
-                 config.tiles_x, config.tiles_y, config.tile_h, config.tile_w,
-                 int(tile_row0), stream)
+                 seed_p, peel_p, _MODE_CODE[mode], depth.data_ptr(),
+                 vis.data_ptr(), channels.data_ptr(), config.tiles_x,
+                 config.tiles_y, config.tile_h, config.tile_w, int(tile_row0),
+                 stream)
     if err != 0:
         raise RuntimeError(f"raster kernel launch failed: CUDA error {err}")
     raster_tiles_cuda.launches += 1
+    MODE_LAUNCHES[("K1", mode)].launches += 1
     return depth, vis, channels
 
 
@@ -333,14 +470,19 @@ raster_tiles_cuda.launches = 0
 
 
 def raster_groups_cuda(pairs: GroupBinnedPairs, config: FrameConfig,
-                       tile_row0: int = 0, init: Init = None
+                       tile_row0: int = 0, init: Init = None,
+                       peel: Peel = None, accum: bool = False
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch K2 on the current stream (no synchronisation), seeded from
-    `init` when given. `raster_groups_cuda.launches` counts the launches."""
+    `init` when given, else in the mode of `peel` / `accum` (as
+    `raster_tiles`). `raster_groups_cuda.launches` counts the launches of
+    every mode, MODE_LAUNCHES each mode's."""
     lanes = pairs.lanes
     dev = lanes.device
     if dev.type != "cuda":
         raise ValueError(f"raster_groups_cuda needs CUDA tensors, got {dev}")
+    if init is not None and (peel is not None or accum):
+        raise ValueError("a seeded raster takes neither peel nor accum")
     GR = config.group_rows
     if GR not in (8, 16, 32):
         raise ValueError(f"group_rows must be 8, 16 or 32, got {GR}")
@@ -371,11 +513,15 @@ def raster_groups_cuda(pairs: GroupBinnedPairs, config: FrameConfig,
                              f"f32) on the padded grid {Hp}x{Wp}")
         _check_tensors(dev, (("init depth", d0), ("init vis", v0),
                              ("init channels", c0)))
+    seed_p, peel_p = _check_peel(dev, peel, config)
+    mode = _mode(init, peel, accum)
     depth = torch.empty((Hp, Wp), dtype=torch.float32, device=dev)
     vis = torch.empty((Hp, Wp), dtype=torch.int32, device=dev)
     channels = torch.empty((NUM_CHANNELS, Hp, Wp), dtype=torch.float32,
                            device=dev)
-    seed = (0, 0, 0) if init is None else tuple(x.data_ptr() for x in init)
+    seed = ((0, 0, 0) if init is None else tuple(x.data_ptr() for x in init))
+    if peel is not None:
+        seed = (seed_p, 0, 0)
     fn = _kernel_fn("br_raster_groups")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -383,13 +529,14 @@ def raster_groups_cuda(pairs: GroupBinnedPairs, config: FrameConfig,
                  pairs.big_ids.data_ptr(), pairs.big_count.data_ptr(),
                  pairs.big_bx.data_ptr(), pairs.big_by.data_ptr(),
                  lanes.data_ptr(), lanes.shape[0] // GR, GR,
-                 pairs.group_ids.shape[0], nbig, *seed, depth.data_ptr(),
-                 vis.data_ptr(), channels.data_ptr(), config.tiles_x,
-                 config.tiles_y, config.tile_h, config.tile_w, int(tile_row0),
-                 stream)
+                 pairs.group_ids.shape[0], nbig, *seed, peel_p,
+                 _MODE_CODE[mode], depth.data_ptr(), vis.data_ptr(),
+                 channels.data_ptr(), config.tiles_x, config.tiles_y,
+                 config.tile_h, config.tile_w, int(tile_row0), stream)
     if err != 0:
         raise RuntimeError(f"group raster kernel launch failed: CUDA error {err}")
     raster_groups_cuda.launches += 1
+    MODE_LAUNCHES[("K2", mode)].launches += 1
     return depth, vis, channels
 
 

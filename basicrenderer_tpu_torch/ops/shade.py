@@ -2,9 +2,10 @@
 
 Port of the base path of basicrenderer_tpu/ops/shade.py: the G-buffer from
 the raster's channel planes, Cook-Torrance GGX + Lambert per analytic
-light, ACES tonemapping, sRGB encoding and the procedural sky. The OpenPBR
-extension lobes (coat, fuzz, energy compensation, subsurface, anisotropy,
-transmission) are not ported yet and raise NotImplementedError.
+light, ACES tonemapping, sRGB encoding and the procedural sky, and the
+OpenPBR transmission lobe (the OIT layers' shading, ops/oit.py). The other
+OpenPBR extension lobes (coat, fuzz, energy compensation, subsurface,
+anisotropy) are not ported yet and raise NotImplementedError.
 
 Reference analogue: shaders/VisUtilEvaluate.hlsl (G-buffer resolve) and
 shaders/deferred.hlsl + PBR.hlsli (full-screen Cook-Torrance).
@@ -42,6 +43,10 @@ class GBuffer(NamedTuple):
     mr_tex: torch.Tensor      # (H, W) i32 metallic-roughness texture id
     emissive_tex: torch.Tensor  # (H, W) i32 emissive texture id
     normal_scale: torch.Tensor  # (H, W) f32 glTF normalTexture.scale
+    trans_weight: torch.Tensor  # (H, W) f32 OpenPBR transmission weight
+    trans_color: torch.Tensor   # (H, W, 3) f32 transmission tint
+    trans_depth: torch.Tensor   # (H, W) f32 Beer-Lambert depth
+    ior: torch.Tensor           # (H, W) f32 index of refraction
 
 
 def _iota(n: int, dim: int, shape, dev) -> torch.Tensor:
@@ -138,6 +143,10 @@ def gbuffer_from_channels(channels: torch.Tensor, depth: torch.Tensor,
         base_tex=tex_id(13), normal_tex=tex_id(14), mr_tex=tex_id(15),
         emissive_tex=tex_id(16),
         normal_scale=torch.where(covered, mat[:, 9].reshape(H, W), 1.0),
+        trans_weight=torch.where(covered, mat[:, 30].reshape(H, W), 0.0),
+        trans_color=torch.where(c3, mat[:, 32:35].reshape(H, W, 3), 1.0),
+        trans_depth=torch.clamp(mat[:, 31].reshape(H, W), min=1e-4),
+        ior=torch.where(covered, mat[:, 12].reshape(H, W), 1.5),
     )
 
 
@@ -171,10 +180,14 @@ def _normalize(v, eps):
     return v / torch.clamp(torch.linalg.vector_norm(v, dim=-1, keepdim=True), min=eps)
 
 
-def eval_brdf(n, v, l, albedo, metallic, roughness, spec_scale=None):
+def eval_brdf(n, v, l, albedo, metallic, roughness, spec_scale=None,
+              trans_w=None):
     """Cook-Torrance specular + Lambert diffuse; all (..., 3)/(...,) tensors.
     Returns the radiance factor to multiply by the light's radiance.
-    `spec_scale` (..., 3) multiplies the specular lobe only."""
+    `spec_scale` (..., 3) multiplies the specular lobe only. `trans_w`
+    (H, W), the OpenPBR transmission weight, removes that share of the
+    diffuse lobe (the light passes through; ops/oit.py tints the
+    background instead)."""
     h = _normalize(l + v, 1e-12)
     n_dot_l = torch.clamp(_dot(n, l), min=0.0)
     n_dot_v = torch.clamp(_dot(n, v), min=1e-4)
@@ -190,6 +203,8 @@ def eval_brdf(n, v, l, albedo, metallic, roughness, spec_scale=None):
         specular = specular * spec_scale
     kd = (1.0 - F) * (1.0 - metallic[..., None])
     diffuse = kd * albedo / math.pi * n_dot_l
+    if trans_w is not None:
+        diffuse = diffuse * (1.0 - trans_w[..., None])
     return diffuse + specular * n_dot_l
 
 
@@ -209,7 +224,7 @@ def openpbr_terms(gb: GBuffer, v: torch.Tensor, n: torch.Tensor,
 
 def shade_one_light(gb: GBuffer, row: torch.Tensor, v: torch.Tensor,
                     n: torch.Tensor, directional_only: bool = False,
-                    spec_comp=None) -> torch.Tensor:
+                    spec_comp=None, trans_w=None) -> torch.Tensor:
     """Full-screen contribution of ONE packed light row (H, W, 3)."""
     lpos, ltype = row[0:3], row[3]
     ldir, intensity = row[4:7], row[7]
@@ -232,7 +247,7 @@ def shade_one_light(gb: GBuffer, row: torch.Tensor, v: torch.Tensor,
     att = torch.where(ltype == 2.0, att * spot * spot, att)
     radiance = color[None, None, :] * (intensity * att)
     out = eval_brdf(n, v, l, gb.albedo, gb.metallic, gb.roughness,
-                    spec_scale=spec_comp) * radiance
+                    spec_scale=spec_comp, trans_w=trans_w) * radiance
     if directional_only:
         out = out * torch.where(ltype == 0.0, 1.0, 0.0)
     return out
@@ -251,10 +266,11 @@ def shade_deferred(gb: GBuffer, scene: SceneBuffers, view: ViewData,
     JAX package loops to a traced device scalar; here the caller reads the
     count once per frame before queuing any work (see graph/frame.py), so
     the loop runs exactly the live lights and queues no masked passes.
+    With `transmission`, each light's diffuse lobe loses the pixel's
+    OpenPBR transmission weight (eval_brdf's `trans_w`).
     """
     for flag, name in ((coat, "enable_coat"), (sss, "enable_sss"),
-                       (aniso, "enable_aniso"),
-                       (transmission, "enable_transmission")):
+                       (aniso, "enable_aniso")):
         if flag:
             raise NotImplementedError(
                 f"this OpenPBR lobe is not ported yet (FrameConfig.{name})")
@@ -262,11 +278,12 @@ def shade_deferred(gb: GBuffer, scene: SceneBuffers, view: ViewData,
     v = _normalize(view.cam_pos[None, None, :] - gb.world_pos, 1e-12)
     n = gb.normal
     spec_comp, _fuzz_e = openpbr_terms(gb, v, n, energy, fuzz)
+    trans_w = gb.trans_weight if transmission else None
     total = torch.zeros((H, W, 3), dtype=torch.float32, device=gb.valid.device)
     for i in range(num_lights):
         out = shade_one_light(gb, scene.lights[i], v, n,
                               directional_only=directional_only,
-                              spec_comp=spec_comp)
+                              spec_comp=spec_comp, trans_w=trans_w)
         if shadow_fn is not None:
             out = out * shadow_fn(i, gb.world_pos, n)[..., None]
         total = total + out

@@ -5,8 +5,8 @@ NVIDIA GPU (written for an H100).
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --quick    # phases 1-5 only (build and checks)
     python3 chip_smoke.py --profile  # every phase, then a torch.profiler
-                                     # trace of 5 frames of slices 2, 3
-                                     # and 3b
+                                     # trace of 5 frames of slices 2, 3,
+                                     # 3b and 4
 
 Run from the root of a checkout. Phases, one line each:
  1. the card and toolchain;
@@ -16,19 +16,25 @@ Run from the root of a checkout. Phases, one line each:
     within their tolerances, K4's BC3 mode on random BC3 windows and on
     the windows of a BC3-textured 512x512 frame, K5 (the TAA history
     warp) exact on random history at 64x256 and 1088x1920 with shifts
-    past the clip limits;
+    past the clip limits, K1's and K2's peel and accum modes and K6 (the
+    attribute resolve) exact on random 512x512 scenes with a random seed
+    depth, peel bound and accum payload;
  4. the 128x128 golden scene against tests/goldens/basic_deferred.png and
-    against the port on the CPU;
+    against the port on the CPU; the flagship frame of
+    __graft_entry__.entry() (256x128) against the port on the CPU; the
+    clod_textured frame against tests/goldens/clod_textured.png;
  5. the 512x512 cluster rig (tests/test_goldens_512.py) against
     g512_occlusion.png, g512_clustered.png, g512_gtao_bloom.png,
     g512_taa.png, g512_ssr.png, g512_clod_textured_ibl.png,
-    g512_alpha_mask.png (full-rate mask pass) and g512_vsm.png (4 VSM
-    steps), its alpha-MASK frame on the card against the port on the CPU,
-    and 4-frame moving-camera sequences (graph/temporal.py, motion-vector
-    resolve) on the card against the same sequences on the CPU: TAA +
-    SSR, then with IBL, then bench.py's `full` toggles (textures with
-    normal maps, VSM, IBL, the post stack) once over the RGBA8 atlas and
-    once over the BC3 atlas;
+    g512_alpha_mask.png (full-rate mask pass), g512_vsm.png (4 VSM steps)
+    and g512_oit.png (OIT at its defaults), its alpha-MASK frame on the
+    card against the port on the CPU, and 4-frame moving-camera sequences
+    (graph/temporal.py, motion-vector resolve) on the card against the
+    same sequences on the CPU: TAA + SSR, then with IBL, then bench.py's
+    `full` toggles (textures with normal maps, VSM, IBL, the post stack)
+    once over the RGBA8 atlas and once over the BC3 atlas, then
+    `full_oit`'s (full + OIT with two layers and transmission over the
+    glass quad, a second alpha-MASK peel);
  6. slice 1 at full size: the triangle-soup frame of a ~1.36M-triangle
     courtyard at 1920x1080, timed, K1 timed against its plain version;
  7. slice 2 at full size: the cluster-LOD frame of bench.py's
@@ -53,9 +59,21 @@ Run from the root of a checkout. Phases, one line each:
     and timed alone against their bounds and plain versions on a frame's
     own inputs; atlas bytes per format; the RMSE of full_bc3 against full;
     each format's peak memory; then `full` with a held camera until the
-    VSM cache converges.
-Kernel launch counts are reset just before each full-size path is driven
-and read just after. Any failed check raises and the exit code is non-zero.
+    VSM cache converges;
+10. slice 4 at full size: bench.py's `full_oit` (full + OIT, two layers,
+    512 transparent clusters, transmission, two alpha-MASK peels) over
+    the same courtyard with one palette material made glass and one a
+    striped alpha-MASK material, the same orbit; timed with per-stage
+    CUDA events (the OIT stages and the second mask peel); launches per
+    frame of every K1/K2 mode; the transparent cut, the OIT pairs and
+    the overflow; K2's peel and accum launches of one captured frame
+    checked and timed alone against their bounds and plain versions;
+    K1's peel and accum modes and K6 timed on that frame's transparent
+    rows binned per triangle (K6 against K1's fused channels); then a
+    few frames with group_binning=False, the frame path through K1's
+    modes.
+Kernel launch counts (per raster mode: ops/raster.py's MODE_LAUNCHES) are
+reset just before each full-size path is driven and read just after. Any failed check raises and the exit code is non-zero.
 The second-to-last line is the kernels' JSON record and the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
 prints no result.
@@ -91,11 +109,23 @@ BC3_FLOPS_PER_BLOCK = 90     # K4 BC3, a block's palette: 565 expand (6),
 BC3_OPS_PER_TEXEL = 4        # K4 BC3, a texel: index fetch and select,
 #                              colour and alpha
 WARP_FLOPS_PER_VALUE = 9     # K5: two taps x2 rows, then x2 columns
+# Accum mode, per passing (row, pixel): the depth-warp weight (2 sub, max,
+# div, min/max, fma = 7) and the 8 sums (4 fma, 4 add).
+ACCUM_FLOPS_PER_FRAGMENT = 15
+PEEL_FLOPS_PER_ROW_PIXEL = 15  # the plain test and the peel bound compare
+RESOLVE_OPS_PER_ROW_PIXEL = 1  # K6: the id compare; planes where it matches
+RESOLVE_FLOPS_PER_MATCH = 16   # four planes at 4
 ORBIT_RAD_PER_FRAME = 0.004  # phase 8 camera orbit about the scene's y axis
 SLICE1_FRAMES = (2, 10)      # (warm, timed)
 SLICE2_FRAMES = (3, 12)
 SLICE3_FRAMES = (3, 12)
 SLICE3B_FRAMES = (3, 12)
+# bench.py:361-365: full_oit's glass.
+FULL_OIT_GLASS = dict(transmission_weight=0.9,
+                      transmission_color=(0.55, 0.7, 0.65), ior=1.5,
+                      roughness=0.05)
+SLICE4_FRAMES = (2, 6)
+SLICE4_K1_FRAMES = (1, 2)    # phase 10 with group_binning=False
 VSM_CONVERGE_FRAMES = 40     # phase 9: static frames allowed to converge
 
 
@@ -185,13 +215,15 @@ def golden_scene(np):
     return sc, SceneRenderBridge(sc, meshes, mats, caps)
 
 
-def g512_scene(np, fmt="rgba8", maps=False):
+def g512_scene(np, fmt="rgba8", maps=False, transmission=False):
     """The shared scene of tests/test_goldens_512.py (without the voxel
     pyramid): a LOD sphere, a cube, a checkered floor, a glass quad, an
     alpha-MASK leaf quad, directional + point + spot lights. With `maps`,
     the floor and the sphere also get a tangent-space normal map and a
     metallic-roughness map (tests/test_torch_full_frame.py's); the atlas
-    is stored in `fmt`."""
+    is stored in `fmt`. With `transmission` the glass takes bench.py's
+    full_oit glass (bench.py:361-365: OpenPBR transmission 0.9, colour
+    (0.55, 0.7, 0.65), ior 1.5, roughness 0.05)."""
     from basicrenderer_tpu_torch.models import clusters, procedural
     from basicrenderer_tpu_torch.models.materials import Material, MaterialRegistry
     from basicrenderer_tpu_torch.models.mesh import MeshRegistry
@@ -231,9 +263,10 @@ def g512_scene(np, fmt="rgba8", maps=False):
     gold_m = mats.add(Material(
         base_color=np.array([0.9, 0.6, 0.25, 1], np.float32),
         roughness=0.35, metallic=0.8, **maps_kw))
-    glass_m = mats.add(Material(
-        base_color=np.array([0.4, 0.6, 0.9, 0.45], np.float32),
-        roughness=0.1, alpha_blend=True))
+    glass_m = mats.add(Material(**{
+        "base_color": np.array([0.4, 0.6, 0.9, 0.45], np.float32),
+        "roughness": 0.1, "alpha_blend": True,
+        **(FULL_OIT_GLASS if transmission else {})}))
     leaf_m = mats.add(Material(
         base_color=np.array([1, 1, 1, 1], np.float32), roughness=0.7,
         alpha_cutoff=0.5, base_color_texture=leaf))
@@ -255,6 +288,74 @@ def g512_scene(np, fmt="rgba8", maps=False):
                             max_clusters=1 << 10, max_geom_clusters=1 << 10)
     return sc, SceneRenderBridge(sc, meshes, mats, caps, textures=tex,
                                  tex_format=fmt)
+
+
+def flagship_scene(np):
+    """__graft_entry__._build_small_inputs(full=False)'s scene (the frame
+    of __graft_entry__.entry(), 256x128): a floor, a checkered red cube, a
+    gold sphere and a glass cube (the cube mesh instanced twice), a
+    directional and a point light; the bridge carries no textures, as
+    there."""
+    from basicrenderer_tpu_torch.models import procedural
+    from basicrenderer_tpu_torch.models.materials import Material, MaterialRegistry
+    from basicrenderer_tpu_torch.models.mesh import MeshRegistry
+    from basicrenderer_tpu_torch.models.textures import TextureRegistry
+    from basicrenderer_tpu_torch.scene.bridge import BridgeCapacities, SceneRenderBridge
+    from basicrenderer_tpu_torch.scene.scene import Scene
+    meshes, mats = MeshRegistry(), MaterialRegistry()
+    checker = TextureRegistry(resolution=64).checkerboard()
+    cube = meshes.add(procedural.make_cube(1.0))
+    sphere = meshes.add(procedural.make_uv_sphere(0.5, rings=8, sectors=16))
+    plane = meshes.add(procedural.make_plane(10.0, 2))
+    red = mats.add(Material(base_color=np.array([0.8, 0.1, 0.1, 1], np.float32),
+                            base_color_texture=checker))
+    gold = mats.add(Material(base_color=np.array([0.9, 0.7, 0.3, 1], np.float32),
+                             metallic=1.0, roughness=0.3))
+    glass = mats.add(Material(base_color=np.array([0.5, 0.7, 0.9, 0.5],
+                                                  np.float32),
+                              alpha_blend=True, roughness=0.1))
+    sc = Scene()
+    sc.create_renderable(plane, 0)
+    sc.create_renderable(cube, red, position=(0, 0.5, 0))
+    sc.create_renderable(sphere, gold, position=(1.4, 0.5, 0.3))
+    sc.create_renderable(cube, glass, position=(0.6, 0.5, 1.2),
+                         scale=(0.6, 0.6, 0.6))
+    sc.create_directional_light(direction=(-0.4, -1, -0.3), intensity=3.0)
+    sc.create_point_light(position=(0, 2, 2), intensity=10.0, range=10.0)
+    sc.set_camera(position=(3, 2.5, 4), target=(0, 0.5, 0), aspect=2.0)
+    sc.propagate_transforms()
+    caps = BridgeCapacities(max_vertices=1 << 12, max_triangles=1 << 12,
+                            max_objects=16, max_materials=8, max_lights=8,
+                            max_clusters=256)
+    return sc, SceneRenderBridge(sc, meshes, mats, caps)
+
+
+def clod_textured_scene(np):
+    """tests/test_goldens.py's clod_textured scene: a cluster-LOD sphere
+    with a checkered base colour under one directional light."""
+    from basicrenderer_tpu_torch.models import clusters, procedural
+    from basicrenderer_tpu_torch.models.materials import Material, MaterialRegistry
+    from basicrenderer_tpu_torch.models.mesh import MeshRegistry
+    from basicrenderer_tpu_torch.models.textures import TextureRegistry
+    from basicrenderer_tpu_torch.scene.bridge import BridgeCapacities, SceneRenderBridge
+    from basicrenderer_tpu_torch.scene.scene import Scene
+    cl = clusters.build_cluster_lod(
+        procedural.make_uv_sphere(1.0, rings=32, sectors=64))
+    meshes, mats = MeshRegistry(), MaterialRegistry()
+    tex = TextureRegistry(resolution=64)
+    checker = tex.checkerboard(a=(1, 1, 1), b=(0.1, 0.1, 0.1), squares=8)
+    mid = meshes.add(clusters.to_mesh_data(cl))
+    m = mats.add(Material(base_color=np.array([0.9, 0.7, 0.4, 1], np.float32),
+                          roughness=0.5, base_color_texture=checker))
+    sc = Scene()
+    sc.create_renderable(mid, m)
+    sc.create_directional_light(direction=(-0.4, -1, -0.3), intensity=3.0)
+    sc.set_camera(position=(0, 0.5, 2.8), target=(0, 0, 0), aspect=1.0)
+    sc.propagate_transforms()
+    caps = BridgeCapacities(max_vertices=1 << 15, max_triangles=1 << 15,
+                            max_objects=8, max_materials=4, max_lights=4,
+                            max_clusters=1 << 10, max_geom_clusters=1 << 10)
+    return sc, SceneRenderBridge(sc, meshes, mats, caps, textures=tex)
 
 
 def soup_courtyard(np, grid=12, seed=42):
@@ -337,6 +438,63 @@ def random_groups(torch, np, seed, n, cfg, dev):
     return lanes, bbox, valid
 
 
+def ptxas_summary(log):
+    """One entry per compiled kernel of an nvcc -Xptxas -v report: its
+    name with its integer template arguments, registers and (when any)
+    spill bytes; "cached" for a library built earlier."""
+    import re
+    out, name = [], None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?(\w+)", ln)
+        if m:
+            mang = m.group(1)
+            # The kernel's own name follows the source's namespace tag
+            # (..._raster_cu_<hash><length>raster_tiles_kernel...).
+            k = re.search(r"([a-z][a-z_]*_kernel)", mang.split("_cu_")[-1])
+            args = re.findall(r"Li(\d+)E", mang)
+            name = (k.group(1) if k else mang) + (
+                f"<{','.join(args)}>" if args else "")
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and (m.group(1) != "0" or m.group(2) != "0"):
+            out.append(f"{name} SPILLS {m.group(1)}/{m.group(2)} B")
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out.append(f"{name} {m.group(1)} regs")
+    return ", ".join(out) or "cached"
+
+
+def random_payload(torch, np, lanes, seed):
+    """`lanes` with random accum payload bytes on the live rows (lanes 28,
+    30, 31, as ops/oit.py packs them)."""
+    rng = np.random.default_rng(seed)
+    rows = lanes.cpu().numpy().copy()
+    n = rows.shape[0]
+    live = rows[:, 9] > 0.5
+    a8 = rng.integers(0, 256, n)
+    od = rng.integers(0, 256, (n, 3))
+    col = rng.integers(0, 256, (n, 3))
+    rows[:, 30] = np.where(live, a8 + od[:, 0] * 256.0 + od[:, 1] * 65536.0, 0)
+    rows[:, 31] = np.where(live, od[:, 2], 0)
+    rows[:, 28] = np.where(live, col[:, 0] + col[:, 1] * 256.0
+                           + col[:, 2] * 65536.0, 0)
+    return torch.as_tensor(rows.astype(np.float32), device=lanes.device)
+
+
+def random_band(torch, np, seed, cfg, dev):
+    """A random peel band on the padded grid: seed depth in [0, 0.3), bound
+    in [0.4, 1) with +inf on a band of columns and 0 on a band of rows."""
+    rng = np.random.default_rng(seed)
+    H, W = cfg.padded_height, cfg.padded_width
+    seed_d = rng.uniform(0.0, 0.3, (H, W)).astype(np.float32)
+    bound = rng.uniform(0.4, 1.0, (H, W)).astype(np.float32)
+    bound[:, :W // 8] = np.inf
+    bound[-H // 16:] = 0.0
+    return (torch.as_tensor(seed_d, device=dev),
+            torch.as_tensor(bound, device=dev))
+
+
 # ---------------------------------------------------------------------------
 # Kernel-vs-plain comparisons
 # ---------------------------------------------------------------------------
@@ -364,6 +522,42 @@ def k2_check(torch, pairs, cfg, label, init=None):
     return compare_raster(torch, raster.raster_groups_cuda(pairs, cfg, 0, init),
                           raster.raster_groups_plain(pairs, cfg, 0, init),
                           label)
+
+
+def mode_check(torch, kernel_out, plain_out, label):
+    """A peel / accum mode or K6 vs its plain version: every output
+    exactly equal (the same f32 operations in the same order). Returns the
+    max abs error (0)."""
+    errs = []
+    for k, p in zip(kernel_out, plain_out):
+        check(k.shape == p.shape, f"{label}: shape {tuple(k.shape)} vs "
+              f"{tuple(p.shape)}")
+        nbad = int((k != p).sum())
+        check(nbad == 0, f"{label}: kernel differs from plain on {nbad} "
+              "values")
+        errs.append(float((k.double() - p.double()).abs().max())
+                    if k.numel() else 0.0)
+    return max(errs)
+
+
+def raster_mode_check(torch, pairs, cfg, label, peel, accum):
+    """K1 (BinnedPairs) or K2 (GroupBinnedPairs) in a peel / accum mode on
+    the card vs its plain version."""
+    from basicrenderer_tpu_torch.ops import raster, raster_setup
+    if isinstance(pairs, raster_setup.GroupBinnedPairs):
+        k = raster.raster_groups_cuda(pairs, cfg, 0, None, peel, accum)
+        p = raster.raster_groups_plain(pairs, cfg, 0, None, peel, accum)
+    else:
+        k = raster.raster_tiles_cuda(pairs, cfg, 0, peel, accum)
+        p = raster.raster_tiles_plain(pairs, cfg, 0, peel, accum)
+    return mode_check(torch, k, p, label)
+
+
+def k6_check(torch, pairs, vis, cfg, label):
+    from basicrenderer_tpu_torch.ops import resolve
+    return mode_check(torch, (resolve.resolve_attributes_cuda(pairs, vis, cfg),),
+                      (resolve.resolve_attributes_plain(pairs, vis, cfg),),
+                      label)
 
 
 def k3_check(torch, args, label):
@@ -553,13 +747,23 @@ def main():
     from basicrenderer_tpu_torch.graph.framedata import (FrameConfig,
                                                          FrameParams, make_view)
     from basicrenderer_tpu_torch.ops import (lighting, raster, raster_setup,
-                                             taa_warp, textures, vsm)
+                                             resolve, taa_warp, textures, vsm)
     from basicrenderer_tpu_torch.utils import cuda_build
     from basicrenderer_tpu_torch.utils.png import read_png
     dev = torch.device("cuda", 0)
+    # Indices 0-5 are checked by phases 6-9; 6-9 are the peel and accum
+    # raster modes (phase 10), 10 K6, 11-13 the plain and seeded modes.
     kernels = (raster.raster_tiles_cuda, raster.raster_groups_cuda,
                lighting.tiled_shade_cuda, textures.tex_block_eval_cuda,
-               taa_warp.warp_history_tiles, textures.tex_block_eval_bc3_cuda)
+               taa_warp.warp_history_tiles, textures.tex_block_eval_bc3_cuda,
+               raster.MODE_LAUNCHES[("K1", "peel")],
+               raster.MODE_LAUNCHES[("K1", "accum")],
+               raster.MODE_LAUNCHES[("K2", "peel")],
+               raster.MODE_LAUNCHES[("K2", "accum")],
+               resolve.resolve_attributes_cuda,
+               raster.MODE_LAUNCHES[("K1", "plain")],
+               raster.MODE_LAUNCHES[("K2", "plain")],
+               raster.MODE_LAUNCHES[("K2", "seeded")])
     t_start = time.perf_counter()
 
     # -- 1. the card -------------------------------------------------------
@@ -575,12 +779,10 @@ def main():
     # -- 2. kernel build ---------------------------------------------------
     t0 = time.perf_counter()
     libs = cuda_build.build_all([raster.SOURCE, lighting.SOURCE,
-                                 textures.SOURCE, taa_warp.SOURCE])
-    reports = []
-    for src, lib in libs.items():
-        regs = [ln.split("info    : ")[-1] for ln in lib.build_log.splitlines()
-                if "registers" in ln or "spill" in ln]
-        reports.append(f"{src.name}: {' / '.join(regs) or 'cached'}")
+                                 textures.SOURCE, taa_warp.SOURCE,
+                                 resolve.SOURCE])
+    reports = [f"{src.name}: {ptxas_summary(lib.build_log)}"
+               for src, lib in libs.items()]
     say(f"phase 2 build: {len(libs)} libraries in {time.perf_counter() - t0:.2f}"
         f" s | ptxas: {' || '.join(reports)}")
 
@@ -655,11 +857,29 @@ def main():
         label = f"K5 random {shape[0]}x{shape[1]}"
         res.append((label, k5_check(torch, random_warp(torch, np, seed, shape,
                                                        dev), label)))
+    # The peel and accum modes on random 512x512 scenes with a random seed
+    # depth, peel bound and payload (both big lists in use), then K6 on
+    # K1's own vis.
+    planes = random_payload(torch, np, lanes, 14)
+    mpairs = raster_setup.bin_pairs(planes, bbox, valid, cfg512)
+    mgpairs = raster_setup.bin_groups(planes, bbox, valid, cfg512)
+    band = random_band(torch, np, 15, cfg512, dev)
+    for kname, prs_ in (("K1", mpairs), ("K2", mgpairs)):
+        for mname, kw in (("peel", dict(peel=band, accum=False)),
+                          ("accum", dict(peel=band, accum=True)),
+                          ("accum unbanded", dict(peel=None, accum=True))):
+            label = f"{kname}-{mname} random512"
+            res.append((label, raster_mode_check(torch, prs_, cfg512, label,
+                                                 **kw)))
+    _, k1_vis, _ = raster.raster_tiles_cuda(mpairs, cfg512)
+    res.append(("K6 random512", k6_check(torch, mpairs, k1_vis, cfg512,
+                                         "K6 random512")))
     say("phase 3 kernels vs plain: " + "; ".join(f"{k} max_abs_err {e:.3g}"
                                                   for k, e in res)
         + f" (K1/K2 vis, depth exact, channels rtol {CHANNEL_RTOL}; K3 rtol "
         f"{SHADE_RTOL} atol {SHADE_ATOL}; K4 and K4-BC3 atol {TEX_ATOL} on "
-        f"0-255; K5 atol {WARP_ATOL})")
+        f"0-255; K5 atol {WARP_ATOL}; K1/K2 peel and accum and K6 every "
+        "output exact)")
 
     # -- 4. golden on the card ---------------------------------------------
     frame = build_frame_fn(gcfg)
@@ -674,9 +894,34 @@ def main():
     vis_agree = float((out["vis"].cpu() == cpu_out["vis"]).float().mean())
     check(r_gold <= GOLDEN_RMSE_MAX, f"golden RMSE {r_gold} > {GOLDEN_RMSE_MAX}")
     check(vis_agree >= 0.999, f"card vs CPU vis agreement {vis_agree}")
+    fsc, fbridge = flagship_scene(np)
+    fcfg = FrameConfig(width=256, height=128, tile_h=16, tile_w=128,
+                       max_pairs=1 << 13)     # __graft_entry__.py:101-104
+    f_out = [build_frame_fn(fcfg)(fbridge.build_scene_buffers(device=d),
+                                  make_view(*fsc.camera_matrices(aspect=2.0),
+                                            device=d), FrameParams.default(d))
+             for d in (dev, "cpu")]
+    f_agree = float((f_out[0]["vis"].cpu() == f_out[1]["vis"]).float().mean())
+    f_rmse = rmse(f_out[0]["image"].cpu().numpy(), f_out[1]["image"].numpy())
+    check(f_agree >= 0.999 and f_rmse <= 1.0, f"flagship frame card vs CPU: "
+          f"vis agreement {f_agree}, RMSE {f_rmse}")
+    csc, cbridge = clod_textured_scene(np)
+    ccfg = FrameConfig(width=128, height=128, tile_h=16, tile_w=128,
+                       max_pairs=1 << 14, enable_clod=True,
+                       enable_textures=True, texture_downscale=1)
+    c_img = build_frame_fn(ccfg)(
+        cbridge.build_scene_buffers(device=dev),
+        make_view(*csc.camera_matrices(aspect=1.0), device=dev),
+        FrameParams.default(dev))["image"].cpu().numpy()
+    r_clod = rmse(c_img, read_png(os.path.join(REPO, "tests", "goldens",
+                                               "clod_textured.png")))
+    check(r_clod <= GOLDEN_RMSE_MAX, f"clod_textured RMSE {r_clod}")
     say(f"phase 4 golden: 128x128 RMSE vs basic_deferred.png {r_gold:.4f} "
         f"(limit {GOLDEN_RMSE_MAX}); vs the port on the CPU: RMSE {r_cpu:.4f},"
-        f" vis agreement {vis_agree:.5f}")
+        f" vis agreement {vis_agree:.5f} | flagship frame 256x128 card vs "
+        f"CPU: vis agreement {f_agree:.5f}, RMSE {f_rmse:.4f} (limits 0.999, "
+        f"1.0) | clod_textured RMSE vs its PNG {r_clod:.4f} (limit "
+        f"{GOLDEN_RMSE_MAX})")
 
     # -- 5. the 512x512 cluster rig ----------------------------------------
     base = dict(width=512, height=512, tile_h=16, tile_w=128,
@@ -695,7 +940,8 @@ def main():
             ("g512_alpha_mask", dict(enable_alpha_mask=True,
                                      enable_textures=True,
                                      texture_downscale=1), 1),
-            ("g512_vsm", dict(enable_vsm=True), 4)):
+            ("g512_vsm", dict(enable_vsm=True), 4),
+            ("g512_oit", dict(enable_oit=True), 1)):
         cfg = FrameConfig(**base, **flags)
         fr = build_frame_fn(cfg)
         prev = torch.zeros((cfg.padded_height, cfg.padded_width), device=dev) \
@@ -727,7 +973,8 @@ def main():
             ("TAA + SSR", SEQ_POST, "rgba8"),
             ("TAA + SSR + IBL", dict(SEQ_POST, enable_ibl=True), "rgba8"),
             ("full", SEQ_FULL, "rgba8"),
-            ("full_bc3", dict(SEQ_FULL, tex_format="bc3"), "bc3")):
+            ("full_bc3", dict(SEQ_FULL, tex_format="bc3"), "bc3"),
+            ("full_oit", SEQ_FULL_OIT, "rgba8")):
         s_agree, s_rmse, s_k5, s_ms, s_pages = moving_sequence(
             np, torch, dev, flags, fmt)
         seqs.append(f"{label}: vis agreement {s_agree:.5f}, RMSE "
@@ -753,10 +1000,13 @@ def main():
                           profile="--profile" in sys.argv[1:]))
     records.update(slice3b(np, torch, dev, kernels, smi, yard,
                            profile="--profile" in sys.argv[1:]))
+    records.update(slice4(np, torch, dev, kernels, smi, yard,
+                          profile="--profile" in sys.argv[1:]))
 
     print(json.dumps({"kernels": [records[k] for k in
                                   ("K1", "K2", "K2-VSM", "K3", "K4", "K4-BC3",
-                                   "K5")]}),
+                                   "K5", "K1-peel", "K1-accum", "K2-peel",
+                                   "K2-accum", "K6")]}),
           flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -790,7 +1040,9 @@ def slice1(np, torch, dev, kernels):
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     check(launches[0] == warm + timed,
           f"K1 launched {launches[0]} times in {warm + timed} frames")
-    check(sum(launches[1:]) == 0, f"slice 1 launched other kernels {launches}")
+    check(launches[11] == launches[0]
+          and all(x == 0 for i, x in enumerate(launches) if i not in (0, 11)),
+          f"slice 1 launched other kernels or modes {launches}")
     img, vis = out["image"], out["vis"]
     coverage = float((vis > 0).float().mean())
     counters = {k: int(out[k]) for k in ("bin_overflow", "cluster_overflow",
@@ -1017,6 +1269,11 @@ SEQ_FULL = dict(SEQ_BASE, enable_occlusion=True, enable_clustered=True,
                 tex_channels=("base", "normal", "mr"), enable_vsm=True,
                 enable_gtao=True, enable_bloom=True, enable_taa=True,
                 enable_auto_exposure=True, enable_ssr=True)
+# bench.py's full_oit (bench.py:367-369: full + OIT) over the rig, whose
+# glass quad then takes full_oit's transmission.
+FULL_OIT = dict(enable_oit=True, oit_layers=2, oit_clusters=512,
+                enable_transmission=True, mask_peels=2)
+SEQ_FULL_OIT = dict(SEQ_FULL, **FULL_OIT)
 
 
 def moving_sequence(np, torch, dev, flags, fmt, frames=4):
@@ -1035,7 +1292,8 @@ def moving_sequence(np, torch, dev, flags, fmt, frames=4):
     from basicrenderer_tpu_torch.ops import taa_warp
     from basicrenderer_tpu_torch.scene.components import Position
     cfg = FrameConfig(**flags)
-    sc, bridge = g512_scene(np, fmt=fmt, maps=cfg.enable_textures)
+    sc, bridge = g512_scene(np, fmt=fmt, maps=cfg.enable_textures,
+                            transmission=cfg.enable_transmission)
     env = {}
     if cfg.enable_ibl:
         e = Environment.procedural(device=dev, use_cache=False)
@@ -1523,6 +1781,307 @@ def vsm_converged(np, torch, kernels, fr, buf, scene, bridge, temporal,
             f"{statistics.median(frame_ms):.3f} ms/frame, vsm stage "
             f"{stages['vsm']:.3f} ms, K2 {kernels[1].launches / 5:.2f} "
             "launches/frame")
+
+
+def oit_courtyard(np, torch, dev, yard):
+    """Phase 10's scene: the phase-7 courtyard with palette[1] made glass
+    (alpha_blend, base alpha 0.35, bench.py:361-365's transmission) and
+    palette[3] made alpha-MASK (cutoff 0.5) over a 256^2 base texture whose
+    alpha has 16-texel stripe holes; a new bridge over the courtyard's
+    meshes and texture registry, with the procedural environment. Returns
+    (bridge, buffers, host s); the materials are restored after the
+    build."""
+    import dataclasses
+    from basicrenderer_tpu_torch.models.environment import Environment
+    from basicrenderer_tpu_torch.scene.bridge import SceneRenderBridge
+    built, bridge = yard[0], yard[1]
+    t0 = time.perf_counter()
+    mats = built.materials.materials
+    rgb = [tuple(np.round(m.base_color[:3], 3)) for m in mats]
+    glass_i = rgb.index((0.1, 0.5, 0.8))        # palette[1]
+    mask_i = rgb.index((0.2, 0.7, 0.25))        # palette[3]
+    tex = bridge.textures
+    r = tex.resolution
+    xx = np.mgrid[0:r, 0:r][1]
+    stripes = ((xx // 16) % 2).astype(np.float32)
+    t_mask = tex.add(np.dstack([np.full((r, r), c, np.float32)
+                                for c in (0.2, 0.7, 0.25)] + [stripes]),
+                     srgb=False)
+    saved = (mats[glass_i], mats[mask_i])
+    mats[glass_i] = dataclasses.replace(
+        mats[glass_i], alpha_blend=True,
+        base_color=np.array([0.1, 0.5, 0.8, 0.35], np.float32),
+        **FULL_OIT_GLASS)
+    mats[mask_i] = dataclasses.replace(mats[mask_i], alpha_cutoff=0.5,
+                                       base_color_texture=t_mask)
+    try:
+        env = Environment.procedural(device=dev, use_cache=False)
+        bridge_oit = SceneRenderBridge(built.scene, built.meshes,
+                                       built.materials, bridge.caps,
+                                       textures=tex)
+        buf = bridge_oit.build_scene_buffers(env_sh=env.sh,
+                                             env_specular=env.spec_mips,
+                                             device=dev)
+    finally:
+        mats[glass_i], mats[mask_i] = saved
+    torch.cuda.synchronize()
+    return bridge_oit, buf, time.perf_counter() - t0
+
+
+def k1_walked(torch, pairs, cfg):
+    """(row, tile) pairs K1 walks: each tile's binned rows, plus each big
+    row on every tile its bbox (lanes 11-14) covers."""
+    offs = pairs.tile_offsets.long()
+    own = int((offs[1:] - offs[:-1]).sum())
+    big = pairs.pair_data[:int(pairs.big_count)]
+    nx = (torch.clamp(big[:, 12], max=cfg.tiles_x - 1)
+          - torch.clamp(big[:, 11], min=0) + 1).clamp(min=0)
+    ny = (torch.clamp(big[:, 14], max=cfg.tiles_y - 1)
+          - torch.clamp(big[:, 13], min=0) + 1).clamp(min=0)
+    return own + int((nx * ny).sum())
+
+
+def mode_bound(torch, raster, pairs, cfg, accum, out):
+    """(bound ms, by, rows walked) of one peel / accum launch: every walked
+    (row, tile) tested on its tile's pixels, each walked row read once, the
+    seed and bound read and depth, vis and 8 channels written; in accum
+    mode also the weight and 8 sums of each fragment this run's data
+    passes (channel 7 counts them)."""
+    from basicrenderer_tpu_torch.ops import raster_setup
+    if isinstance(pairs, raster_setup.GroupBinnedPairs):
+        walked = raster.expand_group_pairs(pairs, cfg)[0].shape[0]
+    else:
+        walked = k1_walked(torch, pairs, cfg)
+    npix = cfg.tile_h * cfg.tile_w
+    flops = walked * npix * PEEL_FLOPS_PER_ROW_PIXEL
+    if accum:
+        flops += int(out[2][7].sum()) * ACCUM_FLOPS_PER_FRAGMENT
+    hw = cfg.padded_height * cfg.padded_width
+    b_ms, b_by = bound(flops, walked * 128 + hw * (8 + 40))
+    return b_ms, b_by, walked
+
+
+def time_mode_launches(torch, raster, calls, plain_fn, label):
+    """Each captured launch (name, args, kwargs, output) of a raster mode
+    timed alone by CUDA events, run by its plain version and compared
+    exactly. Returns (ms, plain ms, bound ms, bound_by of the largest,
+    max abs err, parts text) summed over the launches."""
+    ms_sum = plain_sum = b_sum = b_big = err = 0.0
+    by, parts = "operations", []
+    for k, (_n, a, kw, kout) in enumerate(calls):
+        fn = getattr(raster, _n)
+        ms = cuda_ms(torch, lambda: fn(*a, **kw), 5)
+        pout, p_ms = host_ms(torch, lambda: plain_fn(*a, **kw))
+        err = max(err, mode_check(torch, kout, pout, f"{label} launch {k}"))
+        accum = bool(a[-1])
+        b_ms, b_by, walked = mode_bound(torch, raster, a[0], a[1], accum,
+                                        kout)
+        if b_ms > b_big:
+            b_big, by = b_ms, b_by
+        ms_sum, plain_sum, b_sum = ms_sum + ms, plain_sum + p_ms, b_sum + b_ms
+        parts.append(f"{ms:.4f} ms (bound {b_ms:.4f} {b_by}, plain "
+                     f"{p_ms:.0f}, rows walked {walked}, pairs "
+                     f"{int(a[0].num_pairs)}"
+                     + (f", fragments {int(kout[2][7].sum())}" if accum
+                        else "") + ")")
+    return ms_sum, plain_sum, b_sum, by, err, "; ".join(parts)
+
+
+def oit_frames(np, torch, dev, kernels, built, bridge, buf, cfg, orbit,
+               frames, entry):
+    """Warm + timed frames of `cfg` over `buf` along `orbit`, then one
+    captured frame: (last output, frame ms, temporal ms, stage medians,
+    launches by kernel index, per-frame oit_overflow, captured `entry`
+    launches, captured compactions, captured bin_clustered calls)."""
+    from basicrenderer_tpu_torch.graph.frame import build_frame_fn
+    from basicrenderer_tpu_torch.graph.temporal import TemporalState
+    from basicrenderer_tpu_torch.ops import clod, raster, raster_setup
+    fr = build_frame_fn(cfg)
+    temporal = TemporalState(cfg, device=dev)
+    warm, timed = frames
+    ovf = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches(kernels)
+    out, frame_ms, inputs_ms, stages = timed_frames(
+        torch, np, fr, buf, built.scene, bridge, temporal, warm, timed, orbit,
+        on_frame=lambda o: ovf.append(int(o["oit_overflow"])))
+    launches = [k.launches for k in kernels]
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    with Capture(raster, [entry]) as rc, \
+            Capture(clod, ["compact_visible_tris"]) as cc, \
+            Capture(raster_setup, ["bin_clustered"]) as bc:
+        timed_frames(torch, np, fr, buf, built.scene, bridge, temporal, 1, 0,
+                     orbit, first=warm + timed)
+    torch.cuda.synchronize()
+    return (out, frame_ms, inputs_ms, stages, launches, ovf, peak_gib,
+            rc.calls, cc.calls, bc.calls)
+
+
+def slice4(np, torch, dev, kernels, smi, yard, profile=False):
+    """Phase 10: bench.py's full_oit (full + OIT: two layers, 512
+    transparent clusters, transmission, two alpha-MASK peels) over the
+    courtyard with a glass and a striped alpha-MASK palette material,
+    orbiting as phase 9 through graph/temporal.py: the default group
+    binning (K2's peel and accum modes), then group_binning=False without
+    occlusion (K1's; the seeded per-triangle raster that the soup path's
+    occlusion needs is not ported). Each mode's launches of one captured
+    frame are checked and timed alone; K6 re-resolves the K1 frame's
+    first layer."""
+    import dataclasses
+    from basicrenderer_tpu_torch.graph.frame import build_frame_fn
+    from basicrenderer_tpu_torch.graph.framedata import FrameConfig
+    from basicrenderer_tpu_torch.graph.temporal import TemporalState
+    from basicrenderer_tpu_torch.ops import raster, resolve
+    built = yard[0]
+    orbit = (built.scene.camera_matrices(aspect=16 / 9)[2].copy(),
+             np.asarray(built.scene._camera_target, np.float64), 16 / 9)
+    bridge, buf, build_s = oit_courtyard(np, torch, dev, yard)
+    cfg = FrameConfig(**CONFIG1_MINIMAL, **FULL, **FULL_OIT)
+    order = ["cut", "hzb", "setup", "bin", "raster", "hzb2", "cut2", "setup2",
+             "bin2", "raster2", "mask", "mask_peel2", "gbuffer", "textures",
+             "normal_map", "vsm", "light_cull", "tiled_shade", "shade", "ssr",
+             "gtao", "ibl", "oit_cut", "oit_setup", "oit_bin", "oit_peel0",
+             "oit_peel1", "oit_accum", "oit_shade", "oit_composite", "motion",
+             "taa", "bloom", "exposure"]
+    names = ("K1", "K2", "K3", "K4", "K5", "K4-BC3", "K1-peel", "K1-accum",
+             "K2-peel", "K2-accum", "K6", "K1-plain", "K2-plain", "K2-seeded")
+    recs, lines = {}, []
+    # The K1 variant bins every visible triangle per tile: the soup
+    # frame's pair capacity (phase 6) in place of config1's 2^18.
+    for variant, vcfg, frames, entry in (
+            ("K2", cfg, SLICE4_FRAMES, "raster_groups_cuda"),
+            ("K1", dataclasses.replace(cfg, group_binning=False,
+                                       enable_occlusion=False,
+                                       max_pairs=1 << 22),
+             SLICE4_K1_FRAMES, "raster_tiles_cuda")):
+        (out, frame_ms, inputs_ms, stages, launches, ovf, peak_gib, calls,
+         comps, bins) = oit_frames(np, torch, dev, kernels, built, bridge,
+                                   buf, vcfg, orbit, frames, entry)
+        n = sum(frames)
+        img, vis = out["image"], out["vis"]
+        check(tuple(img.shape) == (vcfg.height, vcfg.width, 3)
+              and img.dtype == torch.uint8,
+              f"full_oit ({variant}) image {tuple(img.shape)} {img.dtype}")
+        check(bool(torch.isfinite(out["hdr"]).all()), "non-finite HDR values")
+        check(float(img.float().std()) > 5.0, "flat image")
+        peel_i, accum_i = (8, 9) if variant == "K2" else (6, 7)
+        # Per frame: the second mask peel and at least the first OIT layer
+        # peel; the tail whenever the last layer has coverage.
+        check(launches[peel_i] >= 2 * n and launches[accum_i] >= 1,
+              f"full_oit ({variant}): {variant} peel / accum launched "
+              f"{launches[peel_i]} / {launches[accum_i]} times in {n} frames")
+        other = (6, 7) if variant == "K2" else (8, 9)
+        check(all(launches[i] == 0 for i in other) and launches[10] == 0,
+              f"full_oit ({variant}) launched other modes: {launches}")
+        oit_comp = comps[-1][3]
+        oit_pairs = bins[-1][3]
+        cut_live = int((oit_comp.slot_cluster >= 0).sum())
+        cap = (vcfg.max_group_pairs if variant == "K2"
+               else min(vcfg.oit_max_pairs, vcfg.max_pairs))
+        plain_fn = (raster.raster_groups_plain if variant == "K2"
+                    else raster.raster_tiles_plain)
+        mode_calls = {m: [c for c in calls if c[1][-2] is not None
+                          and bool(c[1][-1]) == (m == "accum")]
+                      for m in ("peel", "accum")}
+        check(len(mode_calls["peel"]) >= 2 and len(mode_calls["accum"]) == 1,
+              f"captured full_oit ({variant}) frame: peel / accum launches "
+              f"{len(mode_calls['peel'])} / {len(mode_calls['accum'])}")
+        parts = []
+        for m in ("peel", "accum"):
+            ms, p_ms, b_ms, b_by, err, txt = time_mode_launches(
+                torch, raster, mode_calls[m], plain_fn,
+                f"{variant}-{m} 1080p")
+            idx = {"peel": peel_i, "accum": accum_i}[m]
+            recs[f"{variant}-{m}"] = {
+                "name": f"{'raster_groups' if variant == 'K2' else 'raster_tiles'}"
+                        f" ({variant}, {m} mode; per frame: "
+                        + ("the second alpha-MASK peel and the OIT layers"
+                           if m == "peel" else "the OIT tail") + ")",
+                "route": "cuda",
+                "source": "basicrenderer_tpu_torch/csrc/raster.cu",
+                "replaces": "basicrenderer_tpu/ops/raster_pallas.py:"
+                            + ("252" if variant == "K2" else "135"),
+                "launches": launches[idx], "max_abs_err": err, "ms": ms,
+                "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": None}
+            parts.append(f"{variant}-{m} {ms:.4f} ms per frame (bound "
+                         f"{b_ms:.4f} {b_by}, plain {p_ms:.0f} ms, "
+                         f"max_abs_err {err:.3g}) = {txt}")
+        k6_line = ""
+        if variant == "K1":
+            # K6 on the first OIT layer: its own pairs and vis; its
+            # channels 0-4 against the layer's fused ones.
+            layer0 = [c for c in mode_calls["peel"] if c[1][0] is oit_pairs][0]
+            pairs1, kvis, kch = layer0[1][0], layer0[3][1], layer0[3][2]
+            before = kernels[10].launches
+            k6_out = resolve.resolve_attributes(pairs1, kvis, vcfg)
+            torch.cuda.synchronize()
+            k6_launches = kernels[10].launches - before
+            check(k6_launches == 1, f"K6 launched {k6_launches} times")
+            fused_diff = float((k6_out[:5] - kch[:5]).abs().max())
+            k6_ms = cuda_ms(torch, lambda: resolve.resolve_attributes_cuda(
+                pairs1, kvis, vcfg), 10)
+            k6_plain, k6_pms = host_ms(
+                torch, lambda: resolve.resolve_attributes_plain(pairs1, kvis,
+                                                                vcfg))
+            k6_err = mode_check(torch, (k6_out,), (k6_plain,), "K6 1080p")
+            offs = pairs1.tile_offsets.long()
+            rows = int((offs[1:] - offs[:-1]).sum()) + int(
+                pairs1.big_count) * vcfg.num_tiles
+            matched = int((kvis > 0).sum())
+            hw = vcfg.padded_height * vcfg.padded_width
+            b6_ms, b6_by = bound(
+                rows * vcfg.tile_h * vcfg.tile_w * RESOLVE_OPS_PER_ROW_PIXEL
+                + matched * RESOLVE_FLOPS_PER_MATCH,
+                rows * 128 + hw * (4 + 32))
+            recs["K6"] = {
+                "name": "resolve_attributes (K6; no frame path calls it: "
+                        "driven once on phase 10's first OIT layer, "
+                        "soup-binned)", "route": "cuda",
+                "source": "basicrenderer_tpu_torch/csrc/resolve.cu",
+                "replaces": "basicrenderer_tpu/ops/resolve_pallas.py:39",
+                "launches": k6_launches, "max_abs_err": k6_err, "ms": k6_ms,
+                "plain_ms": k6_pms, "bound_ms": b6_ms, "bound_by": b6_by,
+                "library_ms": None}
+            k6_line = (f" | K6 on the first layer {k6_ms:.4f} ms (bound "
+                       f"{b6_ms:.4f} {b6_by}, plain {k6_pms:.0f} ms, "
+                       f"max_abs_err {k6_err:.3g}, rows walked {rows}, "
+                       f"covered pixels {matched}); channels 0-4 vs K1's "
+                       f"fused: max abs diff {fused_diff:.3g}")
+        if profile and variant == "K2":
+            fr_p = build_frame_fn(vcfg)
+            temporal = TemporalState(vcfg, device=dev)
+            first = [n + 1]
+
+            def step():
+                timed_frames(torch, np, fr_p, buf, built.scene, bridge,
+                             temporal, 1, 0, orbit, first=first[0])
+                first[0] += 1
+            profile_frames(torch, step, statistics.median(frame_ms),
+                           "phase 10 full_oit")
+        lines.append(
+            f"full_oit ({variant}{', group_binning=False, no occlusion' if variant == 'K1' else ''}): "
+            f"median {statistics.median(frame_ms):.3f} ms/frame over "
+            f"{frames[1]} (min {min(frame_ms):.3f}, max {max(frame_ms):.3f}; "
+            f"temporal state host {statistics.median(inputs_ms):.3f} ms) | "
+            "stage ms (CUDA events, median): "
+            + " ".join(f"{k} {stages[k]:.3f}" for k in order if k in stages)
+            + " | launches per frame "
+            + " ".join(f"{nm} {launches[i] / n:.2f}"
+                       for i, nm in enumerate(names))
+            + f" | transparent clusters cut {cut_live} of oit_clusters "
+            f"{vcfg.oit_clusters}, OIT pairs {int(oit_pairs.num_pairs)} of "
+            f"{cap} (bin overflow {int(oit_pairs.overflow)}), oit_overflow "
+            f"per frame {ovf} | " + " || ".join(parts) + k6_line
+            + f" | coverage {float((vis > 0).float().mean()):.4f} | peak "
+            f"{peak_gib:.2f} GiB")
+        del out, calls, comps, bins, mode_calls
+    say("phase 10 slice 4: full_oit 1920x1080 over the phase-7 courtyard "
+        "(palette[1] glass, palette[3] striped alpha-MASK; new bridge "
+        f"{build_s:.1f} s), camera orbit {ORBIT_RAD_PER_FRAME} rad/frame | "
+        + " |||| ".join(lines) + f" | {smi}")
+    return recs
 
 
 def grid_sample_warp(torch, hist, tdy, tdx, th, tw, ref):

@@ -99,7 +99,7 @@ def test_frame_with_local_lights_matches_jax():
     ("enable_texture_streaming", True), ("enable_reyes", True),
     ("enable_shadows", True),
     ("enable_voxel_rt", True), ("enable_coat", True), ("enable_skinning", True),
-    ("enable_oit", True), ("max_shadow_lights", 2), ("debug_view", "normals"),
+    ("enable_sss", True), ("max_shadow_lights", 2), ("debug_view", "normals"),
     ("wireframe", True), ("enable_vertex_tangents", True),
     ("output_width", 256),
 ])
@@ -117,3 +117,114 @@ def test_png_reader_matches_imageio():
             continue
         np.testing.assert_array_equal(read_png(path), iio.imread(path))
     assert read_png(GOLDEN).shape == (128, 128, 3)
+
+
+def flagship_scene():
+    """__graft_entry__._build_small_inputs(full=False)'s scene from the
+    port's modules: a floor, a checkered red cube, a gold sphere and a
+    glass cube (the cube mesh instanced twice), a directional and a point
+    light, 256x128; its bridge carries no textures, as there."""
+    from basicrenderer_tpu_torch.models import procedural
+    from basicrenderer_tpu_torch.models.materials import (Material,
+                                                          MaterialRegistry)
+    from basicrenderer_tpu_torch.models.mesh import MeshRegistry
+    from basicrenderer_tpu_torch.models.textures import TextureRegistry
+    from basicrenderer_tpu_torch.scene.bridge import (BridgeCapacities,
+                                                      SceneRenderBridge)
+    from basicrenderer_tpu_torch.scene.scene import Scene
+    meshes, mats = MeshRegistry(), MaterialRegistry()
+    checker = TextureRegistry(resolution=64).checkerboard()
+    cube = meshes.add(procedural.make_cube(1.0))
+    sphere = meshes.add(procedural.make_uv_sphere(0.5, rings=8, sectors=16))
+    plane = meshes.add(procedural.make_plane(10.0, 2))
+    red = mats.add(Material(base_color=np.array([0.8, 0.1, 0.1, 1],
+                                                np.float32),
+                            base_color_texture=checker))
+    gold = mats.add(Material(base_color=np.array([0.9, 0.7, 0.3, 1],
+                                                 np.float32),
+                             metallic=1.0, roughness=0.3))
+    glass = mats.add(Material(base_color=np.array([0.5, 0.7, 0.9, 0.5],
+                                                  np.float32),
+                              alpha_blend=True, roughness=0.1))
+    sc = Scene()
+    sc.create_renderable(plane, 0)
+    sc.create_renderable(cube, red, position=(0, 0.5, 0))
+    sc.create_renderable(sphere, gold, position=(1.4, 0.5, 0.3))
+    sc.create_renderable(cube, glass, position=(0.6, 0.5, 1.2),
+                         scale=(0.6, 0.6, 0.6))
+    sc.create_directional_light(direction=(-0.4, -1, -0.3), intensity=3.0)
+    sc.create_point_light(position=(0, 2, 2), intensity=10.0, range=10.0)
+    sc.set_camera(position=(3, 2.5, 4), target=(0, 0.5, 0), aspect=2.0)
+    sc.propagate_transforms()
+    caps = BridgeCapacities(max_vertices=1 << 12, max_triangles=1 << 12,
+                            max_objects=16, max_materials=8, max_lights=8,
+                            max_clusters=256)
+    return sc, SceneRenderBridge(sc, meshes, mats, caps)
+
+
+def test_flagship_frame_matches_jax():
+    """The frame of __graft_entry__.entry() (the default FrameConfig at
+    256x128 over _build_small_inputs' scene): the port on its own rebuild
+    of the scene vs jax.jit(build_frame_fn) on _build_small_inputs
+    (pallas=False)."""
+    from __graft_entry__ import _build_small_inputs
+    jcfg, jbuf, jvd, jparams = _build_small_inputs(pallas=False)
+    jout = jax.jit(j_build_frame_fn(jcfg))(jbuf, jvd, jparams)
+    sc, bridge = flagship_scene()
+    pcfg = FrameConfig(width=256, height=128, tile_h=16, tile_w=128,
+                       max_pairs=1 << 13)
+    pout = build_frame_fn(pcfg)(
+        bridge.build_scene_buffers(device="cpu"),
+        make_view(*sc.camera_matrices(aspect=2.0), device="cpu"),
+        FrameParams.default("cpu"))
+    np.testing.assert_array_equal(pout["vis"].numpy(), np.asarray(jout["vis"]))
+    assert 0.3 < (pout["vis"].numpy() > 0).mean() < 0.95
+    assert _rmse(pout["image"].numpy(), np.asarray(jout["image"])) <= 1.0
+
+
+def clod_textured_scene():
+    """tests/test_goldens.py's clod_textured scene from the port's modules:
+    a cluster-LOD sphere with a checkered base colour under one
+    directional light."""
+    from basicrenderer_tpu_torch.models import clusters, procedural
+    from basicrenderer_tpu_torch.models.materials import (Material,
+                                                          MaterialRegistry)
+    from basicrenderer_tpu_torch.models.mesh import MeshRegistry
+    from basicrenderer_tpu_torch.models.textures import TextureRegistry
+    from basicrenderer_tpu_torch.scene.bridge import (BridgeCapacities,
+                                                      SceneRenderBridge)
+    from basicrenderer_tpu_torch.scene.scene import Scene
+    cl = clusters.build_cluster_lod(
+        procedural.make_uv_sphere(1.0, rings=32, sectors=64), use_cache=False)
+    meshes, mats = MeshRegistry(), MaterialRegistry()
+    tex = TextureRegistry(resolution=64)
+    checker = tex.checkerboard(a=(1, 1, 1), b=(0.1, 0.1, 0.1), squares=8)
+    mid = meshes.add(clusters.to_mesh_data(cl))
+    m = mats.add(Material(base_color=np.array([0.9, 0.7, 0.4, 1], np.float32),
+                          roughness=0.5, base_color_texture=checker))
+    sc = Scene()
+    sc.create_renderable(mid, m)
+    sc.create_directional_light(direction=(-0.4, -1, -0.3), intensity=3.0)
+    sc.set_camera(position=(0, 0.5, 2.8), target=(0, 0, 0), aspect=1.0)
+    sc.propagate_transforms()
+    caps = BridgeCapacities(max_vertices=1 << 15, max_triangles=1 << 15,
+                            max_objects=8, max_materials=4, max_lights=4,
+                            max_clusters=1 << 10, max_geom_clusters=1 << 10)
+    return sc, SceneRenderBridge(sc, meshes, mats, caps, textures=tex)
+
+
+def test_clod_textured_golden():
+    """tests/test_goldens.py's clod_textured frame (cluster LOD + base
+    colour texture at texture_downscale 1) rendered by the port on the
+    CPU, against the golden PNG at the golden limit."""
+    sc, bridge = clod_textured_scene()
+    cfg = FrameConfig(width=128, height=128, tile_h=16, tile_w=128,
+                      max_pairs=1 << 14, enable_clod=True,
+                      enable_textures=True, texture_downscale=1)
+    out = build_frame_fn(cfg)(bridge.build_scene_buffers(device="cpu"),
+                              make_view(*sc.camera_matrices(aspect=1.0),
+                                        device="cpu"),
+                              FrameParams.default("cpu"))
+    golden = read_png(os.path.join(os.path.dirname(GOLDEN),
+                                   "clod_textured.png"))
+    assert _rmse(out["image"].numpy(), golden) <= 6.0

@@ -7,11 +7,15 @@ the sphere (base colour on the floor), over IBL (a procedural 16^2
 environment), and the toggles of `full`: cluster LOD, two-phase
 occlusion, texture channels ("base", "normal", "mr"), VSM on a small
 geometry, GTAO, bloom, TAA with motion vectors, auto-exposure and SSR.
-Two variants:
+Three variants:
 - "rgba8": the RGBA8 atlas sampled at texture_downscale 2, VSM's 2x2 tap
   filter;
 - "bc3": the BC3 atlas sampled at full rate (texture_downscale 1), VSM's
-  SMRT tier.
+  SMRT tier;
+- "oit": "rgba8" plus bench.py's `full_oit` toggles (two OIT layers, 512
+  transparent clusters, transmission, two alpha-MASK peels, with the
+  alpha-MASK pass that bench.py's `full` carries), the glass quad given
+  bench.py's transmission.
 
 The camera orbits and the cube slides over a warm-up frame and three
 compared frames, driven by graph/temporal.py (jitter, frame index,
@@ -22,9 +26,11 @@ per variant (its first frame, without history, is another program). On
 the JAX side the test keeps the VSM cache as Renderer.update does
 (renderer.py:383-427).
 
-Parity on each compared frame: vis equal on every pixel; image RMSE vs
-the JAX frame <= 1.0 (0-255); the same output keys; the VSM page tables
-and stats equal.
+Parity on each compared frame: vis equal on every pixel (with the
+alpha-MASK pass, on >= 99.9% of them); image RMSE vs
+the JAX frame <= 1.0 (0-255); the same output keys and oit_overflow; with
+OIT every peeled layer's vis (tests/test_torch_oit.py's recorders); the
+VSM page tables and stats equal.
 """
 
 import dataclasses
@@ -48,6 +54,7 @@ from basicrenderer_tpu_torch.models.environment import Environment
 from basicrenderer_tpu_torch.ops.ibl import make_procedural_environment
 
 from tests.test_torch_cluster_frame import JAX_PKG, PORT_PKG, build_rig
+from tests.test_torch_oit import _local, layer_recorders
 from tests.test_torch_post_frame import _move
 
 BASE = dict(width=128, height=128, tile_h=16, tile_w=128, max_pairs=1 << 15,
@@ -58,18 +65,25 @@ FULL = dict(enable_ibl=True, ibl_specular_downscale=2, enable_textures=True,
             enable_ssr=True, ssr_downscale=2, enable_vsm=True,
             vsm_pages_per_frame=1, vsm_slots=16, vsm_levels=3,
             vsm_page_size=64, vsm_page_clusters=64, vsm_page_pairs=1 << 13)
+# bench.py's full_oit (bench.py:367-369): full + OIT.
+FULL_OIT = dict(enable_oit=True, oit_layers=2, oit_clusters=512,
+                enable_transmission=True, mask_peels=2)
 VARIANTS = {
     "rgba8": dict(tex_format="rgba8", texture_downscale=2, vsm_filter_taps=4),
     "bc3": dict(tex_format="bc3", texture_downscale=1, vsm_rays=2),
+    "oit": dict(tex_format="rgba8", texture_downscale=2, vsm_filter_taps=4,
+                enable_alpha_mask=True, **FULL_OIT),
 }
 FRAMES = 3          # compared, after one warm-up frame
 TABLES = ("slot_of_cell", "abs_of_cell", "cell_of_slot", "age", "z_range",
           "initialized")
 
 
-def textured_rig(root, fmt):
+def textured_rig(root, fmt, transmission=False):
     """build_rig plus a normal map and a metallic-roughness map (64^2,
-    linear) on the floor and the sphere, the atlas in `fmt`."""
+    linear) on the floor and the sphere, the atlas in `fmt`; with
+    `transmission` the glass quad takes bench.py's full_oit glass
+    (bench.py:361-365)."""
     sc, br = build_rig(root)
     tex = br.textures
     r = tex.resolution
@@ -85,6 +99,10 @@ def textured_rig(root, fmt):
     for i in (1, 2):                      # the floor and the gold sphere
         mats[i] = dataclasses.replace(mats[i], normal_texture=t_n,
                                       metallic_roughness_texture=t_mr)
+    if transmission:                      # the glass quad
+        mats[3] = dataclasses.replace(
+            mats[3], transmission_weight=0.9, ior=1.5, roughness=0.05,
+            transmission_color=np.array([0.55, 0.7, 0.65], np.float32))
     br.tex_format = fmt
     return sc, br
 
@@ -142,8 +160,10 @@ def sequences(environment):
     variants run in two threads, so that their XLA compiles overlap."""
     def run(name):
         fmt = VARIANTS[name]["tex_format"]
-        (jsc, jb), (psc, pb) = textured_rig(JAX_PKG, fmt), \
-            textured_rig(PORT_PKG, fmt)
+        tr = VARIANTS[name].get("enable_transmission", False)
+        (jsc, jb), (psc, pb) = textured_rig(JAX_PKG, fmt, tr), \
+            textured_rig(PORT_PKG, fmt, tr)
+        jl, pl = _local.layers = ([], [])
         flags = dict(BASE, **FULL, **VARIANTS[name])
         jcfg = JConfig(**flags, use_pallas_raster=False)
         pcfg = FrameConfig(**flags)
@@ -160,6 +180,7 @@ def sequences(environment):
             jbuf, pbuf = jb.update_dynamic(jbuf), pb.update_dynamic(pbuf)
             jcache.update(jb)
             view, params, kw = temporal.inputs(psc, pb)
+            pl.clear()
             pout = pf(pbuf, view, params, **kw)
             temporal.carry(pout)
             if i == 0:             # the warm-up frame is the port's
@@ -169,6 +190,7 @@ def sequences(environment):
                 continue
             jkw = {k: jnp.asarray(kw[k].numpy())
                    for k in ("prev_viewproj", "moving_rel", "moving_ids")}
+            jl.clear()
             jout = jf(jbuf, j_make_view(view.view.numpy(), view.proj.numpy(),
                                         view.cam_pos.numpy()),
                       dataclasses.replace(JParams.default(),
@@ -177,6 +199,7 @@ def sequences(environment):
                       vsm_state=jcache.state, **jkw)
             jprev, jhist = jout["depth_padded"], jout["taa_out"]
             jcache.state = jout["vsm_state"]
+            jax.effects_barrier()
 
             def tables(st, conv):
                 return {f: conv(getattr(st, f)) for f in TABLES}
@@ -189,19 +212,32 @@ def sequences(environment):
                 tables(pout["vsm_state"], lambda t: t.numpy()),
                 {k: int(v) for k, v in jout["vsm_stats"].items()},
                 {k: int(v) for k, v in pout["vsm_stats"].items()},
-                sorted(set(jout) ^ set(pout))))
+                sorted(set(jout) ^ set(pout)), list(jl), list(pl)))
         return outs
 
-    with ThreadPoolExecutor(len(VARIANTS)) as pool:
+    with layer_recorders(), ThreadPoolExecutor(len(VARIANTS)) as pool:
         return dict(zip(VARIANTS, pool.map(run, VARIANTS)))
 
 
 @pytest.mark.parametrize("variant", list(VARIANTS))
 def test_full_frames_match_jax(sequences, variant):
-    for i, (jout, pout, *_rest, keys_diff) in enumerate(sequences[variant]):
+    for i, (jout, pout, *_rest, keys_diff, jl, pl) in enumerate(
+            sequences[variant]):
         assert keys_diff == [], keys_diff
-        np.testing.assert_array_equal(pout["vis"], jout["vis"],
-                                      err_msg=f"frame {i + 1}")
+        if VARIANTS[variant].get("enable_alpha_mask"):
+            # A masked texel whose sampled alpha sits at the cutoff can
+            # flip (tests/test_torch_cluster_frame.py's parity level).
+            agree = (pout["vis"] == jout["vis"]).mean()
+            assert agree >= 0.999, f"frame {i + 1}: vis agreement {agree}"
+        else:
+            np.testing.assert_array_equal(pout["vis"], jout["vis"],
+                                          err_msg=f"frame {i + 1}")
+        assert int(pout["oit_overflow"]) == int(jout["oit_overflow"])
+        # The OIT layers (full_oit): each peeled layer's vis.
+        assert len(pl) == len(jl) and (len(pl) > 0) == (variant == "oit")
+        for k, (jv, pv) in enumerate(zip(jl, pl)):
+            np.testing.assert_array_equal(pv, jv, err_msg=f"frame {i + 1} "
+                                          f"layer {k}")
         err = np.sqrt(np.mean((pout["image"].astype(np.float32)
                                - jout["image"].astype(np.float32)) ** 2))
         assert err <= 1.0, f"frame {i + 1}: image RMSE {err:.4f}"
@@ -212,7 +248,7 @@ def test_full_frames_match_jax(sequences, variant):
 @pytest.mark.parametrize("variant", list(VARIANTS))
 def test_full_frames_vsm_state_matches_jax(sequences, variant):
     rendered = 0
-    for i, (_j, _p, jt, pt, jstats, pstats, _k) in enumerate(
+    for i, (_j, _p, jt, pt, jstats, pstats, *_k) in enumerate(
             sequences[variant]):
         for f in TABLES:
             np.testing.assert_array_equal(pt[f], jt[f],
@@ -223,7 +259,7 @@ def test_full_frames_vsm_state_matches_jax(sequences, variant):
 
 
 def test_full_toggles_build_and_unported_ones_raise():
-    for v in VARIANTS.values():
+    for v in VARIANTS.values():          # full_oit's toggles among them
         build_frame_fn(FrameConfig(**BASE, **FULL, **v))
     for field in ("enable_texture_streaming", "enable_vertex_tangents"):
         with pytest.raises(NotImplementedError, match=field):

@@ -34,6 +34,7 @@ def test_port_never_imports_jax():
                 "ops.lighting", "ops.textures", "ops.shadows", "ops.post",
                 "ops.motion", "ops.taa_warp", "ops.ssr", "ops.ibl",
                 "models.environment", "models.texprocess", "ops.vsm",
+                "ops.oit", "ops.resolve",
                 "models.clusters", "models.pageblob", "models.scenes",
                 "models.textures", "scene.bridge", "interop",
                 "utils.cuda_build"):

@@ -13,6 +13,7 @@ marked `cuda` and skips without a card.
 """
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -20,12 +21,14 @@ import torch
 from basicrenderer_tpu.graph.framedata import FrameConfig as JConfig
 from basicrenderer_tpu.ops import raster_setup as jrs
 from basicrenderer_tpu.ops.raster_pallas import raster_tiles_pallas
+from basicrenderer_tpu.ops.raster_ref import raster_tiles_ref
 from basicrenderer_tpu_torch import interop
 from basicrenderer_tpu_torch.graph.framedata import FrameConfig as PConfig
 from basicrenderer_tpu_torch.ops import raster as praster
 from basicrenderer_tpu_torch.ops import raster_setup as prs
 
 from tests.test_raster import random_clip_triangles, setup_from_clip
+from tests.test_torch_raster import peel_band, with_payload
 
 KW = dict(width=256, height=64, tile_h=16, tile_w=128, max_pairs=1 << 12,
           max_group_pairs=1 << 10)
@@ -117,19 +120,78 @@ def test_bin_groups_matches_jax():
                                           err_msg=f"{kw} {f}")
 
 
+def _jax_peel_groups(seed, n, **kw):
+    """_jax_groups with the accum payload on the lanes and a peel band."""
+    jc = JConfig(**{**KW, **kw})
+    rng = np.random.default_rng(seed)
+    setup = setup_from_clip(random_clip_triangles(rng, n), jc)
+    lanes = jnp.asarray(with_payload(rng, jrs.pack_setup_lanes(setup)))
+    jpairs = jrs.bin_groups(lanes, setup.bbox, setup.valid, jc)
+    pc = PConfig(**{**KW, **kw})
+    return jc, pc, jpairs, peel_band(rng, pc.padded_height, pc.padded_width)
+
+
+@pytest.mark.parametrize("accum", [False, True])
+def test_group_peel_and_accum_match_jax(accum):
+    """K2's peel and accum modes vs the Pallas group kernel in interpret
+    mode and vs the jitted reference, on random groups of which some take
+    the global big-group list: vis and depth exact, peel channels as
+    _compare, the 8 accum sums exact (the fused form of
+    ops/raster.py::accum_weight, accum_add, added in K2's walk order)."""
+    jc, pc, jpairs, band = _jax_peel_groups(0, 128, max_tiles_per_group=6,
+                                            group_rows=8)
+    assert int(jpairs.big_count) > 0 and int(jpairs.num_pairs) > 0
+    jband = tuple(jnp.asarray(b) for b in band)
+    jd, jv, jch = (np.asarray(x) for x in raster_tiles_pallas(
+        jpairs, jc, interpret=True, peel=jband, accum=accum))
+    rd, rv = (np.asarray(x) for x in jax.jit(
+        lambda p, a, b: raster_tiles_ref(p, jc, peel=(a, b), accum=accum))(
+            jpairs, *jband))
+    pd, pv, pch = (x.numpy() for x in praster.raster_tiles(
+        interop.group_binned_pairs(_np_fields(jpairs), device="cpu"), pc,
+        peel=tuple(torch.as_tensor(b) for b in band), accum=accum))
+    np.testing.assert_array_equal(pd, jd)
+    np.testing.assert_array_equal(pd, rd)
+    np.testing.assert_array_equal(pv, jv)
+    if accum:
+        np.testing.assert_array_equal(pch, jch)
+        np.testing.assert_array_equal(pch, rv)
+        assert (pch[7] > 1.5).mean() > 0.05
+    else:
+        np.testing.assert_array_equal(pv, rv)
+        np.testing.assert_allclose(pch, jch, rtol=1e-6, atol=1e-6)
+        assert 0.2 < (pv > 0).mean() < 0.95
+
+
 def test_expanded_pairs_keep_the_walk_order():
     """The plain version's (row, tile) expansion lists each tile's own
     rows before its big-list rows, and only rows whose bbox covers the
-    tile."""
+    tile, in K2's walk order: per tile, each (group, tile) pair's rows in
+    pair order, then each covering big group's rows in list order. The
+    accum mode's sums are taken in this order, so the order is part of
+    their value (test_group_peel_and_accum_match_jax)."""
     jc, pc, jpairs = _jax_groups(7, 64, max_tiles_per_group=1)
     pairs = interop.group_binned_pairs(_np_fields(jpairs), device="cpu")
     rows, offs = praster.expand_group_pairs(pairs, pc)
     assert offs[0] == 0 and offs[-1] == rows.shape[0]
+    GR = pc.group_rows
+    lanes = pairs.lanes.numpy()
+    toffs = pairs.tile_offsets.numpy()
     for t in range(pc.num_tiles):
         r = rows[offs[t]:offs[t + 1]]
         tx, ty = t % pc.tiles_x, t // pc.tiles_x
         assert ((r[:, 11] <= tx) & (tx <= r[:, 12])
                 & (r[:, 13] <= ty) & (ty <= r[:, 14])).all()
+        walk = list(pairs.group_ids.numpy()[toffs[t]:toffs[t + 1]])
+        for p in range(int(pairs.big_count)):
+            bx, by = int(pairs.big_bx[p]), int(pairs.big_by[p])
+            if bx // 2048 <= tx <= bx % 2048 and by // 2048 <= ty <= by % 2048:
+                walk.append(int(pairs.big_ids[p]))
+        want = [lanes[g * GR + j] for g in walk for j in range(GR)]
+        want = [w for w in want
+                if w[11] <= tx <= w[12] and w[13] <= ty <= w[14]]
+        np.testing.assert_array_equal(r.numpy(),
+                                      np.array(want).reshape(-1, 32))
 
 
 def test_group_rows_must_tile_the_lanes():
@@ -174,3 +236,36 @@ def test_cuda_group_kernel_matches_plain(cuda_device, seeded):
     assert torch.equal(kv, pv)
     assert torch.equal(kd, pd)
     torch.testing.assert_close(kch, pch, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("accum", [False, True])
+def test_cuda_group_peel_and_accum_match_plain(cuda_device, accum):
+    """K2's peel and accum modes on the card vs the plain version: vis,
+    depth and every channel exact."""
+    kw = dict(width=384, height=160, tile_h=32, tile_w=128, max_pairs=1 << 14,
+              max_tiles_per_group=2, max_group_pairs=1 << 12)
+    cfg = PConfig(**kw)
+    rng = np.random.default_rng(22)
+    n = 512
+    clip = torch.as_tensor(random_clip_triangles(rng, n).reshape(-1, 4),
+                           device=cuda_device)
+    idx = torch.arange(3 * n, dtype=torch.int32, device=cuda_device).view(n, 3)
+    lanes, bbox, valid, _ = prs.triangle_setup_packed(
+        clip, idx, torch.ones(n, dtype=torch.bool, device=cuda_device), cfg,
+        None, None)
+    lanes = torch.as_tensor(with_payload(rng, lanes.cpu().numpy()),
+                            device=cuda_device)
+    pairs = prs.bin_groups(lanes, bbox, valid, cfg)
+    band = tuple(torch.as_tensor(b, device=cuda_device)
+                 for b in peel_band(rng, cfg.padded_height, cfg.padded_width))
+    mode = praster.MODE_LAUNCHES[("K2", "accum" if accum else "peel")]
+    before = mode.launches
+    kd, kv, kch = praster.raster_tiles(pairs, cfg, peel=band, accum=accum)
+    torch.cuda.synchronize()
+    assert mode.launches == before + 1
+    pd, pv, pch = praster.raster_groups_plain(pairs, cfg, peel=band,
+                                              accum=accum)
+    assert torch.equal(kv, pv)
+    assert torch.equal(kd, pd)
+    assert torch.equal(kch, pch)

@@ -97,6 +97,38 @@ def test_deferred_hdr_matches_jax(inputs):
     assert np.asarray(jhdr).max() > 0.1
 
 
+def test_transmission_lobe_matches_jax(inputs):
+    """The OpenPBR transmission lobe (the OIT layers' shading): the
+    G-buffer's transmission fields and, with the light loop bounded as
+    ops/oit.py bounds it (4 of the 5 live lights), the HDR radiance."""
+    i = inputs
+    mt = np.array(i["jscene"].material_table)
+    M = mt.shape[0]
+    mt[:, 30] = np.linspace(0.0, 1.0, M)              # weight
+    mt[:, 31] = np.linspace(0.0, 2.0, M)              # depth
+    mt[:, 32:35] = np.linspace(0.2, 0.9, 3 * M).reshape(M, 3)
+    mt[:, 12] = np.linspace(1.1, 1.8, M)              # ior
+    jscene = dataclasses.replace(i["jscene"], material_table=mt)
+    pscene = dataclasses.replace(i["pscene"],
+                                 material_table=torch.as_tensor(mt))
+    jgb = jax.jit(lambda ch, d, v, vd, m: jshade.gbuffer_from_channels(
+        ch, d, v, vd, m, W, H))(i["ch"], i["depth"], i["vis"], i["jview"], mt)
+    pgb = pshade.gbuffer_from_channels(
+        torch.tensor(i["ch"]), torch.tensor(i["depth"]),
+        torch.tensor(i["vis"]), i["pview"], pscene.material_table, W, H)
+    for f in ("trans_weight", "trans_color", "trans_depth", "ior"):
+        np.testing.assert_array_equal(getattr(pgb, f).numpy(),
+                                      np.asarray(getattr(jgb, f)), err_msg=f)
+    jhdr = jax.jit(lambda gb, s, v: jshade.shade_deferred(
+        gb, s, v, transmission=True, max_lights=4))(jgb, jscene, i["jview"])
+    phdr = pshade.shade_deferred(pgb, pscene, i["pview"], 4,
+                                 transmission=True)
+    np.testing.assert_allclose(phdr.numpy(), np.asarray(jhdr),
+                               rtol=HDR_RTOL, atol=ATOL)
+    plain = pshade.shade_deferred(pgb, pscene, i["pview"], 4)
+    assert (phdr < plain - 1e-3).any()      # the diffuse share passes
+
+
 def test_sky_tonemap_srgb_match_jax(inputs):
     i = inputs
     jsky = jshade.procedural_sky(i["jview"], H, W, 1.0)
@@ -119,7 +151,6 @@ def test_unported_lobes_raise(inputs):
                       (dict(energy=True), "enable_energy_comp"),
                       (dict(fuzz=True), "enable_fuzz"),
                       (dict(sss=True), "enable_sss"),
-                      (dict(aniso=True), "enable_aniso"),
-                      (dict(transmission=True), "enable_transmission")):
+                      (dict(aniso=True), "enable_aniso")):
         with pytest.raises(NotImplementedError, match=field):
             pshade.shade_deferred(pgb, i["pscene"], i["pview"], 1, **kw)
