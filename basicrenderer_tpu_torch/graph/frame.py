@@ -9,7 +9,12 @@ evaluation as hand-written kernels; CPU tensors: their plain versions).
 Ported paths:
 - the triangle-soup frame (default FrameConfig): vertex transform ->
   triangle setup (+ near-plane clip) -> object frustum cull -> tile
-  binning -> tile raster with fused attribute resolve (K1);
+  binning -> tile raster with fused attribute resolve (K1). With
+  enable_occlusion and a previous frame's depth, the object-granular
+  two-phase HZB occlusion: phase 1 rasters the objects in the frustum
+  that pass the previous HZB, phase 2 re-tests the rest against the HZB
+  of phase 1's depth and rasters the newly visible ones into phase 1's
+  buffers (K1 seeded);
 - the cluster-LOD frame (enable_clod): LOD cut + visible-cluster
   compaction -> setup from the cluster vertex pages -> group binning ->
   group raster (K2). With enable_occlusion and a previous frame's depth,
@@ -29,7 +34,9 @@ Ported paths:
   the RGBA8 or the BC3 atlas of FrameConfig.tex_format), at
   texture_downscale and bilinearly upsampled, or at full rate; normal
   maps perturb the G-buffer normals through the derivative tangent
-  frame;
+  frame, or with enable_vertex_tangents through the per-triangle
+  mikktspace tangent that setup lane 27 carries to raster channel 5
+  (K1/K2 tangent mode);
 - virtual shadow maps (enable_vsm, with a `vsm_state`): one clipmapped
   page cache per VSM'd directional light (ops/vsm.py), dirty pages
   rastered through the cluster path, the shadow term multiplying each
@@ -84,8 +91,7 @@ _UNPORTED_TOGGLES = (
     ("enable_voxel_fallback", False), ("enable_rt_reflect", False),
     ("enable_streaming", False),
     ("output_width", 0), ("output_height", 0), ("debug_view", "none"),
-    ("wireframe", False), ("enable_vertex_tangents", False),
-    ("enable_coat", False), ("enable_fuzz", False),
+    ("wireframe", False), ("enable_coat", False), ("enable_fuzz", False),
     ("enable_energy_comp", False), ("enable_sss", False),
     ("enable_aniso", False), ("cut_windows", 0),
 )
@@ -100,10 +106,6 @@ def check_config(config: FrameConfig) -> None:
             raise NotImplementedError(
                 f"FrameConfig.{name}={getattr(config, name)!r} is not ported "
                 f"to basicrenderer_tpu_torch yet (supported: {off!r})")
-    if config.enable_occlusion and not config.enable_clod:
-        raise NotImplementedError(
-            "object-granular two-phase occlusion of the soup frame is not "
-            "ported yet (FrameConfig.enable_occlusion without enable_clod)")
 
 
 def object_mask_to_tris(object_visible: torch.Tensor,
@@ -174,28 +176,45 @@ def geometry_pass(scene: SceneBuffers, view: ViewData, config: FrameConfig,
         stage("bin")
         pairs = raster_setup.bin_clustered(lanes, bbox, valid, config)
         return None, None, None, comp.overflow + clip_ovf, pairs
-    clip, world_pos, world_normals = raster_setup.transform_geometry(
-        scene.positions, scene.normals, scene.vert_object, scene.object_mats,
-        scene.object_normal_mats, view.viewproj)
-    tri_valid = scene.tri_object >= 0
-    lanes, bbox, valid, clip_ovf = raster_setup.triangle_setup_packed(
-        clip, scene.indices, tri_valid, config, world_normals, scene.uvs,
-        scene.tri_material, scene.tri_object)
+    clip, world_pos, world_normals, lanes, bbox, valid, clip_ovf = \
+        geometry_setup(scene, view, config)
     if config.enable_culling:
         obj_vis = culling.frustum_cull_spheres(
             view.viewproj, scene.object_bounds[:, :3],
             scene.object_bounds[:, 3], scene.object_valid)
-        tri_mask = object_mask_to_tris(obj_vis, scene.tri_object)
-        if valid.shape[0] != tri_mask.shape[0]:
-            # Near-clip rows appended past the soup cross the camera plane,
-            # so no frustum-culled object owns them.
-            tri_mask = torch.cat([tri_mask, torch.ones(
-                valid.shape[0] - tri_mask.shape[0], dtype=torch.bool,
-                device=tri_mask.device)])
-        valid = valid & tri_mask
+        valid = valid & object_rows_mask(obj_vis, scene.tri_object,
+                                         valid.shape[0])
     stage("bin")
     pairs = raster_setup.bin_pairs(lanes, bbox, valid, config)
     return clip, world_pos, world_normals, clip_ovf, pairs
+
+
+def geometry_setup(scene: SceneBuffers, view: ViewData, config: FrameConfig):
+    """Vertex transform + triangle setup of the soup (with the per-vertex
+    tangent theta under enable_vertex_tangents). Returns (clip, world_pos,
+    world_normals, lanes, bbox, valid, clip_overflow); the two-phase
+    occlusion bins the same setup once per phase."""
+    clip, world_pos, world_normals = raster_setup.transform_geometry(
+        scene.positions, scene.normals, scene.vert_object, scene.object_mats,
+        scene.object_normal_mats, view.viewproj)
+    vtheta = (raster_setup.vertex_world_theta(scene, world_normals)
+              if config.enable_vertex_tangents else None)
+    lanes, bbox, valid, clip_ovf = raster_setup.triangle_setup_packed(
+        clip, scene.indices, scene.tri_object >= 0, config, world_normals,
+        scene.uvs, scene.tri_material, scene.tri_object, vertex_theta=vtheta)
+    return clip, world_pos, world_normals, lanes, bbox, valid, clip_ovf
+
+
+def object_rows_mask(object_visible: torch.Tensor, tri_object: torch.Tensor,
+                     rows: int) -> torch.Tensor:
+    """(O,) object visibility -> (rows,) setup-row mask. Near-clip rows
+    appended past the soup cross the camera plane, so no culled or
+    occluded object owns them: they are kept."""
+    m = object_mask_to_tris(object_visible, tri_object)
+    if rows != m.shape[0]:
+        m = torch.cat([m, torch.ones(rows - m.shape[0], dtype=torch.bool,
+                                     device=m.device)])
+    return m
 
 
 def visibility_pass(pairs, lcfg: FrameConfig, init=None, tile_row0: int = 0):
@@ -301,6 +320,48 @@ def _render_body(scene: SceneBuffers, view: ViewData, params: FrameParams,
             overflow=pairs.overflow + pairs2.overflow,
             num_pairs=pairs.num_pairs + pairs2.num_pairs)
         cluster_overflow = ovf1 + ovf2
+    elif config.enable_occlusion and prev_depth is not None:
+        # Object-granular two-phase HZB occlusion of the soup: one setup;
+        # phase 1 rasters the objects in the frustum that pass the
+        # previous frame's HZB, phase 2 re-tests the rest against the HZB
+        # of phase 1's depth and rasters the newly visible ones into
+        # phase 1's buffers (K1 seeded).
+        stage("setup")
+        # The JAX package's branch drops the near-clip overflow here (its
+        # counter stays 0); so does this one.
+        _c, _wp, _wn, lanes, bbox, valid, _clip_ovf = geometry_setup(
+            scene, view, config)
+        cluster_overflow = torch.zeros((), dtype=torch.int32, device=dev)
+        stage("hzb")
+        centers, radii = scene.object_bounds[:, :3], scene.object_bounds[:, 3]
+        prev_hzb = culling.build_hzb(prev_depth, config.hzb_levels)
+        vis1, cand = culling.two_phase_object_cull(
+            view.viewproj, centers, radii, scene.object_valid, prev_hzb,
+            config.width, H)
+        stage("bin")
+        pairs = raster_setup.bin_pairs(
+            lanes, bbox,
+            valid & object_rows_mask(vis1, scene.tri_object, valid.shape[0]),
+            config)
+        stage("raster")
+        depth_p, vis_p, channels = visibility_pass(pairs, config)
+        stage("hzb2")
+        hzb_now = culling.build_hzb(depth_p, config.hzb_levels)
+        bb2, zn2, behind2 = culling.project_sphere_bounds(
+            view.viewproj, centers, radii, config.width, H)
+        vis2 = cand & culling.occlusion_test_hzb(hzb_now, bb2, zn2, behind2,
+                                                 config.width, H)
+        stage("bin2")
+        pairs2 = raster_setup.bin_pairs(
+            lanes, bbox,
+            valid & object_rows_mask(vis2, scene.tri_object, valid.shape[0]),
+            config)
+        stage("raster2")
+        depth_p, vis_p, channels = visibility_pass(
+            pairs2, config, init=(depth_p, vis_p, channels))
+        pairs = pairs._replace(
+            overflow=pairs.overflow + pairs2.overflow,
+            num_pairs=pairs.num_pairs + pairs2.num_pairs)
     else:
         stage("cut" if config.enable_clod else "setup")
         _c, _wp, _wn, cluster_overflow, pairs = geometry_pass(
@@ -349,7 +410,8 @@ def _render_body(scene: SceneBuffers, view: ViewData, params: FrameParams,
         smp = _sample_material_textures(scene, view, config, gb, channels,
                                          depth, vis)
         stage("normal_map")
-        gb = _apply_textures(gb, smp, config.tex_channels)
+        gb = _apply_textures(gb, smp, config.tex_channels,
+                             config.enable_vertex_tangents)
 
     shadow_fn = None
     vsm_out = {}
@@ -497,20 +559,24 @@ def _sample_material_textures(scene: SceneBuffers, view: ViewData,
         gb.uv, ds, filt, fmt=config.tex_format)
 
 
-def _apply_textures(gb: shade_ops.GBuffer, smp: torch.Tensor,
-                    chans) -> shade_ops.GBuffer:
+def _apply_textures(gb: shade_ops.GBuffer, smp: torch.Tensor, chans,
+                    vertex_tangents: bool = False) -> shade_ops.GBuffer:
     """Texture samples multiply the material factors (glTF semantics:
     base colour and alpha, G = roughness, B = metallic, emissive); the
-    normal map perturbs the normals."""
+    normal map perturbs the normals, in the tangent frame decoded from
+    the G-buffer's tangent angle with `vertex_tangents`, else in the
+    screen-derivative frame."""
     s_of = {c: smp[k] for k, c in enumerate(chans)}
     rep = {}
     if "base" in s_of:
         rep["albedo"] = gb.albedo * s_of["base"][..., :3]
         rep["alpha"] = gb.alpha * s_of["base"][..., 3]
     if "normal" in s_of:
+        tb = (shade_ops.tangent_from_theta(gb.normal, gb.tangent_theta)
+              if vertex_tangents else None)
         rep["normal"] = tex_ops.apply_normal_map_sampled(
             gb.normal, gb.world_pos, gb.uv, s_of["normal"], gb.normal_tex,
-            normal_scale=gb.normal_scale[..., None])
+            normal_scale=gb.normal_scale[..., None], frame=tb)
     if "mr" in s_of:
         rep["roughness"] = gb.roughness * s_of["mr"][..., 1]
         rep["metallic"] = gb.metallic * s_of["mr"][..., 2]
@@ -652,8 +718,8 @@ def build_frame_fn(config: FrameConfig) -> Callable[..., Dict[str, torch.Tensor]
     for `config`,
     after checking that every structural choice of `config` is ported.
     With enable_occlusion the frame takes the previous frame's padded depth
-    (its "depth_padded" output); the first frame passes None and takes the
-    single-phase cluster path. With enable_taa it takes the previous
+    (its "depth_padded" output; graph/temporal.py carries it); the first
+    frame passes None and takes the single-phase path. With enable_taa it takes the previous
     frame's "taa_out" as `taa_history` (None on the first frame); with
     `prev_viewproj` (the previous un-jittered view-projection) and the
     moved objects' `moving_rel` (MAX_MOVING, 4, 4) / `moving_ids`
@@ -665,9 +731,10 @@ def build_frame_fn(config: FrameConfig) -> Callable[..., Dict[str, torch.Tensor]
 
     `frame(..., stage_hook=fn)` calls fn(name) as the frame enters each
     stage, so a caller can time the stages with CUDA events: "setup",
-    "bin", "raster" on the soup path; "cut", "setup", "bin", "raster" on
-    the cluster path; with occlusion "cut", "hzb", "setup", "bin",
-    "raster", "hzb2", "cut2", "setup2", "bin2", "raster2"; then "mask"
+    "bin", "raster" on the soup path, with occlusion "setup", "hzb",
+    "bin", "raster", "hzb2", "bin2", "raster2"; "cut", "setup", "bin",
+    "raster" on the cluster path, with occlusion "cut", "hzb", "setup",
+    "bin", "raster", "hzb2", "cut2", "setup2", "bin2", "raster2"; then "mask"
     (alpha-MASK pass; "mask_peel2", ... for its further peels),
     "gbuffer", "textures" and "normal_map" (enable_textures), "vsm",
     "light_cull" and "tiled_shade" (clustered), "shade", then the post

@@ -92,6 +92,13 @@ class SceneBuffers:
     env_sh: torch.Tensor           # (9, 3) f32
     env_specular: torch.Tensor     # (mips, 6, R, R, 3) f32
     env_brdf_lut: torch.Tensor     # (32, 32, 2) f32
+    # Mikktspace vertex tangents, per-triangle flat (the corner-0 wedge):
+    # object-space [tx|ty|tz|w] plane-major per geometry cluster. The
+    # clustered setup rotates them to world and encodes a theta against
+    # the world corner normal (raster_setup.encode_theta_cols); read with
+    # FrameConfig.enable_vertex_tangents; size-1 placeholder otherwise.
+    cluster_tangents: torch.Tensor = dataclasses.field(
+        default_factory=lambda: torch.zeros((1, 512), dtype=torch.float32))
 
     def to(self, device) -> "SceneBuffers":
         return _to(self, device)

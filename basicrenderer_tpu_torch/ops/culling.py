@@ -2,15 +2,16 @@
 occlusion test of the two-phase cluster occlusion.
 
 Port of basicrenderer_tpu/ops/culling.py (`frustum_cull_spheres`,
-`build_hzb`, `project_sphere_bounds`, `occlusion_test_hzb`). Phase 1 of a
-frame tests cluster spheres against the previous frame's HZB; phase 2
+`build_hzb`, `project_sphere_bounds`, `occlusion_test_hzb`,
+`two_phase_object_cull`). Phase 1 of a frame tests cluster (or, on the
+soup path, object) spheres against the previous frame's HZB; phase 2
 re-tests the rejected ones against the HZB of phase 1's depth
 (graph/frame.py). All fixed-shape, no host synchronisation.
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -109,3 +110,23 @@ def occlusion_test_hzb(hzb_mips: List[torch.Tensor], bbox: torch.Tensor,
     occluder_z = torch.minimum(torch.minimum(at(ty0, tx0), at(ty0, tx1)),
                                torch.minimum(at(ty1, tx0), at(ty1, tx1)))
     return (z_near >= occluder_z) | behind
+
+
+def two_phase_object_cull(viewproj: torch.Tensor, centers: torch.Tensor,
+                          radii: torch.Tensor, valid: torch.Tensor,
+                          prev_hzb: Optional[List[torch.Tensor]],
+                          width: int, height: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Phase-1 object cull: frustum + the previous frame's HZB. Returns
+    (phase1_visible, candidates): the objects in the frustum that pass the
+    HZB test, and those in the frustum that fail it (phase 2 re-tests
+    them against the fresh HZB). Without a previous HZB every object in
+    the frustum is visible and none is a candidate."""
+    in_frustum = frustum_cull_spheres(viewproj, centers, radii, valid)
+    if prev_hzb is None:
+        return in_frustum, torch.zeros_like(in_frustum)
+    bbox, z_near, behind = project_sphere_bounds(viewproj, centers, radii,
+                                                 width, height)
+    unoccluded = occlusion_test_hzb(prev_hzb, bbox, z_near, behind, width,
+                                    height)
+    return in_frustum & unoccluded, in_frustum & ~unoccluded

@@ -2,11 +2,13 @@
 (csrc/raster.cu) and their plain PyTorch versions.
 
 Port of basicrenderer_tpu/ops/raster_pallas.py:
-- K1 `_raster_kernel` in its plain, peel and accum modes, over
+- K1 `_raster_kernel` in its plain, seeded, peel and accum modes, over
   per-triangle BinnedPairs (reference twins: ops/raster_ref.py::
   raster_tiles_ref and ops/resolve_pallas.py::resolve_attributes_ref).
   Per tile, walk the tile's binned pair rows and then the global
-  big-triangle list.
+  big-triangle list. Seeded mode is phase 2 of the soup frame's
+  two-phase occlusion (and of the cluster path's with group_binning
+  off).
 - K2 `_raster_kernel_groups` in its plain, seeded, peel and accum modes,
   over GroupBinnedPairs: per tile, walk the rows of the tile's (group,
   tile) pairs straight from the lane table, skipping rows whose float
@@ -24,7 +26,10 @@ and the fragment count of every fragment in the band, into channels
 At each pixel centre both evaluate the barycentric edge planes and the
 depth plane, keep the closest (reverse-Z max) depth + triangle id, and
 write the perspective attribute planes of the winner (plain, seeded and
-peel modes).
+peel modes). With FrameConfig.enable_vertex_tangents those modes also
+write the winner's flat tangent angle (lane 27) to channel 5 (the
+tangent mode of both kernels); accum mode ignores the flag, as the JAX
+package's does.
 
 `raster_tiles` picks the implementation by the device of the pairs: CUDA
 tensors launch a kernel (or raise), CPU tensors run the plain version.
@@ -48,7 +53,8 @@ from ..utils import cuda_build
 from .raster_setup import SETUP_LANES, BinnedPairs, GroupBinnedPairs
 
 # Channels: [octu/w, octv/w, u/w, v/w, mat_id, tangent, unused, accum];
-# the plain and seeded modes write 0-4 (seeded keeps the seed's 5-7).
+# the plain and seeded modes write 0-4, and 5 in tangent mode (seeded
+# keeps the seed's others).
 NUM_CHANNELS = 8
 _ATTR_CHANNELS = 5
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "raster.cu"
@@ -75,18 +81,9 @@ def plane_eval(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     return fma32(a, px, b * py) + c
 
 
-def _check_modes(pairs, config: FrameConfig, init, peel, accum: bool) -> None:
-    if init is not None and not isinstance(pairs, GroupBinnedPairs):
-        raise NotImplementedError(
-            "seeded per-triangle raster (the soup path's two-phase "
-            "occlusion) is not ported yet (FrameConfig.enable_occlusion "
-            "without enable_clod)")
+def _check_modes(init, peel, accum: bool) -> None:
     if init is not None and (peel is not None or accum):
         raise ValueError("a seeded raster takes neither peel nor accum")
-    if config.enable_vertex_tangents:
-        raise NotImplementedError(
-            "the tangent channel is not ported yet "
-            "(FrameConfig.enable_vertex_tangents)")
 
 
 def raster_tiles(pairs: Union[BinnedPairs, GroupBinnedPairs],
@@ -105,22 +102,23 @@ def raster_tiles(pairs: Union[BinnedPairs, GroupBinnedPairs],
     (reverse-Z). `accum` sums the OIT tail's 8 channels instead (w*alpha,
     w*r, w*g, w*b, the optical depths r, g, b, the count; w = the
     depth-warp weight with `peel`, else 1) and leaves depth at its start
-    and vis at zero.
-    The tangent mode and seeding a per-triangle raster raise
-    NotImplementedError."""
-    _check_modes(pairs, config, init, peel, accum)
+    and vis at zero. `config.enable_vertex_tangents` selects the tangent
+    mode (channel 5 takes the winner's lane 27)."""
+    _check_modes(init, peel, accum)
     grouped = isinstance(pairs, GroupBinnedPairs)
     dev = (pairs.lanes if grouped else pairs.pair_data).device
     if dev.type == "cuda":
         if grouped:
             return raster_groups_cuda(pairs, config, tile_row0, init, peel,
                                       accum)
-        return raster_tiles_cuda(pairs, config, tile_row0, peel, accum)
+        return raster_tiles_cuda(pairs, config, tile_row0, init, peel,
+                                 accum)
     if dev.type == "cpu":
         if grouped:
             return raster_groups_plain(pairs, config, tile_row0, init, peel,
                                        accum)
-        return raster_tiles_plain(pairs, config, tile_row0, peel, accum)
+        return raster_tiles_plain(pairs, config, tile_row0, init, peel,
+                                  accum)
     raise ValueError(f"no raster for device {dev}")
 
 
@@ -188,6 +186,7 @@ def _plain_walk(pair_data: torch.Tensor, tile_offsets: torch.Tensor,
     of every tile t at once (masked past each tile's count), then every
     tile walks rows [0, big_count) with the bbox test. Reads the longest
     tile's row count on the host. Modes as `raster_tiles`."""
+    tangent = config.enable_vertex_tangents
     th, tw = config.tile_h, config.tile_w
     tiles_x = config.tiles_x
     N = config.num_tiles
@@ -253,6 +252,8 @@ def _plain_walk(pair_data: torch.Tensor, tile_offsets: torch.Tensor,
                              d[:, 17 + ch * 3], px, py)
             chans[ch] = torch.where(passd, val, chans[ch])
         chans[4] = torch.where(passd, d[:, 10], chans[4])
+        if tangent:
+            chans[5] = torch.where(passd, d[:, 27], chans[5])
 
     if n_rows:
         offs = tile_offsets.long().clamp(max=n_rows)
@@ -271,13 +272,14 @@ def _plain_walk(pair_data: torch.Tensor, tile_offsets: torch.Tensor,
 
 
 def raster_tiles_plain(pairs: BinnedPairs, config: FrameConfig,
-                       tile_row0: int = 0, peel: Peel = None,
-                       accum: bool = False
+                       tile_row0: int = 0, init: Init = None,
+                       peel: Peel = None, accum: bool = False
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of K1. Reads the big count on the host."""
+    """Plain PyTorch version of K1, starting from `init` when seeded.
+    Reads the big count on the host."""
     return _plain_walk(pairs.pair_data, pairs.tile_offsets,
-                       int(pairs.big_count), config, tile_row0, peel=peel,
-                       accum=accum)
+                       int(pairs.big_count), config, tile_row0, init, peel,
+                       accum)
 
 
 def expand_group_pairs(pairs: GroupBinnedPairs, config: FrameConfig,
@@ -355,13 +357,16 @@ def raster_groups_plain(pairs: GroupBinnedPairs, config: FrameConfig,
 
 _fns = {}
 _MODE_CODE = {"plain": 0, "seeded": 0, "peel": 1, "accum": 2}
+# Each kernel's modes as MODE_LAUNCHES names them; "+tangent" marks the
+# tangent instance of a mode (accum mode has none).
+MODES = ("plain", "seeded", "peel", "accum", "plain+tangent",
+         "seeded+tangent", "peel+tangent")
 
 
 class ModeLaunches:
     """The launch count of one mode of a raster kernel (`launches`). The
     wrappers' own `launches` count every mode; `MODE_LAUNCHES[(kernel,
-    mode)]` counts one: kernel "K1" or "K2", mode "plain", "seeded" (K2),
-    "peel" or "accum"."""
+    mode)]` counts one: kernel "K1" or "K2", mode one of MODES."""
 
     def __init__(self, name: str):
         self.name = name
@@ -369,17 +374,17 @@ class ModeLaunches:
 
 
 MODE_LAUNCHES = {(k, m): ModeLaunches(f"{k}-{m}")
-                 for k, m in (("K1", "plain"), ("K1", "peel"), ("K1", "accum"),
-                              ("K2", "plain"), ("K2", "seeded"),
-                              ("K2", "peel"), ("K2", "accum"))}
+                 for k in ("K1", "K2") for m in MODES}
 
 
-def _mode(init, peel, accum: bool) -> str:
+def _mode(init, peel, accum: bool, tangent: bool = False) -> str:
     if accum:
         return "accum"
     if peel is not None:
-        return "peel"
-    return "plain" if init is None else "seeded"
+        base = "peel"
+    else:
+        base = "plain" if init is None else "seeded"
+    return base + "+tangent" if tangent else base
 
 
 def _kernel_fn(name: str):
@@ -388,10 +393,11 @@ def _kernel_fn(name: str):
         fn = getattr(cuda_build.load(SOURCE).lib, name)
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         if name == "br_raster_tiles":
-            fn.argtypes = [p, p, p, ll, p, p, i, p, p, p, i, i, i, i, i, p]
+            fn.argtypes = [p, p, p, ll, p, p, p, p, i, i, p, p, p, i, i, i,
+                           i, i, p]
         else:
             fn.argtypes = [p, p, p, p, p, p, p, ll, i, i, i, p, p, p, p, i,
-                           p, p, p, i, i, i, i, i, p]
+                           i, p, p, p, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return _fns[name]
@@ -423,17 +429,47 @@ def _check_peel(dev, peel: Peel, config: FrameConfig) -> Tuple[int, int]:
     return peel[0].data_ptr(), peel[1].data_ptr()
 
 
+def _check_init(dev, init: Init, config: FrameConfig) -> Tuple[int, int, int]:
+    """(depth, vis, channels) pointers of a seed (0, 0, 0 without)."""
+    if init is None:
+        return 0, 0, 0
+    Hp, Wp = config.padded_height, config.padded_width
+    d0, v0, c0 = init
+    if (d0.shape != (Hp, Wp) or v0.shape != (Hp, Wp)
+            or c0.shape != (NUM_CHANNELS, Hp, Wp)
+            or d0.dtype != torch.float32 or v0.dtype != torch.int32
+            or c0.dtype != torch.float32):
+        raise ValueError("init must be (depth f32, vis i32, channels "
+                         f"f32) on the padded grid {Hp}x{Wp}")
+    _check_tensors(dev, (("init depth", d0), ("init vis", v0),
+                         ("init channels", c0)))
+    return d0.data_ptr(), v0.data_ptr(), c0.data_ptr()
+
+
+def _seed_pointers(dev, config: FrameConfig, init: Init, peel: Peel):
+    """(depth0, vis0, chan0, bound) pointers of the kernels' C interface:
+    a seed's three buffers, or a peel band's seed depth and bound."""
+    seed = _check_init(dev, init, config)
+    seed_p, peel_p = _check_peel(dev, peel, config)
+    if peel is not None:
+        seed = (seed_p, 0, 0)
+    return seed + (peel_p,)
+
+
 def raster_tiles_cuda(pairs: BinnedPairs, config: FrameConfig,
-                      tile_row0: int = 0, peel: Peel = None,
-                      accum: bool = False
+                      tile_row0: int = 0, init: Init = None,
+                      peel: Peel = None, accum: bool = False
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch K1 on the current stream (no synchronisation), in the mode
-    of `peel` / `accum` (as `raster_tiles`). `raster_tiles_cuda.launches`
-    counts the launches of every mode, MODE_LAUNCHES each mode's."""
+    """Launch K1 on the current stream (no synchronisation), seeded from
+    `init` when given, else in the mode of `peel` / `accum`, with the
+    tangent channel under config.enable_vertex_tangents (as
+    `raster_tiles`). `raster_tiles_cuda.launches` counts the launches of
+    every mode, MODE_LAUNCHES each mode's."""
     pd, offs, big = pairs.pair_data, pairs.tile_offsets, pairs.big_count
     dev = pd.device
     if dev.type != "cuda":
         raise ValueError(f"raster_tiles_cuda needs CUDA tensors, got {dev}")
+    _check_modes(init, peel, accum)
     if pd.dtype != torch.float32 or pd.dim() != 2 or pd.shape[1] != SETUP_LANES:
         raise ValueError(f"pair_data must be (R, {SETUP_LANES}) f32, got "
                          f"{tuple(pd.shape)} {pd.dtype}")
@@ -444,8 +480,9 @@ def raster_tiles_cuda(pairs: BinnedPairs, config: FrameConfig,
         raise ValueError(f"big_count must be one i32, got {big.dtype}")
     _check_tensors(dev, (("pair_data", pd), ("tile_offsets", offs),
                          ("big_count", big)))
-    seed_p, peel_p = _check_peel(dev, peel, config)
-    mode = _mode(None, peel, accum)
+    ptrs = _seed_pointers(dev, config, init, peel)
+    tangent = config.enable_vertex_tangents
+    mode = _mode(init, peel, accum)
     Hp, Wp = config.padded_height, config.padded_width
     depth = torch.empty((Hp, Wp), dtype=torch.float32, device=dev)
     vis = torch.empty((Hp, Wp), dtype=torch.int32, device=dev)
@@ -455,14 +492,14 @@ def raster_tiles_cuda(pairs: BinnedPairs, config: FrameConfig,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(offs.data_ptr(), big.data_ptr(), pd.data_ptr(), pd.shape[0],
-                 seed_p, peel_p, _MODE_CODE[mode], depth.data_ptr(),
+                 *ptrs, _MODE_CODE[mode], int(tangent), depth.data_ptr(),
                  vis.data_ptr(), channels.data_ptr(), config.tiles_x,
                  config.tiles_y, config.tile_h, config.tile_w, int(tile_row0),
                  stream)
     if err != 0:
         raise RuntimeError(f"raster kernel launch failed: CUDA error {err}")
     raster_tiles_cuda.launches += 1
-    MODE_LAUNCHES[("K1", mode)].launches += 1
+    MODE_LAUNCHES[("K1", _mode(init, peel, accum, tangent))].launches += 1
     return depth, vis, channels
 
 
@@ -474,15 +511,15 @@ def raster_groups_cuda(pairs: GroupBinnedPairs, config: FrameConfig,
                        peel: Peel = None, accum: bool = False
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch K2 on the current stream (no synchronisation), seeded from
-    `init` when given, else in the mode of `peel` / `accum` (as
+    `init` when given, else in the mode of `peel` / `accum`, with the
+    tangent channel under config.enable_vertex_tangents (as
     `raster_tiles`). `raster_groups_cuda.launches` counts the launches of
     every mode, MODE_LAUNCHES each mode's."""
     lanes = pairs.lanes
     dev = lanes.device
     if dev.type != "cuda":
         raise ValueError(f"raster_groups_cuda needs CUDA tensors, got {dev}")
-    if init is not None and (peel is not None or accum):
-        raise ValueError("a seeded raster takes neither peel nor accum")
+    _check_modes(init, peel, accum)
     GR = config.group_rows
     if GR not in (8, 16, 32):
         raise ValueError(f"group_rows must be 8, 16 or 32, got {GR}")
@@ -503,25 +540,13 @@ def raster_groups_cuda(pairs: GroupBinnedPairs, config: FrameConfig,
         raise ValueError("big_ids, big_bx and big_by differ in length")
     _check_tensors(dev, (("lanes", lanes),) + ints)
     Hp, Wp = config.padded_height, config.padded_width
-    if init is not None:
-        d0, v0, c0 = init
-        if (d0.shape != (Hp, Wp) or v0.shape != (Hp, Wp)
-                or c0.shape != (NUM_CHANNELS, Hp, Wp)
-                or d0.dtype != torch.float32 or v0.dtype != torch.int32
-                or c0.dtype != torch.float32):
-            raise ValueError("init must be (depth f32, vis i32, channels "
-                             f"f32) on the padded grid {Hp}x{Wp}")
-        _check_tensors(dev, (("init depth", d0), ("init vis", v0),
-                             ("init channels", c0)))
-    seed_p, peel_p = _check_peel(dev, peel, config)
+    ptrs = _seed_pointers(dev, config, init, peel)
+    tangent = config.enable_vertex_tangents
     mode = _mode(init, peel, accum)
     depth = torch.empty((Hp, Wp), dtype=torch.float32, device=dev)
     vis = torch.empty((Hp, Wp), dtype=torch.int32, device=dev)
     channels = torch.empty((NUM_CHANNELS, Hp, Wp), dtype=torch.float32,
                            device=dev)
-    seed = ((0, 0, 0) if init is None else tuple(x.data_ptr() for x in init))
-    if peel is not None:
-        seed = (seed_p, 0, 0)
     fn = _kernel_fn("br_raster_groups")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -529,14 +554,15 @@ def raster_groups_cuda(pairs: GroupBinnedPairs, config: FrameConfig,
                  pairs.big_ids.data_ptr(), pairs.big_count.data_ptr(),
                  pairs.big_bx.data_ptr(), pairs.big_by.data_ptr(),
                  lanes.data_ptr(), lanes.shape[0] // GR, GR,
-                 pairs.group_ids.shape[0], nbig, *seed, peel_p,
-                 _MODE_CODE[mode], depth.data_ptr(), vis.data_ptr(),
-                 channels.data_ptr(), config.tiles_x, config.tiles_y,
-                 config.tile_h, config.tile_w, int(tile_row0), stream)
+                 pairs.group_ids.shape[0], nbig, *ptrs,
+                 _MODE_CODE[mode], int(tangent), depth.data_ptr(),
+                 vis.data_ptr(), channels.data_ptr(), config.tiles_x,
+                 config.tiles_y, config.tile_h, config.tile_w, int(tile_row0),
+                 stream)
     if err != 0:
         raise RuntimeError(f"group raster kernel launch failed: CUDA error {err}")
     raster_groups_cuda.launches += 1
-    MODE_LAUNCHES[("K2", mode)].launches += 1
+    MODE_LAUNCHES[("K2", _mode(init, peel, accum, tangent))].launches += 1
     return depth, vis, channels
 
 

@@ -20,6 +20,7 @@ via `overflow` counters.
 
 from __future__ import annotations
 
+import math
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
@@ -40,7 +41,9 @@ from ..utils import math3d
 #  18-20: octv/w plane
 #  21-23: u/w plane
 #  24-26: v/w plane
-#  27: per-tri FLAT tangent theta (vertex-tangent mode; zero here)
+#  27: per-tri FLAT tangent theta (enable_vertex_tangents: the corner-0
+#      tangent's angle in the canonical ONB of the world normal, +4pi when
+#      its handedness is negative; zero otherwise and on near-clip rows)
 #  28-31: unused here (28/30/31 carry OIT payloads in the JAX package)
 # There is NO 1/w plane: the shading pass derives 1/w from the depth
 # buffer (shade.inv_w_from_depth).
@@ -68,6 +71,46 @@ def oct_encode_cols(nx, ny, nz):
     return xf, yf
 
 
+def _onb_cols(nx, ny, nz):
+    """Column form of the branchless canonical ONB of a unit normal
+    (shade._onb): the encode and the decode share this construction."""
+    s = torch.where(nz >= 0.0, 1.0, -1.0)
+    a = -1.0 / (s + nz)
+    b = nx * ny * a
+    return ((1.0 + s * nx * nx * a, s * b, -s * nx),
+            (b, s + ny * ny * a, -ny))
+
+
+def encode_theta_cols(tx, ty, tz, w, nx, ny, nz):
+    """World tangent + handedness -> the per-triangle theta wire encoding:
+    the tangent's angle within the canonical ONB of the world normal,
+    +4pi when w < 0. (T,)-column math; shade.tangent_from_theta inverts
+    it per pixel."""
+    nl = torch.rsqrt(torch.clamp(nx * nx + ny * ny + nz * nz, min=1e-20))
+    nx, ny, nz = nx * nl, ny * nl, nz * nl
+    d = tx * nx + ty * ny + tz * nz
+    tx, ty, tz = tx - d * nx, ty - d * ny, tz - d * nz
+    t0, b0 = _onb_cols(nx, ny, nz)
+    ct = tx * t0[0] + ty * t0[1] + tz * t0[2]
+    st = tx * b0[0] + ty * b0[1] + tz * b0[2]
+    theta = torch.atan2(st, ct)
+    return theta + torch.where(w < 0.0, 4.0 * math.pi, 0.0)
+
+
+def rotate_cols_3x3(m_cols, idx, x, y, z):
+    """Per-row 3x3 products with the matrices given as flattened column
+    lists; `idx` maps the 9 entries (row-major) into m_cols positions."""
+    ox = m_cols[idx[0]] * x + m_cols[idx[1]] * y + m_cols[idx[2]] * z
+    oy = m_cols[idx[3]] * x + m_cols[idx[4]] * y + m_cols[idx[5]] * z
+    oz = m_cols[idx[6]] * x + m_cols[idx[7]] * y + m_cols[idx[8]] * z
+    return ox, oy, oz
+
+
+# The model matrix's 3x3 inside its row-major 4x4 (tangents rotate with
+# the model matrix, not with the normal matrix).
+_MODEL3 = (0, 1, 2, 4, 5, 6, 8, 9, 10)
+
+
 def transform_geometry(positions: torch.Tensor, normals: torch.Tensor,
                        vert_object: torch.Tensor, object_mats: torch.Tensor,
                        object_normal_mats: torch.Tensor, viewproj: torch.Tensor
@@ -90,6 +133,18 @@ def transform_geometry(positions: torch.Tensor, normals: torch.Tensor,
     return clip, torch.stack([wx, wy, wz], dim=-1), wn
 
 
+def vertex_world_theta(scene, world_normals: torch.Tensor) -> torch.Tensor:
+    """(V,) per-vertex world tangent theta for the soup setup: the object
+    tangents (SceneBuffers.tangents) rotated by each vertex's model 3x3
+    and encoded against its world normal."""
+    t4 = scene.tangents
+    m = scene.object_mats.reshape(-1, 16)[scene.vert_object.long()]
+    wtx, wty, wtz = rotate_cols_3x3([m[:, i] for i in range(16)], _MODEL3,
+                                    t4[:, 0], t4[:, 1], t4[:, 2])
+    return encode_theta_cols(wtx, wty, wtz, t4[:, 3], world_normals[:, 0],
+                             world_normals[:, 1], world_normals[:, 2])
+
+
 def _to_i32(x: torch.Tensor) -> torch.Tensor:
     """f32 -> i32 with XLA's conversion semantics where they matter: NaN
     -> 0 and out-of-range values saturated (kept far off screen, which is
@@ -99,9 +154,12 @@ def _to_i32(x: torch.Tensor) -> torch.Tensor:
 
 
 def _setup_from_corners(g0, g1, g2, tri_valid, config: FrameConfig,
-                        has_normals: bool, has_uvs: bool) -> TriangleSetup:
+                        has_normals: bool, has_uvs: bool,
+                        tangent_col: Optional[torch.Tensor] = None
+                        ) -> TriangleSetup:
     """Per-corner rows g_i = [clip4 | wnormal3 | uv2] -> TriangleSetup.
-    Everything stays (T,)-column shaped."""
+    `tangent_col` (T,) is the per-triangle theta of lane 27. Everything
+    stays (T,)-column shaped."""
     W, H = config.width, config.height
     tw, th = config.tile_w, config.tile_h
 
@@ -187,12 +245,14 @@ def _setup_from_corners(g0, g1, g2, tri_valid, config: FrameConfig,
     bbox = torch.stack([tx0, ty0, tx1, ty1], dim=-1).to(torch.int32)
     return TriangleSetup(bbox, valid,
                          _lane_columns(e0, e1, zplane_c, plane_cols, valid,
-                                       tx0, ty0, tx1, ty1))
+                                       tx0, ty0, tx1, ty1, tangent_col))
 
 
-def _lane_columns(e0, e1, zplane_c, plane_cols, valid, tx0, ty0, tx1, ty1):
+def _lane_columns(e0, e1, zplane_c, plane_cols, valid, tx0, ty0, tx1, ty1,
+                  tangent_col=None):
     """The 32 payload columns in lane order (material filled by pack).
-    Invalid rows are masked IN the table (id 0 + inverted bbox)."""
+    Invalid rows are masked IN the table (id 0 + inverted bbox), and so is
+    the tangent theta."""
     T = valid.shape[0]
     dev = valid.device
     f32 = torch.float32
@@ -210,7 +270,9 @@ def _lane_columns(e0, e1, zplane_c, plane_cols, valid, tx0, ty0, tx1, ty1):
     for p in plane_cols:                                    # lanes 15-26
         cols.extend(p)
     z = torch.zeros((T,), dtype=f32, device=dev)
-    cols += [z, z, z, z, z]                                 # lanes 27-31
+    cols.append(z if tangent_col is None                    # lane 27
+                else torch.where(valid, tangent_col, 0.0))
+    cols += [z, z, z, z]                                    # lanes 28-31
     return cols
 
 
@@ -318,14 +380,14 @@ def triangle_setup_packed(clip: torch.Tensor, indices: torch.Tensor,
                           world_normals: Optional[torch.Tensor],
                           uvs: Optional[torch.Tensor],
                           tri_material: Optional[torch.Tensor] = None,
-                          tri_object: Optional[torch.Tensor] = None):
+                          tri_object: Optional[torch.Tensor] = None,
+                          vertex_theta: Optional[torch.Tensor] = None):
     """Production setup: returns (lanes (T', SETUP_LANES) f32, bbox (T', 4)
     i32, valid (T',) bool, clip_overflow () i32), where T' = T plus
-    2 * near_clip_tris appended clip rows when near clipping is on."""
-    if config.enable_vertex_tangents:
-        raise NotImplementedError(
-            "vertex tangents are not ported yet "
-            "(FrameConfig.enable_vertex_tangents)")
+    2 * near_clip_tris appended clip rows when near clipping is on. With
+    enable_vertex_tangents, `vertex_theta` (V,) (vertex_world_theta) gives
+    each triangle its corner-0 theta in lane 27; the near-clip rows carry
+    none, as in the JAX package."""
     parts = [clip]
     if world_normals is not None:
         parts.append(world_normals)
@@ -336,8 +398,12 @@ def triangle_setup_packed(clip: torch.Tensor, indices: torch.Tensor,
     g0 = packed[idx[:, 0]]
     g1 = packed[idx[:, 1]]
     g2 = packed[idx[:, 2]]
+    tangent_col = None
+    if config.enable_vertex_tangents and vertex_theta is not None:
+        tangent_col = vertex_theta[idx[:, 0]]
     setup = _setup_from_corners(g0, g1, g2, tri_valid, config,
-                                world_normals is not None, uvs is not None)
+                                world_normals is not None, uvs is not None,
+                                tangent_col)
     lanes = pack_setup_lanes(setup, tri_material, tri_object)
     bbox, valid = setup.bbox, setup.valid
     ovf = torch.zeros((), dtype=torch.int32, device=clip.device)
@@ -504,10 +570,6 @@ def triangle_setup_clustered(scene, comp, viewproj: torch.Tensor,
     (lanes (Kt', SETUP_LANES), bbox (Kt', 4) i32, valid (Kt',) bool,
     clip_overflow () i32) like triangle_setup_packed."""
     from ..models.clusters import MESHLET_TRIS, SLAB_VERTS
-    if config.enable_vertex_tangents:
-        raise NotImplementedError(
-            "vertex tangents are not ported yet "
-            "(FrameConfig.enable_vertex_tangents)")
     if config.enable_reyes:
         raise NotImplementedError(
             "Reyes dicing is not ported yet (FrameConfig.enable_reyes)")
@@ -535,8 +597,21 @@ def triangle_setup_clustered(scene, comp, viewproj: torch.Tensor,
 
     gs = [_transform_corner_cols(*corner_cols(c), m_cols, viewproj)
           for c in range(3)]
+    tangent_col = None
+    if config.enable_vertex_tangents:
+        # The corner-0 object tangents, fetched in the vertex pages' slot
+        # order, rotate to world with the model 3x3 and encode against
+        # the corner-0 world normal (an object-space angle would break
+        # under instance rotation: ONB(R n) != R ONB(n)).
+        G2 = scene.cluster_tangents.shape[0]
+        trows = scene.cluster_tangents[torch.clamp(gids, 0, G2 - 1)]
+        ot = [trows[:, k * M:(k + 1) * M].reshape(-1) for k in range(4)]
+        wtx, wty, wtz = rotate_cols_3x3(m_cols, _MODEL3, *ot[:3])
+        tangent_col = encode_theta_cols(wtx, wty, wtz, ot[3], gs[0][:, 4],
+                                        gs[0][:, 5], gs[0][:, 6])
     setup = _setup_from_corners(gs[0], gs[1], gs[2], comp.valid, config,
-                                has_normals=True, has_uvs=True)
+                                has_normals=True, has_uvs=True,
+                                tangent_col=tangent_col)
     lanes = pack_setup_lanes(setup, comp.material, comp.object)
     bbox, valid = setup.bbox, setup.valid
     ovf = torch.zeros((), dtype=torch.int32, device=lanes.device)

@@ -6,8 +6,10 @@ through `resolve_attributes_pallas` (K6, per-triangle BinnedPairs), and
 its twin `resolve_attributes_ref` (both pair kinds). Given a visibility
 buffer, walk each tile's binned setup rows once more and, wherever a
 row's triangle id equals the pixel's vis, write the row's perspective
-attribute planes (channels 0-3) and material/object combo (channel 4);
-the last writer wins, channels 5-7 stay zero (tangent mode off).
+attribute planes (channels 0-3) and material/object combo (channel 4),
+and with FrameConfig.enable_vertex_tangents its flat tangent angle
+(lane 27, channel 5); the last writer wins, the other channels stay
+zero.
 
 No frame path calls it: the rasters fuse this resolve (ops/raster.py),
 as the JAX package's Pallas frame does. It stands as the port of K6 and
@@ -28,11 +30,13 @@ import torch
 
 from ..graph.framedata import FrameConfig
 from ..utils import cuda_build
-from .raster import (NUM_CHANNELS, _to_image, _to_tiles, expand_group_pairs,
-                     plane_eval)
+from .raster import (NUM_CHANNELS, ModeLaunches, _to_image, _to_tiles,
+                     expand_group_pairs, plane_eval)
 from .raster_setup import SETUP_LANES, BinnedPairs, GroupBinnedPairs
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "resolve.cu"
+# K6's launches in tangent mode (the wrapper's own `launches` counts all).
+TANGENT_LAUNCHES = ModeLaunches("K6-tangent")
 
 
 def resolve_attributes(pairs: Union[BinnedPairs, GroupBinnedPairs],
@@ -40,10 +44,6 @@ def resolve_attributes(pairs: Union[BinnedPairs, GroupBinnedPairs],
                        tile_row0: int = 0) -> torch.Tensor:
     """vis (H', W') i32 padded visibility buffer -> channels
     (NUM_CHANNELS, H', W') f32."""
-    if config.enable_vertex_tangents:
-        raise NotImplementedError(
-            "the tangent channel is not ported yet "
-            "(FrameConfig.enable_vertex_tangents)")
     dev = vis.device
     if dev.type == "cuda":
         if isinstance(pairs, GroupBinnedPairs):
@@ -63,7 +63,8 @@ def resolve_attributes_plain(pairs: Union[BinnedPairs, GroupBinnedPairs],
     per-triangle pairs walk each tile's rows, then the big rows
     [0, big_count) with no box test; group-binned pairs walk every row of
     each (group, tile) pair, then of every live big group. Vectorised
-    across tiles; reads the longest tile's row count on the host."""
+    across tiles; reads the longest tile's row count on the host.
+    Channel 5 takes lane 27 under config.enable_vertex_tangents."""
     if isinstance(pairs, GroupBinnedPairs):
         pair_data, offs = expand_group_pairs(pairs, config, tile_row0,
                                              boxed=False)
@@ -95,6 +96,8 @@ def resolve_attributes_plain(pairs: Union[BinnedPairs, GroupBinnedPairs],
                              d[:, 17 + ch * 3], px, py)
             chans[ch] = torch.where(mask, val, chans[ch])
         chans[4] = torch.where(mask, d[:, 10], chans[4])
+        if config.enable_vertex_tangents:
+            chans[5] = torch.where(mask, d[:, 27], chans[5])
 
     if n_rows:
         offs = offs.long().clamp(max=n_rows)
@@ -116,7 +119,7 @@ def _kernel_fn():
     if not _fn:
         fn = cuda_build.load(SOURCE).lib.br_resolve
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, p, ll, p, p, i, i, i, i, i, p]
+        fn.argtypes = [p, p, p, ll, p, p, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
         _fn.append(fn)
     return _fn[0]
@@ -130,8 +133,10 @@ def build_kernel() -> cuda_build.CudaLibrary:
 def resolve_attributes_cuda(pairs: BinnedPairs, vis: torch.Tensor,
                             config: FrameConfig,
                             tile_row0: int = 0) -> torch.Tensor:
-    """Launch K6 on the current stream (no synchronisation).
-    `resolve_attributes_cuda.launches` counts the launches."""
+    """Launch K6 on the current stream (no synchronisation), with the
+    tangent channel under config.enable_vertex_tangents.
+    `resolve_attributes_cuda.launches` counts the launches,
+    TANGENT_LAUNCHES those in tangent mode."""
     pd, offs, big = pairs.pair_data, pairs.tile_offsets, pairs.big_count
     dev = pd.device
     if dev.type != "cuda":
@@ -162,10 +167,13 @@ def resolve_attributes_cuda(pairs: BinnedPairs, vis: torch.Tensor,
         err = _kernel_fn()(offs.data_ptr(), big.data_ptr(), pd.data_ptr(),
                            pd.shape[0], vis.data_ptr(), channels.data_ptr(),
                            config.tiles_x, config.tiles_y, config.tile_h,
-                           config.tile_w, int(tile_row0), stream)
+                           config.tile_w, int(tile_row0),
+                           int(config.enable_vertex_tangents), stream)
     if err != 0:
         raise RuntimeError(f"resolve kernel launch failed: CUDA error {err}")
     resolve_attributes_cuda.launches += 1
+    if config.enable_vertex_tangents:
+        TANGENT_LAUNCHES.launches += 1
     return channels
 
 

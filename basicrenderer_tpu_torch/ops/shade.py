@@ -47,6 +47,9 @@ class GBuffer(NamedTuple):
     trans_color: torch.Tensor   # (H, W, 3) f32 transmission tint
     trans_depth: torch.Tensor   # (H, W) f32 Beer-Lambert depth
     ior: torch.Tensor           # (H, W) f32 index of refraction
+    tangent_theta: torch.Tensor  # (H, W) f32 encoded per-triangle tangent
+    #                              (channel 5; tangent_from_theta decodes;
+    #                              read with enable_vertex_tangents)
 
 
 def _iota(n: int, dim: int, shape, dev) -> torch.Tensor:
@@ -66,6 +69,35 @@ def oct_decode_cols(ou, ov):
     y = ov - torch.where(ov >= 0.0, t, -t)
     rl = torch.rsqrt(torch.clamp(x * x + y * y + z * z, min=1e-20))
     return x * rl, y * rl, z * rl
+
+
+def _onb(n: torch.Tensor):
+    """Branchless canonical ONB of a unit normal (Duff et al. / revised
+    Frisvad), the construction raster_setup.encode_theta_cols encodes
+    against."""
+    s = torch.where(n[..., 2] >= 0.0, 1.0, -1.0)
+    a = -1.0 / (s + n[..., 2])
+    b = n[..., 0] * n[..., 1] * a
+    t0 = torch.stack([1.0 + s * n[..., 0] ** 2 * a, s * b, -s * n[..., 0]],
+                     -1)
+    b0 = torch.stack([b, s + n[..., 1] ** 2 * a, -n[..., 1]], -1)
+    return t0, b0
+
+
+def tangent_from_theta(n: torch.Tensor, enc: torch.Tensor):
+    """Decode the per-triangle tangent angle (+4pi = negative handedness,
+    raster_setup.encode_theta_cols) against the interpolated pixel normal
+    n (..., 3). Returns (T, B), each (..., 3), orthonormal to n, B
+    carrying the handedness."""
+    neg = enc > 2.0 * math.pi
+    w = torch.where(neg, -1.0, 1.0)
+    theta = enc - torch.where(neg, 4.0 * math.pi, 0.0)
+    t0, b0 = _onb(n)
+    t = torch.cos(theta)[..., None] * t0 + torch.sin(theta)[..., None] * b0
+    t = t - n * torch.sum(t * n, -1, keepdim=True)
+    t = t / torch.clamp(torch.linalg.vector_norm(t, dim=-1, keepdim=True),
+                        min=1e-9)
+    return t, torch.linalg.cross(n, t, dim=-1) * w[..., None]
 
 
 def inv_w_from_depth(depth: torch.Tensor, proj: torch.Tensor) -> torch.Tensor:
@@ -147,6 +179,7 @@ def gbuffer_from_channels(channels: torch.Tensor, depth: torch.Tensor,
         trans_color=torch.where(c3, mat[:, 32:35].reshape(H, W, 3), 1.0),
         trans_depth=torch.clamp(mat[:, 31].reshape(H, W), min=1e-4),
         ior=torch.where(covered, mat[:, 12].reshape(H, W), 1.5),
+        tangent_theta=channels[5],
     )
 
 

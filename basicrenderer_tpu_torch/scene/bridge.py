@@ -74,6 +74,8 @@ class PackedGeometry:
     num_clusters: int
     cluster_verts: np.ndarray    # (G, SLAB*3) u32 quantized planar pages
     cluster_dequant: np.ndarray  # (G, 8) f32 per-page AABB min/ext
+    cluster_tangents: np.ndarray  # (G, 512) f32 per-tri corner-0 object
+    #                               tangent + w, plane-major
     cluster_feeds: np.ndarray    # (C,) i32 streaming group of c
     cluster_made: np.ndarray     # (C,) i32 group c was built from
 
@@ -129,6 +131,16 @@ def _single_level_clusters(mesh) -> np.ndarray:
     return template
 
 
+def _page_tangents(mesh, lo: int, cnt: int) -> np.ndarray:
+    """One geometry cluster's per-triangle flat tangents: the corner-0
+    vertex's object-space tangent and handedness, plane-major
+    [tx*128 | ty*128 | tz*128 | w*128] (rotated to world and encoded as a
+    theta by the setup, so instance rotations stay right)."""
+    out = np.zeros((4, MESHLET_TRIS), np.float32)
+    out[:, :cnt] = mesh.tangents[mesh.indices[lo:lo + cnt, 0]].T
+    return out.reshape(-1)
+
+
 def _page(mesh, lo: int, cnt: int):
     """One geometry cluster's quantized corner-major vertex page (row j =
     corner * 128 + tri). Dead corner rows repeat the cluster's own first
@@ -176,6 +188,8 @@ class SceneRenderBridge:
         cluster_dequant = np.zeros((c.max_geom_clusters, DEQUANT_LANES),
                                    np.float32)
         cluster_dequant[:, 3:6] = 1.0
+        cluster_tangents = np.zeros((c.max_geom_clusters, 4 * MESHLET_TRIS),
+                                    np.float32)
         cluster_feeds = np.full((c.max_clusters,), -1, np.int32)
         cluster_made = np.full((c.max_clusters,), -1, np.int32)
         local_bounds = np.zeros((c.max_objects, 4), np.float32)
@@ -215,8 +229,10 @@ class SceneRenderBridge:
                 if g_off + ncl_g > c.max_geom_clusters:
                     raise ValueError("geometry cluster capacity exceeded")
                 for ci in range(ncl_g):
+                    lo, cnt = int(template[ci, 7]), int(template[ci, 8])
                     cluster_verts[g_off + ci], cluster_dequant[g_off + ci] = \
-                        _page(mesh, int(template[ci, 7]), int(template[ci, 8]))
+                        _page(mesh, lo, cnt)
+                    cluster_tangents[g_off + ci] = _page_tangents(mesh, lo, cnt)
                 template[:, 11] = g_off + np.arange(ncl_g)
                 # Streaming groups offset into the global id space; top
                 # level / non-LOD clusters stay -1 (always resident).
@@ -268,7 +284,8 @@ class SceneRenderBridge:
         self.packed = PackedGeometry(
             pos, nrm, tan, uv, vobj, idx, tmat, tobj, v_off, t_off, ent2obj,
             local_bounds, tcl, cluster_table, cluster_object, cl_off,
-            cluster_verts, cluster_dequant, cluster_feeds, cluster_made)
+            cluster_verts, cluster_dequant, cluster_tangents, cluster_feeds,
+            cluster_made)
         return self.packed
 
     # -- hot path ----------------------------------------------------------
@@ -390,6 +407,7 @@ class SceneRenderBridge:
             num_clusters=t(p.num_clusters, np.int32),
             cluster_verts=t(p.cluster_verts),
             cluster_dequant=t(p.cluster_dequant),
+            cluster_tangents=t(p.cluster_tangents),
             cluster_feeds=t(p.cluster_feeds), cluster_made=t(p.cluster_made),
             geom_slot=t(np.arange(p.cluster_verts.shape[0], dtype=np.int32)),
             group_resident=t(np.ones((self.caps.max_groups,), bool)),

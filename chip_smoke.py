@@ -18,7 +18,10 @@ Run from the root of a checkout. Phases, one line each:
     warp) exact on random history at 64x256 and 1088x1920 with shifts
     past the clip limits, K1's and K2's peel and accum modes and K6 (the
     attribute resolve) exact on random 512x512 scenes with a random seed
-    depth, peel bound and accum payload;
+    depth, peel bound and accum payload; K1's seeded mode, the tangent
+    instances of K1's and K2's plain, seeded and peel modes and K6's
+    tangent mode exact on a random 512x512 scene with a random tangent
+    angle per triangle;
  4. the 128x128 golden scene against tests/goldens/basic_deferred.png and
     against the port on the CPU; the flagship frame of
     __graft_entry__.entry() (256x128) against the port on the CPU; the
@@ -70,10 +73,30 @@ Run from the root of a checkout. Phases, one line each:
     checked and timed alone against their bounds and plain versions;
     K1's peel and accum modes and K6 timed on that frame's transparent
     rows binned per triangle (K6 against K1's fused channels); then a
-    few frames with group_binning=False, the frame path through K1's
-    modes.
-Kernel launch counts (per raster mode: ops/raster.py's MODE_LAUNCHES) are
-reset just before each full-size path is driven and read just after. Any failed check raises and the exit code is non-zero.
+    few frames with group_binning=False and no occlusion, the frame path
+    through K1's peel and accum modes;
+11. vertex tangents at full size: bench.py's `full` with
+    enable_vertex_tangents over phase 9's normal-mapped courtyard and
+    orbit, timed in turns with `full` (off, on, on, off) in the same call;
+    K2's tangent launches of one captured frame (phase 1, phase 2 seeded,
+    mask pass, VSM pages) checked against the plain version and timed
+    alone, the VSM pages' depth against the same launches without the
+    tangent channel; K1's and K2's peel+tangent modes on random rows at
+    1920x1088; a 4-frame moving `full` + tangents sequence on the 512x512
+    rig card vs CPU;
+12. the soup frame's two-phase occlusion at full size: phase 6's
+    courtyard with enable_occlusion, the camera orbiting so that objects
+    are uncovered, timed with per-stage CUDA events; phase-1 objects,
+    candidates and phase-2 survivors per frame; K1's seeded launch of one
+    captured frame checked and timed alone, and a random seeded case at
+    1920x1088; the same frame with enable_vertex_tangents (K1's
+    plain+tangent and seeded+tangent launches checked, K6's tangent mode
+    on the captured phase-1 layer against K1's fused channels); then the
+    cluster path of config1_minimal with group_binning=False and
+    occlusion for 3 frames (K1 seeded on clustered rows).
+Kernel launch counts (per raster mode: ops/raster.py's MODE_LAUNCHES; K6's
+tangent mode: ops/resolve.py's TANGENT_LAUNCHES) are reset just before each
+full-size path is driven and read just after. Any failed check raises and the exit code is non-zero.
 The second-to-last line is the kernels' JSON record and the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
 prints no result.
@@ -127,6 +150,14 @@ FULL_OIT_GLASS = dict(transmission_weight=0.9,
 SLICE4_FRAMES = (2, 6)
 SLICE4_K1_FRAMES = (1, 2)    # phase 10 with group_binning=False
 VSM_CONVERGE_FRAMES = 40     # phase 9: static frames allowed to converge
+TANGENT_FRAMES = (2, 5)      # phase 11: each of its four runs, in turns
+SOUP_OCC_FRAMES = (2, 8)     # phase 12: the soup frame with occlusion
+SOUP_OCC_TANGENT_FRAMES = (1, 3)   # phase 12 with enable_vertex_tangents
+SOUP_OCC_RAD_PER_FRAME = 0.02      # phase 12's orbit, fast enough that
+#                                    objects come out from behind others
+# Phase 12's camera: low over the courtyard, so that objects hide others.
+SOUP_OCC_CAMERA = dict(position=(14.0, 1.8, 9.0), target=(0.0, 0.6, 0.0))
+CLUSTER_K1_FRAMES = (1, 2)   # phase 12, cluster path, group_binning=False
 
 
 class CheckFailed(RuntimeError):
@@ -444,6 +475,8 @@ def ptxas_summary(log):
     spill bytes; "cached" for a library built earlier."""
     import re
     out, name = [], None
+    # (raster_tiles_kernel<16,0>, ..., <8,0,tangent>: pixels per thread,
+    # mode, tangent channel.)
     for ln in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for)"
                       r" '?(\w+)", ln)
@@ -452,7 +485,11 @@ def ptxas_summary(log):
             # The kernel's own name follows the source's namespace tag
             # (..._raster_cu_<hash><length>raster_tiles_kernel...).
             k = re.search(r"([a-z][a-z_]*_kernel)", mang.split("_cu_")[-1])
-            args = re.findall(r"Li(\d+)E", mang)
+            # Integer template arguments as numbers, the tangent flag
+            # (a bool argument) as "tangent" when set.
+            args = [v if t == "i" else "tangent"
+                    for t, v in re.findall(r"L([ib])(\d+)E", mang)
+                    if t == "i" or v == "1"]
             name = (k.group(1) if k else mang) + (
                 f"<{','.join(args)}>" if args else "")
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -480,6 +517,32 @@ def random_payload(torch, np, lanes, seed):
     rows[:, 28] = np.where(live, col[:, 0] + col[:, 1] * 256.0
                            + col[:, 2] * 65536.0, 0)
     return torch.as_tensor(rows.astype(np.float32), device=lanes.device)
+
+
+def random_tangents(torch, np, lanes, seed):
+    """`lanes` with a random tangent angle in lane 27 of each live row
+    (the setup's encoding: [-pi, pi], +4pi for a negative handedness). Set
+    before binning, so every pair row of a triangle carries the same one,
+    as the setup's rows do."""
+    rng = np.random.default_rng(seed)
+    rows = lanes.cpu().numpy().copy()
+    n = rows.shape[0]
+    theta = rng.uniform(-np.pi, np.pi, n) + np.where(rng.random(n) < 0.5,
+                                                     4 * np.pi, 0.0)
+    rows[:, 27] = np.where(rows[:, 9] > 0.5, theta, 0)
+    return torch.as_tensor(rows.astype(np.float32), device=lanes.device)
+
+
+def random_seed_buffers(torch, np, raster_out, seed):
+    """A seed for the seeded modes: a raster's depth and vis with random
+    channels 5-7 (the seed's values the seeded modes keep, or overwrite
+    with the tangent channel)."""
+    rng = np.random.default_rng(seed)
+    d, v, ch = raster_out
+    ch = ch.clone()
+    ch[5:] = torch.as_tensor(rng.normal(size=tuple(ch[5:].shape))
+                             .astype(np.float32), device=ch.device)
+    return d, v, ch
 
 
 def random_band(torch, np, seed, cfg, dev):
@@ -540,16 +603,18 @@ def mode_check(torch, kernel_out, plain_out, label):
     return max(errs)
 
 
-def raster_mode_check(torch, pairs, cfg, label, peel, accum):
-    """K1 (BinnedPairs) or K2 (GroupBinnedPairs) in a peel / accum mode on
-    the card vs its plain version."""
+def raster_mode_check(torch, pairs, cfg, label, peel=None, accum=False,
+                      init=None):
+    """K1 (BinnedPairs) or K2 (GroupBinnedPairs) in a seeded, peel or
+    accum mode (the tangent instance under cfg.enable_vertex_tangents) on
+    the card vs its plain version: every output exact."""
     from basicrenderer_tpu_torch.ops import raster, raster_setup
     if isinstance(pairs, raster_setup.GroupBinnedPairs):
-        k = raster.raster_groups_cuda(pairs, cfg, 0, None, peel, accum)
-        p = raster.raster_groups_plain(pairs, cfg, 0, None, peel, accum)
+        k = raster.raster_groups_cuda(pairs, cfg, 0, init, peel, accum)
+        p = raster.raster_groups_plain(pairs, cfg, 0, init, peel, accum)
     else:
-        k = raster.raster_tiles_cuda(pairs, cfg, 0, peel, accum)
-        p = raster.raster_tiles_plain(pairs, cfg, 0, peel, accum)
+        k = raster.raster_tiles_cuda(pairs, cfg, 0, init, peel, accum)
+        p = raster.raster_tiles_plain(pairs, cfg, 0, init, peel, accum)
     return mode_check(torch, k, p, label)
 
 
@@ -733,7 +798,11 @@ class Capture:
 
 # ---------------------------------------------------------------------------
 
+PTXAS = []   # phase 2's per-library register reports
+
+
 def main():
+    import dataclasses
     import numpy as np
     import torch
 
@@ -752,7 +821,8 @@ def main():
     from basicrenderer_tpu_torch.utils.png import read_png
     dev = torch.device("cuda", 0)
     # Indices 0-5 are checked by phases 6-9; 6-9 are the peel and accum
-    # raster modes (phase 10), 10 K6, 11-13 the plain and seeded modes.
+    # raster modes (phase 10), 10 K6, 11-13 the plain and seeded modes,
+    # 14-21 the seeded and tangent modes (phases 11-12).
     kernels = (raster.raster_tiles_cuda, raster.raster_groups_cuda,
                lighting.tiled_shade_cuda, textures.tex_block_eval_cuda,
                taa_warp.warp_history_tiles, textures.tex_block_eval_bc3_cuda,
@@ -763,7 +833,15 @@ def main():
                resolve.resolve_attributes_cuda,
                raster.MODE_LAUNCHES[("K1", "plain")],
                raster.MODE_LAUNCHES[("K2", "plain")],
-               raster.MODE_LAUNCHES[("K2", "seeded")])
+               raster.MODE_LAUNCHES[("K2", "seeded")],
+               raster.MODE_LAUNCHES[("K1", "seeded")],
+               raster.MODE_LAUNCHES[("K1", "plain+tangent")],
+               raster.MODE_LAUNCHES[("K1", "seeded+tangent")],
+               raster.MODE_LAUNCHES[("K1", "peel+tangent")],
+               raster.MODE_LAUNCHES[("K2", "plain+tangent")],
+               raster.MODE_LAUNCHES[("K2", "seeded+tangent")],
+               raster.MODE_LAUNCHES[("K2", "peel+tangent")],
+               resolve.TANGENT_LAUNCHES)
     t_start = time.perf_counter()
 
     # -- 1. the card -------------------------------------------------------
@@ -783,6 +861,7 @@ def main():
                                  resolve.SOURCE])
     reports = [f"{src.name}: {ptxas_summary(lib.build_log)}"
                for src, lib in libs.items()]
+    PTXAS.extend(reports)
     say(f"phase 2 build: {len(libs)} libraries in {time.perf_counter() - t0:.2f}"
         f" s | ptxas: {' || '.join(reports)}")
 
@@ -874,12 +953,34 @@ def main():
     _, k1_vis, _ = raster.raster_tiles_cuda(mpairs, cfg512)
     res.append(("K6 random512", k6_check(torch, mpairs, k1_vis, cfg512,
                                          "K6 random512")))
+    # K1 seeded, and the tangent instances of the plain, seeded and peel
+    # modes of both kernels, on the same scene with a random tangent angle
+    # per triangle in lane 27 and a seed with random channels 5-7; then K6
+    # in tangent mode on K1's own vis.
+    tcfg = dataclasses.replace(cfg512, enable_vertex_tangents=True)
+    tlanes = random_tangents(torch, np, planes, 16)
+    tpairs = raster_setup.bin_pairs(tlanes, bbox, valid, tcfg)
+    tgpairs = raster_setup.bin_groups(tlanes, bbox, valid, tcfg)
+    seed1 = random_seed_buffers(torch, np, raster.raster_tiles_plain(
+        raster_setup.bin_pairs(lanes2, bbox2, valid2, cfg512), cfg512), 17)
+    for kname, prs_ in (("K1", tpairs), ("K2", tgpairs)):
+        for mname, c_, kw in (("seeded", cfg512, dict(init=seed1)),
+                              ("plain+tangent", tcfg, {}),
+                              ("seeded+tangent", tcfg, dict(init=seed1)),
+                              ("peel+tangent", tcfg, dict(peel=band))):
+            label = f"{kname}-{mname} random512"
+            res.append((label, raster_mode_check(torch, prs_, c_, label,
+                                                 **kw)))
+    _, k1_tvis, k1_tch = raster.raster_tiles_cuda(tpairs, tcfg)
+    res.append(("K6-tangent random512", k6_check(
+        torch, tpairs, k1_tvis, tcfg, "K6-tangent random512")))
+    check(bool((k1_tch[5] != 0).any()), "random512: no tangent written")
     say("phase 3 kernels vs plain: " + "; ".join(f"{k} max_abs_err {e:.3g}"
                                                   for k, e in res)
         + f" (K1/K2 vis, depth exact, channels rtol {CHANNEL_RTOL}; K3 rtol "
         f"{SHADE_RTOL} atol {SHADE_ATOL}; K4 and K4-BC3 atol {TEX_ATOL} on "
-        f"0-255; K5 atol {WARP_ATOL}; K1/K2 peel and accum and K6 every "
-        "output exact)")
+        f"0-255; K5 atol {WARP_ATOL}; K1/K2 peel, accum, seeded and "
+        "tangent modes and K6 every output exact)")
 
     # -- 4. golden on the card ---------------------------------------------
     frame = build_frame_fn(gcfg)
@@ -988,11 +1089,12 @@ def main():
         "moving-camera sequences, 4 frames, last frame card vs CPU (limits "
         "0.999, 1.0): " + "; ".join(seqs))
     if quick:
-        say(f"quick run: phases 6-9 skipped; {time.perf_counter() - t_start:.1f} s")
+        say(f"quick run: phases 6-12 skipped; {time.perf_counter() - t_start:.1f} s")
         return 0
 
     records = {}
-    records.update(slice1(np, torch, dev, kernels))
+    soup = []     # phase 6's scene, kept for phase 12
+    records.update(slice1(np, torch, dev, kernels, soup))
     yard = list(courtyard(np, torch, dev))   # phase 9 drops its buffers
     records.update(slice2(np, torch, dev, kernels, smi, yard,
                           profile="--profile" in sys.argv[1:]))
@@ -1002,11 +1104,17 @@ def main():
                            profile="--profile" in sys.argv[1:]))
     records.update(slice4(np, torch, dev, kernels, smi, yard,
                           profile="--profile" in sys.argv[1:]))
+    records.update(slice5_tangents(np, torch, dev, kernels, smi, yard))
+    records.update(slice5_occlusion(np, torch, dev, kernels, smi, soup,
+                                    yard))
 
     print(json.dumps({"kernels": [records[k] for k in
                                   ("K1", "K2", "K2-VSM", "K3", "K4", "K4-BC3",
                                    "K5", "K1-peel", "K1-accum", "K2-peel",
-                                   "K2-accum", "K6")]}),
+                                   "K2-accum", "K6", "K1-seeded",
+                                   "K1-tangent", "K1-peel-tangent",
+                                   "K2-tangent", "K2-peel-tangent",
+                                   "K6-tangent")]}),
           flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1015,8 +1123,10 @@ def main():
     return 0
 
 
-def slice1(np, torch, dev, kernels):
-    """Phase 6: the soup frame at full size; K1 timed alone and plain."""
+def slice1(np, torch, dev, kernels, soup):
+    """Phase 6: the soup frame at full size; K1 timed alone and plain.
+    Leaves (scene, bridge, buffers, triangles) in the list `soup` for
+    phase 12."""
     from basicrenderer_tpu_torch.graph.frame import build_frame_fn, geometry_pass
     from basicrenderer_tpu_torch.graph.framedata import FrameConfig, make_view
     from basicrenderer_tpu_torch.graph.temporal import TemporalState
@@ -1076,6 +1186,7 @@ def slice1(np, torch, dev, kernels):
         f"{plain_ms:.1f} ms, max_abs_err {err:.3g} | K1 launches {launches[0]}"
         f" | pairs {counters['num_pairs']}, (row, tile) walked {rows_walked} |"
         f" coverage {coverage:.4f} | peak {peak_gib:.2f} GiB")
+    soup.extend((sc, bridge, buf, ntris))
     return {"K1": {
         "name": "raster_tiles (K1, plain mode)", "route": "cuda",
         "source": "basicrenderer_tpu_torch/csrc/raster.cu",
@@ -1344,11 +1455,12 @@ def moving_sequence(np, torch, dev, flags, fmt, frames=4):
 
 
 def timed_frames(torch, np, fr, buf, scene, bridge, temporal, warm, timed,
-                 orbit=None, first=0, on_frame=None):
+                 orbit=None, first=0, on_frame=None,
+                 rate=ORBIT_RAD_PER_FRAME):
     """Run warm + timed frames of `scene` with the inputs of `temporal`
     (graph/temporal.py). With `orbit` = (pos0, target, aspect) the camera
-    turns ORBIT_RAD_PER_FRAME per frame about the vertical through target;
-    without, it stays. Returns (last output, frame ms list, temporal ms
+    turns `rate` rad per frame about the vertical through target; without,
+    it stays. Returns (last output, frame ms list, temporal ms
     list, stage ms medians): frame ms from the frame call to its
     synchronise, temporal ms the host work of temporal.inputs.
     `on_frame(out)` sees every frame's outputs after its synchronise."""
@@ -1364,8 +1476,7 @@ def timed_frames(torch, np, fr, buf, scene, bridge, temporal, warm, timed,
     for i in range(first, first + warm + timed):
         if orbit is not None:
             pos0, target, aspect = orbit
-            orbit_camera(np, scene, pos0, target, ORBIT_RAD_PER_FRAME * i,
-                         aspect)
+            orbit_camera(np, scene, pos0, target, rate * i, aspect)
         marks.clear()
         t0 = time.perf_counter()
         view, params, kw = temporal.inputs(scene, bridge)
@@ -1924,10 +2035,9 @@ def slice4(np, torch, dev, kernels, smi, yard, profile=False):
     courtyard with a glass and a striped alpha-MASK palette material,
     orbiting as phase 9 through graph/temporal.py: the default group
     binning (K2's peel and accum modes), then group_binning=False without
-    occlusion (K1's; the seeded per-triangle raster that the soup path's
-    occlusion needs is not ported). Each mode's launches of one captured
-    frame are checked and timed alone; K6 re-resolves the K1 frame's
-    first layer."""
+    occlusion (K1's peel and accum modes; phase 12 runs the cluster path's
+    K1 seeded). Each mode's launches of one captured frame are checked and
+    timed alone; K6 re-resolves the K1 frame's first layer."""
     import dataclasses
     from basicrenderer_tpu_torch.graph.frame import build_frame_fn
     from basicrenderer_tpu_torch.graph.framedata import FrameConfig
@@ -2081,6 +2191,456 @@ def slice4(np, torch, dev, kernels, smi, yard, profile=False):
         "(palette[1] glass, palette[3] striped alpha-MASK; new bridge "
         f"{build_s:.1f} s), camera orbit {ORBIT_RAD_PER_FRAME} rad/frame | "
         + " |||| ".join(lines) + f" | {smi}")
+    return recs
+
+
+def registers(pattern):
+    """Phase 2's register entries (`name<args> N regs`) whose kernel name
+    matches the regular expression `pattern`."""
+    import re
+    out = []
+    for rep in PTXAS:
+        for item in rep.split(": ", 1)[-1].split(", "):
+            if re.search(pattern, item):
+                out.append(item)
+    return ", ".join(out) or "not reported (cached build)"
+
+
+def mode_record(name, source_line, launches, err, ms, plain_ms, b_ms, b_by,
+                source="basicrenderer_tpu_torch/csrc/raster.cu"):
+    """A kernels-line record of a raster (or resolve) mode."""
+    pallas = ("basicrenderer_tpu/ops/resolve_pallas.py" if "resolve" in
+              source else "basicrenderer_tpu/ops/raster_pallas.py")
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": f"{pallas}:{source_line}", "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def time_launches(torch, calls, cuda_fn, plain_fn, bound_fn, label):
+    """Each captured launch (name, args, kwargs, output) timed alone by
+    CUDA events, run by its plain version and compared exactly; returns
+    (ms, plain ms, bound ms, bound_by of the largest, max abs err, parts)
+    summed over the launches. `bound_fn(args, output)` gives (bound ms,
+    by, rows walked)."""
+    ms_sum = plain_sum = b_sum = b_big = err = 0.0
+    by, parts = "operations", []
+    for k, (_n, a, kw, kout) in enumerate(calls):
+        ms = cuda_ms(torch, lambda: cuda_fn(*a, **kw), 5)
+        pout, p_ms = host_ms(torch, lambda: plain_fn(*a, **kw))
+        err = max(err, mode_check(torch, kout, pout, f"{label} launch {k}"))
+        b_ms, b_by, walked = bound_fn(a, kout)
+        if b_ms > b_big:
+            b_big, by = b_ms, b_by
+        ms_sum, plain_sum, b_sum = ms_sum + ms, plain_sum + p_ms, b_sum + b_ms
+        parts.append(f"{ms:.4f} ms (bound {b_ms:.4f} {b_by}, plain "
+                     f"{p_ms:.0f}, rows walked {walked})")
+    return ms_sum, plain_sum, b_sum, by, err, parts
+
+
+def k1_bound(torch, a, _out=None):
+    """(bound ms, by, rows walked) of one K1 launch with args `a` (pairs,
+    config, tile_row0, init, ...): each walked row tested on its tile's
+    pixels and read once, depth, vis and 8 channels written (and read
+    once more when seeded)."""
+    pairs, cfg, init = a[0], a[1], a[3]
+    walked = k1_walked(torch, pairs, cfg)
+    b_ms, b_by = bound(walked * cfg.tile_h * cfg.tile_w
+                       * RASTER_FLOPS_PER_ROW_PIXEL,
+                       walked * 128 + cfg.padded_height * cfg.padded_width
+                       * 40 * (2 if init is not None else 1))
+    return b_ms, b_by, walked
+
+
+def slice5_tangents(np, torch, dev, kernels, smi, yard):
+    """Phase 11: bench.py's `full` with enable_vertex_tangents over phase
+    9's normal-mapped courtyard and orbit, in turns with `full` (off, on,
+    on, off: each run from the same start with a fresh temporal state, so
+    VSM pages go dirty alike); K2's tangent launches of one captured frame
+    checked and timed alone, the VSM pages' depth against the same
+    launches without the tangent channel; K1's and K2's peel+tangent
+    modes on random rows; a moving `full` + tangents sequence card vs
+    CPU on the 512x512 rig."""
+    import dataclasses
+    import gc
+    from basicrenderer_tpu_torch.graph.frame import build_frame_fn
+    from basicrenderer_tpu_torch.graph.framedata import FrameConfig
+    from basicrenderer_tpu_torch.graph.temporal import TemporalState
+    from basicrenderer_tpu_torch.models.environment import Environment
+    from basicrenderer_tpu_torch.ops import raster, raster_setup
+    built, bridge = yard[0], yard[1]
+    orbit = (built.scene.camera_matrices(aspect=16 / 9)[2].copy(),
+             np.asarray(built.scene._camera_target, np.float64), 16 / 9)
+    t0 = time.perf_counter()
+    env = Environment.procedural(device=dev, use_cache=False)
+    buf = bridge.build_scene_buffers(env_sh=env.sh, env_specular=env.spec_mips,
+                                     device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    base = FrameConfig(**CONFIG1_MINIMAL, **FULL)
+    tan = dataclasses.replace(base, enable_vertex_tangents=True)
+    order = ["setup", "setup2", "mask", "gbuffer", "textures", "normal_map",
+             "vsm"]
+    warm, timed = TANGENT_FRAMES
+    n = warm + timed
+    runs, imgs, t_launches = [], {}, None
+    for label, cfg in (("full", base), ("full+tangents", tan),
+                       ("full+tangents", tan), ("full", base)):
+        pages = []
+        torch.cuda.synchronize()
+        reset_launches(kernels)
+        out, frame_ms, _in, stages = timed_frames(
+            torch, np, build_frame_fn(cfg), buf, built.scene, bridge,
+            TemporalState(cfg, device=dev), warm, timed, orbit,
+            on_frame=lambda o: pages.append(int(o["vsm_stats"]["rendered"])))
+        la = [k.launches for k in kernels]
+        on = cfg.enable_vertex_tangents
+        # Per frame: phase 1 and the mask pass in plain mode, phase 2
+        # seeded, one plain launch per VSM page; all of them the tangent
+        # instances with tangents on (the page config keeps the flag).
+        plain_i, seeded_i = (18, 19) if on else (12, 13)
+        other = (12, 13) if on else (18, 19)
+        check(la[plain_i] == 2 * n + sum(pages) and la[seeded_i] == n
+              and la[other[0]] == 0 and la[other[1]] == 0 and la[0] == 0,
+              f"phase 11 {label}: K2 modes launched {la[12]} plain, "
+              f"{la[13]} seeded, {la[18]} plain+tangent, {la[19]} "
+              f"seeded+tangent, K1 {la[0]} in {n} frames with {sum(pages)} "
+              "VSM pages")
+        check(bool(torch.isfinite(out["hdr"]).all()), "non-finite HDR values")
+        check(float(out["image"].float().std()) > 5.0, "flat image")
+        imgs[label] = out["image"].cpu().numpy()
+        if on and t_launches is None:
+            t_launches = la[18] + la[19]
+        runs.append((label, statistics.median(frame_ms), stages, pages))
+        del out
+    err_on_off = rmse(imgs["full+tangents"], imgs["full"])
+
+    # One captured frame with tangents (a fresh temporal state: phase 1,
+    # phase 2, the mask pass and the dirty VSM pages).
+    with Capture(raster, ["raster_groups_cuda"]) as rc:
+        timed_frames(torch, np, build_frame_fn(tan), buf, built.scene, bridge,
+                     TemporalState(tan, device=dev), 1, 0, orbit)
+    torch.cuda.synchronize()
+    check(len(rc.calls) >= 4 and rc.calls[1][1][3] is not None,
+          f"phase 11 captured frame: {len(rc.calls)} K2 launches")
+    labels = ["phase 1", "phase 2", "mask"] + [
+        f"page {k}" for k in range(len(rc.calls) - 3)]
+    k2_ms, k2_plain, k2_b, k2_by, k2_err, k2_parts = time_launches(
+        torch, rc.calls, raster.raster_groups_cuda, raster.raster_groups_plain,
+        lambda a, _o: k2_bound(raster, a[0], a[1], a[2], a[3]),
+        "K2-tangent 1080p")
+    page_depth = 0
+    for _n, a, kw, kout in rc.calls[3:]:
+        check(a[1].width == base.vsm_page_size, "page launch expected")
+        off = raster.raster_groups_cuda(
+            a[0], dataclasses.replace(a[1], enable_vertex_tangents=False),
+            a[2], a[3])
+        page_depth += int((off[0] != kout[0]).sum())
+    check(page_depth == 0, f"VSM page depth changed with the tangent "
+          f"channel on {page_depth} texels")
+    del rc
+
+    # The peel+tangent modes on random rows at 1920x1088.
+    rcfg = FrameConfig(width=1920, height=1080, tile_h=32, tile_w=128,
+                       max_pairs=1 << 20, max_tiles_per_tri=8,
+                       max_tiles_per_group=8, max_group_pairs=1 << 16,
+                       enable_vertex_tangents=True)
+    lanes, bbox, valid = random_groups(torch, np, 18, 2048, rcfg, dev)
+    lanes = random_tangents(torch, np, random_payload(torch, np, lanes, 19),
+                            20)
+    band = random_band(torch, np, 21, rcfg, dev)
+    recs, peel_parts = {}, []
+    for kname, prs_, cuda_fn, plain_fn in (
+            ("K1", raster_setup.bin_pairs(lanes, bbox, valid, rcfg),
+             raster.raster_tiles_cuda, raster.raster_tiles_plain),
+            ("K2", raster_setup.bin_groups(lanes, bbox, valid, rcfg),
+             raster.raster_groups_cuda, raster.raster_groups_plain)):
+        count = raster.MODE_LAUNCHES[(kname, "peel+tangent")]
+        count.launches = 0
+        kout = raster.raster_tiles(prs_, rcfg, peel=band)
+        torch.cuda.synchronize()
+        check(count.launches == 1, f"{kname} peel+tangent launched "
+              f"{count.launches} times")
+        ms, p_ms, b_ms, b_by, err, _parts = time_launches(
+            torch, [("", (prs_, rcfg, 0, None, band, False), {}, kout)],
+            cuda_fn, plain_fn,
+            lambda a, o: mode_bound(torch, raster, a[0], a[1], False, o),
+            f"{kname}-peel+tangent random 1080p")
+        recs[f"{kname}-peel-tangent"] = mode_record(
+            f"{'raster_tiles' if kname == 'K1' else 'raster_groups'} "
+            f"({kname}, peel mode with the tangent channel; driven once on "
+            "random rows at 1920x1088, no frame path of this run takes it)",
+            "135" if kname == "K1" else "252", 1, err, ms, p_ms, b_ms, b_by)
+        peel_parts.append(f"{kname}-peel+tangent {ms:.4f} ms (bound "
+                          f"{b_ms:.4f} {b_by}, plain {p_ms:.0f} ms, "
+                          f"max_abs_err {err:.3g})")
+    recs["K2-tangent"] = mode_record(
+        "raster_groups (K2, tangent channel in plain and seeded modes; per "
+        "frame of `full` + vertex tangents: phase 1, phase 2 seeded, mask "
+        "pass, VSM pages)", "252", t_launches, k2_err, k2_ms, k2_plain, k2_b,
+        k2_by)
+    del buf
+    gc.collect()
+    torch.cuda.empty_cache()
+    s_agree, s_rmse, s_k5, s_ms, s_pages = moving_sequence(
+        np, torch, dev, dict(SEQ_FULL, enable_vertex_tangents=True), "rgba8")
+    say("phase 11 vertex tangents: full with enable_vertex_tangents 1920x1080 "
+        f"over the phase-9 courtyard and orbit (buffers {build_s:.1f} s), in "
+        "turns with full: "
+        + " | ".join(f"{lb} median {ms_:.3f} ms/frame over {timed}, stage ms "
+                     + " ".join(f"{k} {st[k]:.3f}" for k in order if k in st)
+                     + f", VSM pages {pg}" for lb, ms_, st, pg in runs)
+        + f" | RMSE full+tangents vs full (same camera, frame {n}) "
+        f"{err_on_off:.4f} | K2 tangent launches {t_launches} in {n} frames "
+        f"| K2 tangent per captured frame {k2_ms:.4f} ms (bound {k2_b:.4f} "
+        f"{k2_by}, plain {k2_plain:.0f} ms, max_abs_err {k2_err:.3g}; every "
+        "output exact) = " + "; ".join(f"{lb} {p}" for lb, p in
+                                       zip(labels, k2_parts))
+        + f" | VSM page depth with vs without the tangent channel: "
+        f"{page_depth} texels differ | " + "; ".join(peel_parts)
+        + f" | moving full + tangents 512x512, 4 frames, card vs CPU: vis "
+        f"agreement {s_agree:.5f}, RMSE {s_rmse:.4f}, K5 {s_k5}, VSM pages "
+        f"{s_pages}, CPU {s_ms / 1e3:.1f} s | registers: "
+        + registers(r"tangent") + f" | {smi}")
+    return recs
+
+
+def slice5_occlusion(np, torch, dev, kernels, smi, soup, yard):
+    """Phase 12: phase 6's soup courtyard with enable_occlusion, the camera
+    low and orbiting, through graph/temporal.py: per-frame phase verdicts,
+    K1's seeded launch of a captured frame checked and timed alone, a
+    random seeded case; the same with enable_vertex_tangents (K1's
+    plain+tangent and seeded+tangent, K6's tangent mode on the phase-1
+    layer); then config1_minimal's cluster path with group_binning=False
+    and occlusion (K1 seeded on clustered rows)."""
+    import dataclasses
+    import gc
+    from basicrenderer_tpu_torch.graph.frame import build_frame_fn
+    from basicrenderer_tpu_torch.graph.framedata import FrameConfig
+    from basicrenderer_tpu_torch.graph.temporal import TemporalState
+    from basicrenderer_tpu_torch.ops import culling, raster, raster_setup, resolve
+    sc, bridge, buf, ntris = soup
+    sc.set_camera(aspect=16 / 9, **SOUP_OCC_CAMERA)
+    orbit = (np.asarray(SOUP_OCC_CAMERA["position"], np.float64),
+             np.asarray(SOUP_OCC_CAMERA["target"], np.float64), 16 / 9)
+    cfg = FrameConfig(width=1920, height=1080, tile_h=32, tile_w=128,
+                      max_pairs=1 << 22, near_clip_tris=4096,
+                      enable_occlusion=True)
+    order = ["setup", "hzb", "bin", "raster", "hzb2", "bin2", "raster2",
+             "gbuffer", "shade"]
+    warm, timed = SOUP_OCC_FRAMES
+    n = warm + timed
+    temporal = TemporalState(cfg, device=dev)
+    fr = build_frame_fn(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches(kernels)
+    with Capture(culling, ["two_phase_object_cull", "occlusion_test_hzb"]) as cc:
+        out, frame_ms, _in, stages = timed_frames(
+            torch, np, fr, buf, sc, bridge, temporal, warm, timed, orbit,
+            rate=SOUP_OCC_RAD_PER_FRAME)
+    la = [k.launches for k in kernels]
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    check(la[0] == 2 * n and la[11] == n and la[14] == n
+          and all(x == 0 for i, x in enumerate(la) if i not in (0, 11, 14)),
+          f"phase 12: launches {la} in {n} frames (K1 plain and seeded once "
+          "a frame, nothing else)")
+    # Per frame: the phase-1 cull (its own HZB test first), then the
+    # phase-2 test of the candidates against the fresh HZB.
+    verdicts = []
+    for i, (name, _a, _kw, res) in enumerate(cc.calls):
+        if name == "two_phase_object_cull":
+            check(cc.calls[i + 1][0] == "occlusion_test_hzb",
+                  "phase-2 occlusion test missing")
+            vis1, cand = res
+            vis2 = cand & cc.calls[i + 1][3]
+            verdicts.append((int(vis1.sum()), int(cand.sum()), int(vis2.sum())))
+    del cc
+    check(len(verdicts) == n and verdicts[0][1] == 0,
+          f"phase verdicts {verdicts} (the first frame has no previous depth)")
+    img = out["image"]
+    check(tuple(img.shape) == (1080, 1920, 3), f"image {tuple(img.shape)}")
+    check(bool(torch.isfinite(out["hdr"]).all()), "non-finite HDR values")
+    check(float(img.float().std()) > 5.0, "flat image")
+    coverage = float((out["vis"] > 0).float().mean())
+    counters = {k: int(out[k]) for k in ("bin_overflow", "num_pairs")}
+    check(counters["bin_overflow"] == 0, f"overflow {counters}")
+    del out
+
+    # One captured frame: K1's phase-1 and seeded phase-2 launches.
+    with Capture(raster, ["raster_tiles_cuda"]) as rc:
+        timed_frames(torch, np, fr, buf, sc, bridge, temporal, 1, 0, orbit,
+                     first=n, rate=SOUP_OCC_RAD_PER_FRAME)
+    torch.cuda.synchronize()
+    check(len(rc.calls) == 2 and rc.calls[1][1][3] is not None,
+          f"captured frame: {len(rc.calls)} K1 launches")
+    p1_ms = cuda_ms(torch, lambda: raster.raster_tiles_cuda(*rc.calls[0][1]),
+                    5)
+    s_ms, s_plain, s_b, s_by, s_err, s_parts = time_launches(
+        torch, rc.calls[1:], raster.raster_tiles_cuda,
+        raster.raster_tiles_plain, lambda a, _o: k1_bound(torch, a),
+        "K1-seeded 1080p")
+    s_pairs = int(rc.calls[1][1][0].num_pairs)
+    s_won = int((rc.calls[1][3][1] != rc.calls[1][1][3][1]).sum())
+    del rc
+    # A random seeded case at 1920x1088, whatever the orbit left phase 2.
+    rcfg = FrameConfig(width=1920, height=1080, tile_h=32, tile_w=128,
+                       max_pairs=1 << 20, max_tiles_per_tri=8)
+    la_, bb_, va_ = random_groups(torch, np, 22, 2048, rcfg, dev)
+    lb_, bbb_, vb_ = random_groups(torch, np, 23, 1024, rcfg, dev)
+    rinit = random_seed_buffers(torch, np, raster.raster_tiles_cuda(
+        raster_setup.bin_pairs(lb_, bbb_, vb_, rcfg), rcfg), 24)
+    r_err = raster_mode_check(torch, raster_setup.bin_pairs(la_, bb_, va_, rcfg),
+                              rcfg, "K1-seeded random 1080p", init=rinit)
+
+    # The same frames with the tangent channel.
+    tcfg = dataclasses.replace(cfg, enable_vertex_tangents=True)
+    ttemp = TemporalState(tcfg, device=dev)
+    tfr = build_frame_fn(tcfg)
+    tw, tt = SOUP_OCC_TANGENT_FRAMES
+    nt = tw + tt
+    torch.cuda.synchronize()
+    reset_launches(kernels)
+    tout, t_ms, _in, t_stages = timed_frames(
+        torch, np, tfr, buf, sc, bridge, ttemp, tw, tt, orbit,
+        rate=SOUP_OCC_RAD_PER_FRAME)
+    tl = [k.launches for k in kernels]
+    check(tl[0] == 2 * nt and tl[15] == nt and tl[16] == nt
+          and all(x == 0 for i, x in enumerate(tl) if i not in (0, 15, 16)),
+          f"phase 12 with tangents: launches {tl} in {nt} frames")
+    del tout
+    # The scene has no normal map: at one camera the frames with and
+    # without the tangent channel are the same image (fresh temporal
+    # states, so both take the same phases).
+    same = [timed_frames(torch, np, f_, buf, sc, bridge,
+                         TemporalState(c_, device=dev), 1, 0, orbit,
+                         rate=SOUP_OCC_RAD_PER_FRAME)[0]
+            for f_, c_ in ((fr, cfg), (tfr, tcfg))]
+    t_same = (bool(torch.equal(same[0]["vis"], same[1]["vis"]))
+              and bool(torch.equal(same[0]["image"], same[1]["image"])))
+    check(t_same, "the tangent channel changed the soup frame")
+    del same
+    with Capture(raster, ["raster_tiles_cuda"]) as trc:
+        timed_frames(torch, np, tfr, buf, sc, bridge, ttemp, 1, 0, orbit,
+                     first=nt, rate=SOUP_OCC_RAD_PER_FRAME)
+    torch.cuda.synchronize()
+    check(len(trc.calls) == 2, f"captured tangent frame: {len(trc.calls)} "
+          "K1 launches")
+    t_ms_k, t_plain, t_b, t_by, t_err, t_parts = time_launches(
+        torch, trc.calls, raster.raster_tiles_cuda, raster.raster_tiles_plain,
+        lambda a, _o: k1_bound(torch, a), "K1-tangent 1080p")
+    # K6 in tangent mode on the phase-1 layer: its pairs and vis; its
+    # channels 0-5 against the layer's fused ones.
+    pairs1, kvis, kch = trc.calls[0][1][0], trc.calls[0][3][1], trc.calls[0][3][2]
+    del trc
+    before = kernels[21].launches
+    k6_out = resolve.resolve_attributes(pairs1, kvis, tcfg)
+    torch.cuda.synchronize()
+    k6_launches = kernels[21].launches - before
+    check(k6_launches == 1, f"K6 tangent mode launched {k6_launches} times")
+    fused_diff = float((k6_out[:6] - kch[:6]).abs().max())
+    k6_ms = cuda_ms(torch, lambda: resolve.resolve_attributes_cuda(
+        pairs1, kvis, tcfg), 10)
+    k6_plain, k6_pms = host_ms(torch, lambda: resolve.resolve_attributes_plain(
+        pairs1, kvis, tcfg))
+    k6_err = mode_check(torch, (k6_out,), (k6_plain,), "K6-tangent 1080p")
+    offs = pairs1.tile_offsets.long()
+    rows = int((offs[1:] - offs[:-1]).sum()) + int(
+        pairs1.big_count) * tcfg.num_tiles
+    matched = int((kvis > 0).sum())
+    hw = tcfg.padded_height * tcfg.padded_width
+    b6_ms, b6_by = bound(
+        rows * tcfg.tile_h * tcfg.tile_w * RESOLVE_OPS_PER_ROW_PIXEL
+        + matched * RESOLVE_FLOPS_PER_MATCH, rows * 128 + hw * (4 + 32))
+    del k6_out, k6_plain, pairs1, kvis, kch
+
+    # config1_minimal's cluster path binned per triangle, with occlusion.
+    cbuf = yard[1].build_scene_buffers(device=dev)
+    ccfg = FrameConfig(**{**CONFIG1_MINIMAL, "group_binning": False,
+                          "max_pairs": 1 << 22})
+    ctemp = TemporalState(ccfg, device=dev)
+    cfr = build_frame_fn(ccfg)
+    cw, ct = CLUSTER_K1_FRAMES
+    ncl = cw + ct
+    torch.cuda.synchronize()
+    reset_launches(kernels)
+    cout, c_ms, _in, c_stages = timed_frames(
+        torch, np, cfr, cbuf, yard[0].scene, yard[1], ctemp, cw, ct)
+    cl = [k.launches for k in kernels]
+    check(cl[1] == 0 and cl[11] == 2 * ncl and cl[14] == ncl,
+          f"cluster path, group_binning=False: launches {cl} in {ncl} frames "
+          "(K1 plain for phase 1 and the mask pass, K1 seeded for phase 2)")
+    check(bool(torch.isfinite(cout["hdr"]).all()), "non-finite HDR values")
+    c_ovf = {k: int(cout[k]) for k in ("bin_overflow", "cluster_overflow")}
+    del cout
+    with Capture(raster, ["raster_tiles_cuda"]) as crc:
+        timed_frames(torch, np, cfr, cbuf, yard[0].scene, yard[1], ctemp, 1,
+                     0, first=ncl)
+    torch.cuda.synchronize()
+    seeded = [c for c in crc.calls if c[1][3] is not None]
+    check(len(seeded) == 1, f"cluster captured frame: {len(seeded)} seeded "
+          "K1 launches")
+    c_sms, c_splain, c_sb, c_sby, c_serr, _p = time_launches(
+        torch, seeded, raster.raster_tiles_cuda, raster.raster_tiles_plain,
+        lambda a, _o: k1_bound(torch, a), "K1-seeded cluster 1080p")
+    del crc, seeded, cbuf
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    recs = {
+        "K1-seeded": mode_record(
+            "raster_tiles (K1, seeded mode: phase 2 of the soup frame's "
+            "two-phase occlusion; per frame)", "135", la[14], s_err, s_ms,
+            s_plain, s_b, s_by),
+        "K1-tangent": mode_record(
+            "raster_tiles (K1, tangent channel in plain and seeded modes; "
+            "per frame of the soup frame with occlusion and vertex tangents: "
+            "phase 1, phase 2 seeded)", "135", tl[15] + tl[16], t_err,
+            t_ms_k, t_plain, t_b, t_by),
+        "K6-tangent": mode_record(
+            "resolve_attributes (K6, tangent mode; no frame path calls it: "
+            "driven once on phase 12's phase-1 layer with tangents)", "39",
+            k6_launches, k6_err, k6_ms, k6_pms, b6_ms, b6_by,
+            source="basicrenderer_tpu_torch/csrc/resolve.cu"),
+    }
+    say("phase 12 soup occlusion: phase-6 courtyard "
+        f"({ntris} triangles) with enable_occlusion 1920x1080, camera "
+        f"{SOUP_OCC_CAMERA} orbiting {SOUP_OCC_RAD_PER_FRAME} rad/frame | "
+        f"median {statistics.median(frame_ms):.3f} ms/frame over {timed} (min "
+        f"{min(frame_ms):.3f}, max {max(frame_ms):.3f}) | stage ms (CUDA "
+        "events, median): " + " ".join(f"{k} {stages[k]:.3f}" for k in order
+                                       if k in stages)
+        + " | per frame (phase-1 objects, candidates, phase-2 survivors): "
+        + str(verdicts) + f" | launches per frame K1 {la[0] / n:.2f} (plain "
+        f"{la[11] / n:.2f}, seeded {la[14] / n:.2f}) | phase 1 {p1_ms:.3f} ms"
+        f" | K1 seeded on the captured frame {s_ms:.4f} ms (bound {s_b:.4f} "
+        f"{s_by}, plain {s_plain:.0f} ms, max_abs_err {s_err:.3g}; phase-2 "
+        f"pairs {s_pairs}, pixels won {s_won}) = {'; '.join(s_parts)} | K1 "
+        f"seeded random 1080p max_abs_err {r_err:.3g} | pairs "
+        f"{counters['num_pairs']}, coverage {coverage:.4f}, peak "
+        f"{peak_gib:.2f} GiB || with enable_vertex_tangents: median "
+        f"{statistics.median(t_ms):.3f} ms/frame over {tt}, stage ms "
+        + " ".join(f"{k} {t_stages[k]:.3f}" for k in order if k in t_stages)
+        + f", launches K1 plain+tangent {tl[15]} seeded+tangent {tl[16]} in "
+        f"{nt} frames, vis and image equal to the frame without the tangent "
+        f"channel at one camera: {t_same}; K1 tangent per captured frame "
+        f"{t_ms_k:.4f} ms "
+        f"(bound {t_b:.4f} {t_by}, plain {t_plain:.0f} ms, max_abs_err "
+        f"{t_err:.3g}) = phase 1 {t_parts[0]}; phase 2 {t_parts[1]}; K6 "
+        f"tangent on the phase-1 layer {k6_ms:.4f} ms (bound {b6_ms:.4f} "
+        f"{b6_by}, plain {k6_pms:.0f} ms, max_abs_err {k6_err:.3g}, rows "
+        f"walked {rows}, covered pixels {matched}); channels 0-5 vs K1's "
+        f"fused: max abs diff {fused_diff:.3g} || cluster path "
+        "(config1_minimal, group_binning=False, occlusion): median "
+        f"{statistics.median(c_ms):.3f} ms/frame over {ct}, stage ms "
+        + " ".join(f"{k} {c_stages[k]:.3f}" for k in
+                   ("setup", "bin", "raster", "setup2", "bin2", "raster2",
+                    "mask") if k in c_stages)
+        + f", launches K1 plain {cl[11]} seeded {cl[14]} in {ncl} frames, "
+        f"overflow {c_ovf}; K1 seeded on clustered rows {c_sms:.4f} ms (bound "
+        f"{c_sb:.4f} {c_sby}, plain {c_splain:.0f} ms, max_abs_err "
+        f"{c_serr:.3g}) | registers: "
+        + registers(r"raster_tiles_kernel<16,0>|tangent") + f" | {smi}")
     return recs
 
 

@@ -262,10 +262,9 @@ def test_unported_cluster_options_raise(rig):
     # The masked peels and OIT are ported.
     pframe.build_frame_fn(dataclasses.replace(
         rig["pc"], enable_alpha_mask=True, mask_peels=2, enable_oit=True))
-    cfg = dataclasses.replace(rig["pc"], enable_clod=False,
-                              enable_occlusion=True)
-    with pytest.raises(NotImplementedError, match="enable_occlusion"):
-        pframe.build_frame_fn(cfg)
+    # So is the soup frame's occlusion (enable_occlusion without clod).
+    pframe.build_frame_fn(dataclasses.replace(rig["pc"], enable_clod=False,
+                                              enable_occlusion=True))
     # The full-rate alpha-MASK pass is ported; texture streaming is not.
     pframe.build_frame_fn(dataclasses.replace(
         rig["pc"], enable_alpha_mask=True, texture_downscale=1))

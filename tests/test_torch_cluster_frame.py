@@ -3,11 +3,12 @@
 Scene: the shared rig of tests/test_goldens_512.py (LOD sphere, cube,
 checkered floor, glass quad, alpha-MASK leaf quad; directional, point and
 spot lights) without the voxel pyramid, built by each package from its own
-host modules, at 128x128 with tile_h=16. Four toggle sets over
+host modules, at 128x128 with tile_h=16. Five toggle sets over
 enable_clod: alone; with two-phase occlusion over 3 frames (the first has
-no previous depth); with clustered lights; with the alpha-MASK pass at
-texture_downscale 2. The JAX frame runs its reference path
-(use_pallas_raster=False).
+no previous depth), group-binned (K2 seeded), and per-triangle binned
+over 2 frames (group_binning off: K1 seeded); with clustered lights; with
+the alpha-MASK pass at texture_downscale 2. The JAX frame runs its
+reference path (use_pallas_raster=False).
 
 Parity levels:
 - `vis` equal on >= 99.9% of pixels (the setups round differently in the
@@ -38,6 +39,9 @@ BASE = dict(width=128, height=128, tile_h=16, tile_w=128, max_pairs=1 << 15,
 TOGGLES = {
     "clod": ({}, 1),
     "occlusion": (dict(enable_occlusion=True), 3),
+    # Per-triangle binning: phase 2 takes K1's seeded mode (the second
+    # frame is the first with a previous depth).
+    "occlusion_k1": (dict(enable_occlusion=True, group_binning=False), 2),
     "clustered": (dict(enable_clustered=True), 1),
     "alpha_mask": (dict(enable_alpha_mask=True, texture_downscale=2), 1),
 }

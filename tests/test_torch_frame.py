@@ -100,7 +100,7 @@ def test_frame_with_local_lights_matches_jax():
     ("enable_shadows", True),
     ("enable_voxel_rt", True), ("enable_coat", True), ("enable_skinning", True),
     ("enable_sss", True), ("max_shadow_lights", 2), ("debug_view", "normals"),
-    ("wireframe", True), ("enable_vertex_tangents", True),
+    ("wireframe", True), ("enable_rt_reflect", True),
     ("output_width", 256),
 ])
 def test_unported_toggles_raise(field, value):

@@ -261,6 +261,9 @@ def test_full_frames_vsm_state_matches_jax(sequences, variant):
 def test_full_toggles_build_and_unported_ones_raise():
     for v in VARIANTS.values():          # full_oit's toggles among them
         build_frame_fn(FrameConfig(**BASE, **FULL, **v))
-    for field in ("enable_texture_streaming", "enable_vertex_tangents"):
-        with pytest.raises(NotImplementedError, match=field):
-            build_frame_fn(FrameConfig(**BASE, **FULL, **{field: True}))
+    # Vertex tangents and the soup frame's occlusion are ported now.
+    build_frame_fn(FrameConfig(**BASE, **FULL, enable_vertex_tangents=True))
+    build_frame_fn(FrameConfig(**{**BASE, **FULL, "enable_clod": False}))
+    with pytest.raises(NotImplementedError, match="enable_texture_streaming"):
+        build_frame_fn(FrameConfig(**BASE, **FULL,
+                                   enable_texture_streaming=True))

@@ -99,19 +99,30 @@ def test_plane_eval_is_the_contracted_form():
 
 
 def test_unported_modes_raise():
+    """Every mode of K1 is ported now (the seeded and tangent modes were
+    the last to raise): on an empty scene each returns its starting
+    buffers, and a seeded raster still refuses a peel band."""
     cfg = PConfig(width=128, height=32, tile_h=16, tile_w=128)
     pairs = prs.BinnedPairs(torch.zeros((256, 32)),
                             torch.full((2,), 256, dtype=torch.int32),
                             *(torch.zeros((), dtype=torch.int32),) * 3)
     img = torch.zeros((32, 128))
-    with pytest.raises(NotImplementedError, match="enable_occlusion"):
-        praster.raster_tiles(pairs, cfg, init=(img, img, img))
+    rng = np.random.default_rng(1)
+    init = (torch.as_tensor(rng.uniform(0, 1, (32, 128)).astype(np.float32)),
+            torch.as_tensor(rng.integers(0, 9, (32, 128)).astype(np.int32)),
+            torch.as_tensor(rng.normal(size=(8, 32, 128)).astype(np.float32)))
+    for c in (cfg, PConfig(width=128, height=32, tile_h=16, tile_w=128,
+                           enable_vertex_tangents=True)):
+        d, v, ch = praster.raster_tiles(pairs, c, init=init)
+        assert all(torch.equal(x, y) for x, y in zip((d, v, ch), init))
     tcfg = PConfig(width=128, height=32, tile_h=16, tile_w=128,
                    enable_vertex_tangents=True)
-    with pytest.raises(NotImplementedError, match="enable_vertex_tangents"):
-        praster.raster_tiles(pairs, tcfg)
-    # The peeled and accum modes are ported: on an empty scene they return
-    # their starting buffers.
+    d, v, ch = praster.raster_tiles(pairs, tcfg)
+    assert not d.any() and not v.any() and not ch.any()
+    with pytest.raises(ValueError, match="neither peel nor accum"):
+        praster.raster_tiles(pairs, cfg, init=init, peel=(img, img))
+    # The peeled and accum modes: on an empty scene they return their
+    # starting buffers.
     seed = torch.full((32, 128), 0.25)
     d, v, ch = praster.raster_tiles(pairs, cfg, peel=(seed, img))
     assert torch.equal(d, seed) and not v.any() and not ch.any()
@@ -368,6 +379,65 @@ def test_cuda_peel_and_accum_match_plain(cuda_device, accum):
     assert mode.launches == before + 1
     pd, pv, pch = praster.raster_tiles_plain(pairs, cfg, peel=band,
                                              accum=accum)
+    assert torch.equal(kv, pv)
+    assert torch.equal(kd, pd)
+    assert torch.equal(kch, pch)
+
+
+def seeded_and_tangent_case(device, kernel, mode):
+    """(kernel-vs-plain) inputs of the seeded and tangent modes on the
+    card: 400 random triangles with payload bytes and random tangent
+    angles (lane 27), binned per triangle (K1) or in groups (K2); a seed
+    rastered from 200 other triangles with random channels 5-7; a peel
+    band. Returns (pairs, config, raster keywords, the plain version)."""
+    rng = np.random.default_rng(31)
+    tangent = mode.endswith("+tangent")
+    cfg = PConfig(width=384, height=160, tile_h=32, tile_w=128,
+                  max_pairs=1 << 14, max_tiles_per_tri=4,
+                  max_tiles_per_group=2, max_group_pairs=1 << 12,
+                  enable_vertex_tangents=tangent)
+    bin_fn = prs.bin_pairs if kernel == "K1" else prs.bin_groups
+    plain = (praster.raster_tiles_plain if kernel == "K1"
+             else praster.raster_groups_plain)
+
+    def pairs_of(n):
+        clip = torch.as_tensor(random_clip_triangles(rng, n).reshape(-1, 4),
+                               device=device)
+        idx = torch.arange(3 * n, dtype=torch.int32, device=device).view(n, 3)
+        lanes, bbox, valid, _ = prs.triangle_setup_packed(
+            clip, idx, torch.ones(n, dtype=torch.bool, device=device), cfg,
+            None, None)
+        rows = with_payload(rng, lanes.cpu().numpy())
+        rows[:, 27] = np.where(rows[:, 9] > 0.5, rng.uniform(
+            -np.pi, 5 * np.pi, rows.shape[0]), 0)
+        return bin_fn(torch.as_tensor(rows, device=device), bbox, valid, cfg)
+
+    kw = {}
+    if mode.startswith("seeded"):
+        d0, v0, c0 = plain(pairs_of(256), cfg)
+        c0 = c0.clone()
+        c0[5:] = torch.as_tensor(rng.normal(size=tuple(c0[5:].shape)).astype(
+            np.float32), device=device)
+        kw["init"] = (d0, v0, c0)
+    elif mode.startswith("peel"):
+        kw["peel"] = tuple(torch.as_tensor(b, device=device) for b in
+                           peel_band(rng, cfg.padded_height, cfg.padded_width))
+    return pairs_of(512), cfg, kw, plain
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["seeded", "plain+tangent", "seeded+tangent",
+                                  "peel+tangent"])
+def test_cuda_seeded_and_tangent_modes_match_plain(cuda_device, mode):
+    """K1's seeded mode and its tangent modes on the card vs the plain
+    version: vis, depth and every channel exact, one launch of the mode."""
+    pairs, cfg, kw, plain = seeded_and_tangent_case(cuda_device, "K1", mode)
+    count = praster.MODE_LAUNCHES[("K1", mode)]
+    before = count.launches
+    kd, kv, kch = praster.raster_tiles(pairs, cfg, **kw)
+    torch.cuda.synchronize()
+    assert count.launches == before + 1
+    pd, pv, pch = plain(pairs, cfg, **kw)
     assert torch.equal(kv, pv)
     assert torch.equal(kd, pd)
     assert torch.equal(kch, pch)

@@ -28,7 +28,8 @@ from basicrenderer_tpu_torch.ops import raster as praster
 from basicrenderer_tpu_torch.ops import raster_setup as prs
 
 from tests.test_raster import random_clip_triangles, setup_from_clip
-from tests.test_torch_raster import peel_band, with_payload
+from tests.test_torch_raster import (peel_band, seeded_and_tangent_case,
+                                     with_payload)
 
 KW = dict(width=256, height=64, tile_h=16, tile_w=128, max_pairs=1 << 12,
           max_group_pairs=1 << 10)
@@ -266,6 +267,24 @@ def test_cuda_group_peel_and_accum_match_plain(cuda_device, accum):
     assert mode.launches == before + 1
     pd, pv, pch = praster.raster_groups_plain(pairs, cfg, peel=band,
                                               accum=accum)
+    assert torch.equal(kv, pv)
+    assert torch.equal(kd, pd)
+    assert torch.equal(kch, pch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["plain+tangent", "seeded+tangent",
+                                  "peel+tangent"])
+def test_cuda_group_tangent_modes_match_plain(cuda_device, mode):
+    """K2's tangent modes on the card vs the plain version: vis, depth and
+    every channel exact, one launch of the mode."""
+    pairs, cfg, kw, plain = seeded_and_tangent_case(cuda_device, "K2", mode)
+    count = praster.MODE_LAUNCHES[("K2", mode)]
+    before = count.launches
+    kd, kv, kch = praster.raster_tiles(pairs, cfg, **kw)
+    torch.cuda.synchronize()
+    assert count.launches == before + 1
+    pd, pv, pch = plain(pairs, cfg, **kw)
     assert torch.equal(kv, pv)
     assert torch.equal(kd, pd)
     assert torch.equal(kch, pch)

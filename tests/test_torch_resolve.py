@@ -15,6 +15,8 @@ The CUDA kernel has no CPU mode: its comparison with the plain version is
 marked `cuda` and skips without a card.
 """
 
+import dataclasses
+
 import numpy as np
 import jax
 import pytest
@@ -101,10 +103,31 @@ def test_resolve_plain_on_group_pairs_matches_ref():
 
 
 def test_resolve_tangent_mode_raises(scene):
-    _pairs, _vis, ppairs, pvis = scene
-    with pytest.raises(NotImplementedError, match="enable_vertex_tangents"):
-        presolve.resolve_attributes(ppairs, pvis, PConfig(
-            **KW, enable_vertex_tangents=True))
+    """The tangent mode is ported (it raised before): with a random
+    tangent angle per triangle in lane 27 (the same on each of its pair
+    rows), channel 5 takes the matching row's lane 27, equal to the Pallas
+    kernel in interpret mode and to the jitted reference twin; the other
+    channels are unchanged."""
+    pairs, vis_p, ppairs, pvis = scene
+    rng = np.random.default_rng(7)
+    pd = np.array(pairs.pair_data)
+    angle = rng.uniform(-np.pi, 5 * np.pi, int(pd[:, 9].max()) + 1)
+    pd[:, 27] = np.where(pd[:, 9] > 0.5, angle[pd[:, 9].astype(np.int64)], 0)
+    tpairs = pairs._replace(pair_data=jax.numpy.asarray(pd))
+    tcfg = dataclasses.replace(CFG, enable_vertex_tangents=True)
+    ch_pl = np.asarray(resolve_attributes_pallas(tpairs, vis_p, tcfg,
+                                                 interpret=True))
+    ch_ref = np.asarray(jax.jit(
+        lambda p, v: resolve_attributes_ref(p, v, tcfg))(tpairs, vis_p))
+    got = presolve.resolve_attributes(
+        interop.binned_pairs(_np_fields(tpairs), device="cpu"), pvis,
+        PConfig(**KW, enable_vertex_tangents=True)).numpy()
+    np.testing.assert_array_equal(got, ch_pl)
+    np.testing.assert_array_equal(got, ch_ref)
+    covered = np.asarray(vis_p) > 0
+    assert (got[5][covered] != 0).all() and not got[5][~covered].any()
+    plain = presolve.resolve_attributes(ppairs, pvis, PConfig(**KW)).numpy()
+    np.testing.assert_array_equal(np.delete(got, 5, 0), np.delete(plain, 5, 0))
 
 
 @pytest.fixture
@@ -116,7 +139,8 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-def test_cuda_resolve_matches_plain(cuda_device):
+@pytest.mark.parametrize("tangent", [False, True])
+def test_cuda_resolve_matches_plain(cuda_device, tangent):
     """K6 on the card vs the plain version, on a raster's own vis with
     the big list in use: every channel exact."""
     rng = np.random.default_rng(23)
@@ -124,11 +148,15 @@ def test_cuda_resolve_matches_plain(cuda_device):
     clip = torch.as_tensor(random_clip_triangles(rng, n).reshape(-1, 4),
                            device=cuda_device)
     cfg = PConfig(width=384, height=160, tile_h=32, tile_w=128,
-                  max_pairs=1 << 14, max_tiles_per_tri=4)
+                  max_pairs=1 << 14, max_tiles_per_tri=4,
+                  enable_vertex_tangents=tangent)
     idx = torch.arange(3 * n, dtype=torch.int32, device=cuda_device).view(n, 3)
     lanes, bbox, valid, _ = prs.triangle_setup_packed(
         clip, idx, torch.ones(n, dtype=torch.bool, device=cuda_device), cfg,
         None, None)
+    lanes[:, 27] = torch.where(lanes[:, 9] > 0.5, torch.as_tensor(
+        rng.uniform(-np.pi, 5 * np.pi, lanes.shape[0]).astype(np.float32),
+        device=cuda_device), 0.0)
     pairs = prs.bin_pairs(lanes, bbox, valid, cfg)
     assert int(pairs.big_count) > 0
     _, vis, fused = praster.raster_tiles(pairs, cfg)
