@@ -33,6 +33,11 @@ package's does.
 
 `raster_tiles` picks the implementation by the device of the pairs: CUDA
 tensors launch a kernel (or raise), CPU tensors run the plain version.
+On the card the plain, seeded and peel modes cut each tile's walk into
+spans (`span_queue` is the plain version of that work queue) that a
+persistent grid shares out, and keep the winner of each pixel as a 64-bit
+(depth, walk order) key (csrc/raster.cu); accum mode walks a tile in one
+block.
 
 Plane evaluation is the one numerical contract shared with the JAX
 reference: every plane is fma(a, px, b*py) + c, each step rounded to f32
@@ -58,6 +63,9 @@ from .raster_setup import SETUP_LANES, BinnedPairs, GroupBinnedPairs
 NUM_CHANNELS = 8
 _ATTR_CHANNELS = 5
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "raster.cu"
+# Walk rows in one work item of the kernels' split design (K2: walk
+# entries of SPAN_ROWS // group_rows groups).
+SPAN_ROWS = 256
 Init = Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
 Peel = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -387,17 +395,66 @@ def _mode(init, peel, accum: bool, tangent: bool = False) -> str:
     return base + "+tangent" if tangent else base
 
 
+def span_queue(tile_offsets: torch.Tensor, cap: int,
+               big_count: torch.Tensor, big_cap: int,
+               span: int) -> torch.Tensor:
+    """The work queue of the kernels' split design (plain version of
+    csrc/raster.cu::span_queue_kernel, which each split-design call runs
+    first): (tiles + 2,) i32, [0] the item counter (zero), then the
+    exclusive scan of each tile's spans, the last entry their total. Tile
+    t's walk is its own range [offs[t], offs[t+1]) clamped to `cap` (rows
+    for K1, (group, tile) pairs for K2), then the big list's
+    min(big_count, big_cap) rows or entries; it is cut into
+    ceil(walk / span) spans. Computed on the device of its inputs with no
+    host read."""
+    offs = tile_offsets.clamp(max=cap)
+    walk = (offs[1:] - offs[:-1]).clamp_(min=0)
+    walk += big_count.reshape(1).clamp(0, big_cap)
+    spans = torch.div(walk + (span - 1), span, rounding_mode="floor")
+    queue = torch.zeros(tile_offsets.shape[0] + 1, dtype=torch.int32,
+                        device=tile_offsets.device)
+    torch.cumsum(spans, 0, dtype=torch.int32, out=queue[2:])
+    return queue
+
+
+def span_queue_cuda(tile_offsets: torch.Tensor, cap: int,
+                    big_count: torch.Tensor, big_cap: int,
+                    span: int) -> torch.Tensor:
+    """`span_queue` by the raster library's one-block kernel (the first
+    launch of every split-design call), on the current stream."""
+    dev = tile_offsets.device
+    if dev.type != "cuda":
+        raise ValueError(f"span_queue_cuda needs CUDA tensors, got {dev}")
+    for name, x in (("tile_offsets", tile_offsets), ("big_count", big_count)):
+        if x.dtype != torch.int32 or x.device != dev or not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous i32 on {dev}")
+    queue = torch.empty(tile_offsets.shape[0] + 1, dtype=torch.int32,
+                        device=dev)
+    with torch.cuda.device(dev):
+        err = _kernel_fn("br_span_queue")(
+            tile_offsets.data_ptr(), cap, big_count.data_ptr(), big_cap, span,
+            tile_offsets.shape[0] - 1, queue.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"span queue kernel launch failed: CUDA error {err}")
+    return queue
+
+
 def _kernel_fn(name: str):
     """An entry point of the built library with its ctypes signature."""
     if name not in _fns:
         fn = getattr(cuda_build.load(SOURCE).lib, name)
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         if name == "br_raster_tiles":
-            fn.argtypes = [p, p, p, ll, p, p, p, p, i, i, p, p, p, i, i, i,
-                           i, i, p]
-        else:
+            fn.argtypes = [p, p, p, ll, p, p, p, p, i, i, p, i, p, p, p, p,
+                           i, i, i, i, i, p]
+        elif name == "br_raster_groups":
             fn.argtypes = [p, p, p, p, p, p, p, ll, i, i, i, p, p, p, p, i,
-                           i, p, p, p, i, i, i, i, i, p]
+                           i, p, i, p, p, p, p, i, i, i, i, i, p]
+        elif name == "br_span_queue":
+            fn.argtypes = [p, ll, p, ll, i, i, p, p]
+        else:
+            fn.argtypes = [i, i, i, i, ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return _fns[name]
@@ -408,12 +465,33 @@ def build_kernel() -> cuda_build.CudaLibrary:
     return cuda_build.load(SOURCE)
 
 
+def blocks_per_sm(kernel: str, mode: str, config: FrameConfig
+                  ) -> Tuple[int, int]:
+    """(resident blocks an SM, pixels a thread) of the instance that a
+    raster of `kernel` ("K1" or "K2") in `mode` (one of MODES) launches on
+    `config`'s tile grid: pass 1 of the split design, or accum mode's walk."""
+    ppt = ctypes.c_int(0)
+    n = _kernel_fn("br_raster_blocks_per_sm")(
+        int(kernel == "K2"), _MODE_CODE[mode.split("+")[0]],
+        config.tile_h * config.tile_w, config.num_tiles, ctypes.byref(ppt))
+    return n, ppt.value
+
+
 def _check_tensors(dev, named):
     for name, x in named:
         if x.device != dev:
             raise ValueError(f"{name} is on {x.device}, expected {dev}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _split_scratch(dev, config: FrameConfig):
+    """(work queue, key plane) scratch of a launch, which the split design
+    fills and accum mode ignores."""
+    queue = torch.empty(config.num_tiles + 2, dtype=torch.int32, device=dev)
+    keys = torch.empty((config.padded_height, config.padded_width),
+                       dtype=torch.int64, device=dev)
+    return queue, keys
 
 
 def _check_peel(dev, peel: Peel, config: FrameConfig) -> Tuple[int, int]:
@@ -463,8 +541,10 @@ def raster_tiles_cuda(pairs: BinnedPairs, config: FrameConfig,
     """Launch K1 on the current stream (no synchronisation), seeded from
     `init` when given, else in the mode of `peel` / `accum`, with the
     tangent channel under config.enable_vertex_tangents (as
-    `raster_tiles`). `raster_tiles_cuda.launches` counts the launches of
-    every mode, MODE_LAUNCHES each mode's."""
+    `raster_tiles`). The plain, seeded and peel modes launch four kernels
+    (work queue, key plane start, pass 1, resolve), accum mode one.
+    `raster_tiles_cuda.launches` counts the calls of every mode,
+    MODE_LAUNCHES each mode's."""
     pd, offs, big = pairs.pair_data, pairs.tile_offsets, pairs.big_count
     dev = pd.device
     if dev.type != "cuda":
@@ -473,6 +553,8 @@ def raster_tiles_cuda(pairs: BinnedPairs, config: FrameConfig,
     if pd.dtype != torch.float32 or pd.dim() != 2 or pd.shape[1] != SETUP_LANES:
         raise ValueError(f"pair_data must be (R, {SETUP_LANES}) f32, got "
                          f"{tuple(pd.shape)} {pd.dtype}")
+    if pd.data_ptr() % 16:
+        raise ValueError("pair_data must be 16-byte aligned")
     if offs.dtype != torch.int32 or offs.shape != (config.num_tiles + 1,):
         raise ValueError(f"tile_offsets must be ({config.num_tiles + 1},) "
                          f"i32, got {tuple(offs.shape)} {offs.dtype}")
@@ -490,9 +572,11 @@ def raster_tiles_cuda(pairs: BinnedPairs, config: FrameConfig,
                            device=dev)
     fn = _kernel_fn("br_raster_tiles")
     with torch.cuda.device(dev):
+        queue, keys = _split_scratch(dev, config)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(offs.data_ptr(), big.data_ptr(), pd.data_ptr(), pd.shape[0],
-                 *ptrs, _MODE_CODE[mode], int(tangent), depth.data_ptr(),
+                 *ptrs, _MODE_CODE[mode], int(tangent), queue.data_ptr(),
+                 SPAN_ROWS, keys.data_ptr(), depth.data_ptr(),
                  vis.data_ptr(), channels.data_ptr(), config.tiles_x,
                  config.tiles_y, config.tile_h, config.tile_w, int(tile_row0),
                  stream)
@@ -513,8 +597,9 @@ def raster_groups_cuda(pairs: GroupBinnedPairs, config: FrameConfig,
     """Launch K2 on the current stream (no synchronisation), seeded from
     `init` when given, else in the mode of `peel` / `accum`, with the
     tangent channel under config.enable_vertex_tangents (as
-    `raster_tiles`). `raster_groups_cuda.launches` counts the launches of
-    every mode, MODE_LAUNCHES each mode's."""
+    `raster_tiles`); its launches as `raster_tiles_cuda`'s.
+    `raster_groups_cuda.launches` counts the calls of every mode,
+    MODE_LAUNCHES each mode's."""
     lanes = pairs.lanes
     dev = lanes.device
     if dev.type != "cuda":
@@ -527,6 +612,8 @@ def raster_groups_cuda(pairs: GroupBinnedPairs, config: FrameConfig,
             or lanes.shape[1] != SETUP_LANES or lanes.shape[0] % GR):
         raise ValueError(f"lanes must be (NG*{GR}, {SETUP_LANES}) f32, got "
                          f"{tuple(lanes.shape)} {lanes.dtype}")
+    if lanes.data_ptr() % 16:
+        raise ValueError("lanes must be 16-byte aligned")
     ints = (("group_ids", pairs.group_ids), ("tile_offsets", pairs.tile_offsets),
             ("big_ids", pairs.big_ids), ("big_count", pairs.big_count),
             ("big_bx", pairs.big_bx), ("big_by", pairs.big_by))
@@ -549,13 +636,15 @@ def raster_groups_cuda(pairs: GroupBinnedPairs, config: FrameConfig,
                            device=dev)
     fn = _kernel_fn("br_raster_groups")
     with torch.cuda.device(dev):
+        queue, keys = _split_scratch(dev, config)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(pairs.tile_offsets.data_ptr(), pairs.group_ids.data_ptr(),
                  pairs.big_ids.data_ptr(), pairs.big_count.data_ptr(),
                  pairs.big_bx.data_ptr(), pairs.big_by.data_ptr(),
                  lanes.data_ptr(), lanes.shape[0] // GR, GR,
                  pairs.group_ids.shape[0], nbig, *ptrs,
-                 _MODE_CODE[mode], int(tangent), depth.data_ptr(),
+                 _MODE_CODE[mode], int(tangent), queue.data_ptr(),
+                 SPAN_ROWS // GR, keys.data_ptr(), depth.data_ptr(),
                  vis.data_ptr(), channels.data_ptr(), config.tiles_x,
                  config.tiles_y, config.tile_h, config.tile_w, int(tile_row0),
                  stream)

@@ -111,7 +111,6 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_RMSE_MAX = 6.0        # tests/test_goldens.py
-CHANNEL_RTOL = 1e-6          # raster kernels vs plain: vis and depth exact
 SHADE_RTOL, SHADE_ATOL = 1e-3, 1e-4   # K3 vs plain (tests/test_lighting.py)
 TEX_ATOL = 1e-3              # K4 vs plain, on the [0, 255] scale (RGBA8
 #                              and BC3: the same f32 operations, 0 expected)
@@ -475,15 +474,15 @@ def ptxas_summary(log):
     spill bytes; "cached" for a library built earlier."""
     import re
     out, name = [], None
-    # (raster_tiles_kernel<16,0>, ..., <8,0,tangent>: pixels per thread,
-    # mode, tangent channel.)
+    # (span_tiles_kernel<16,0>, accum_groups_kernel<4>, ...: pixels per
+    # thread, mode; resolve_kernel<16,tangent>: the tangent channel.)
     for ln in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for)"
                       r" '?(\w+)", ln)
         if m:
             mang = m.group(1)
             # The kernel's own name follows the source's namespace tag
-            # (..._raster_cu_<hash><length>raster_tiles_kernel...).
+            # (..._raster_cu_<hash><length>span_tiles_kernel...).
             k = re.search(r"([a-z][a-z_]*_kernel)", mang.split("_cu_")[-1])
             # Integer template arguments as numbers, the tangent flag
             # (a bool argument) as "tangent" when set.
@@ -558,19 +557,73 @@ def random_band(torch, np, seed, cfg, dev):
             torch.as_tensor(bound, device=dev))
 
 
+def tie_case(torch, np, dev, cfg):
+    """The split design's tie case at 512x512: 1024 random triangles, each
+    three times (itself; a coplanar twin with another id, combo, attribute
+    planes and tangent; a duplicate with another tangent), shuffled, so
+    that a tile's equal-z rows lie in different spans of its walk. Yields
+    (kernel, pairs, spans of the busiest tile) for K1 and K2; checks that
+    the busiest tile has more than 3 spans."""
+    from basicrenderer_tpu_torch.ops import raster, raster_setup
+    rng = np.random.default_rng(18)
+    lanes, bbox, valid = random_groups(torch, np, 18, 1024, cfg, dev)
+    rows = random_tangents(torch, np, lanes, 19).cpu().numpy()
+    n = rows.shape[0]
+    live = rows[:, 9] > 0.5
+    twin, dup = rows.copy(), rows.copy()
+    twin[:, 9] = np.where(live, rows[:, 9] + n, 0)
+    twin[:, 10] = np.where(live, rows[:, 10] + 7, 0)
+    twin[:, 15:28] = rng.normal(size=(n, 13)).astype(np.float32)
+    dup[:, 27] = np.where(live, rng.uniform(-np.pi, np.pi, n), 0)
+    perm = torch.as_tensor(rng.permutation(3 * n), device=dev)
+    rows = torch.as_tensor(np.concatenate([rows, twin, dup]), device=dev)[perm]
+    bbox, valid = torch.cat([bbox] * 3)[perm], torch.cat([valid] * 3)[perm]
+    for kname in ("K1", "K2"):
+        if kname == "K1":
+            prs_ = raster_setup.bin_pairs(rows, bbox, valid, cfg)
+            nr = prs_.pair_data.shape[0]
+            args = (prs_.tile_offsets, nr, prs_.big_count, nr,
+                    raster.SPAN_ROWS)
+        else:
+            prs_ = raster_setup.bin_groups(rows, bbox, valid, cfg)
+            args = (prs_.tile_offsets, prs_.group_ids.shape[0],
+                    prs_.big_count, prs_.big_ids.shape[0],
+                    raster.SPAN_ROWS // cfg.group_rows)
+        q = raster.span_queue(*args)
+        check(torch.equal(raster.span_queue_cuda(*args), q),
+              f"{kname} tie case: work queue kernel differs from span_queue")
+        spans = int((q[2:] - q[1:-1]).max())
+        check(spans > 3, f"{kname} tie case: busiest tile has {spans} spans")
+        yield kname, prs_, spans
+
+
+def launches_per_call(torch, fn):
+    """CUDA kernels one call of `fn` launches (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+
+
 # ---------------------------------------------------------------------------
 # Kernel-vs-plain comparisons
 # ---------------------------------------------------------------------------
 
 def compare_raster(torch, kernel_out, plain_out, label):
-    """Raster kernel vs plain: vis and depth exactly, channels within
-    CHANNEL_RTOL. Returns the max abs error over depth and channels."""
+    """Raster kernel vs plain: vis, depth and every channel exactly equal
+    (the same f32 operations). Returns the max abs error over depth and
+    channels (0)."""
     kd, kv, kch = kernel_out
     pd, pv, pch = plain_out
     nvis, ndepth = int((kv != pv).sum()), int((kd != pd).sum())
-    check(nvis == 0 and ndepth == 0,
-          f"{label}: kernel differs from plain on {nvis} vis / {ndepth} depth")
-    torch.testing.assert_close(kch, pch, rtol=CHANNEL_RTOL, atol=CHANNEL_RTOL)
+    nch = int((kch != pch).sum())
+    check(nvis == 0 and ndepth == 0 and nch == 0,
+          f"{label}: kernel differs from plain on {nvis} vis / {ndepth} "
+          f"depth / {nch} channel values")
     return max(float((kd - pd).abs().max()), float((kch - pch).abs().max()))
 
 
@@ -862,8 +915,20 @@ def main():
     reports = [f"{src.name}: {ptxas_summary(lib.build_log)}"
                for src, lib in libs.items()]
     PTXAS.extend(reports)
+    occupancy = []
+    for glabel, gcfg_ in (("1080p", FrameConfig(width=1920, height=1080,
+                                                tile_h=32, tile_w=128)),
+                          ("VSM page", FrameConfig(width=128, height=128,
+                                                   tile_h=32, tile_w=128))):
+        for kname in ("K1", "K2"):
+            for mname in ("plain", "peel", "accum"):
+                n_sm, ppt = raster.blocks_per_sm(kname, mname, gcfg_)
+                occupancy.append(f"{kname}-{mname} {glabel} {ppt} px/thread "
+                                 f"{n_sm} blocks/SM")
     say(f"phase 2 build: {len(libs)} libraries in {time.perf_counter() - t0:.2f}"
-        f" s | ptxas: {' || '.join(reports)}")
+        f" s | ptxas: {' || '.join(reports)} | raster instances launched "
+        f"(pass 1 of the split design; accum: the tile walk): "
+        + ", ".join(occupancy))
 
     # -- 3. kernels vs plain on the card -----------------------------------
     res = []
@@ -975,12 +1040,38 @@ def main():
     res.append(("K6-tangent random512", k6_check(
         torch, tpairs, k1_tvis, tcfg, "K6-tangent random512")))
     check(bool((k1_tch[5] != 0).any()), "random512: no tangent written")
+    # The split design's tie case: equal-z rows of one tile in different
+    # spans, from a seed.
+    ties = []
+    tie_cfg = dataclasses.replace(cfg512, max_tiles_per_tri=64,
+                                  max_pairs=1 << 18)
+    tie_tcfg = dataclasses.replace(tie_cfg, enable_vertex_tangents=True)
+    for kname, prs_, spans in tie_case(torch, np, dev, tie_cfg):
+        for mname, c_, kw in (("seeded", tie_cfg, dict(init=seed1)),
+                              ("seeded+tangent", tie_tcfg, dict(init=seed1)),
+                              ("plain", tie_cfg, {}),
+                              ("peel", tie_cfg, dict(peel=band))):
+            label = f"{kname}-{mname} ties512"
+            res.append((label, raster_mode_check(torch, prs_, c_, label,
+                                                 **kw)))
+        ties.append(f"{kname} busiest tile {spans} spans")
+    ties = ", ".join(ties) + (" (seeded, seeded+tangent, plain, peel exact;"
+                              " work queue kernel == span_queue)")
+    per_call = ", ".join(
+        f"{kname}-{mname} {launches_per_call(torch, lambda: fn(prs_, c_, **kw))}"
+        for kname, fn, prs_ in (("K1", raster.raster_tiles_cuda, tpairs),
+                                ("K2", raster.raster_groups_cuda, tgpairs))
+        for mname, c_, kw in (("plain", cfg512, {}),
+                              ("seeded", cfg512, dict(init=seed1)),
+                              ("peel+tangent", tcfg, dict(peel=band)),
+                              ("accum", cfg512, dict(peel=band, accum=True))))
     say("phase 3 kernels vs plain: " + "; ".join(f"{k} max_abs_err {e:.3g}"
                                                   for k, e in res)
-        + f" (K1/K2 vis, depth exact, channels rtol {CHANNEL_RTOL}; K3 rtol "
+        + f" (K1/K2 every mode: vis, depth and channels exact; K3 rtol "
         f"{SHADE_RTOL} atol {SHADE_ATOL}; K4 and K4-BC3 atol {TEX_ATOL} on "
-        f"0-255; K5 atol {WARP_ATOL}; K1/K2 peel, accum, seeded and "
-        "tangent modes and K6 every output exact)")
+        f"0-255; K5 atol {WARP_ATOL}; K6 every output exact) | K1/K2 split "
+        f"design tie case: {ties} | CUDA launches per raster call "
+        f"(torch.profiler): {per_call}")
 
     # -- 4. golden on the card ---------------------------------------------
     frame = build_frame_fn(gcfg)
@@ -2401,7 +2492,7 @@ def slice5_tangents(np, torch, dev, kernels, smi, yard):
         + f" | moving full + tangents 512x512, 4 frames, card vs CPU: vis "
         f"agreement {s_agree:.5f}, RMSE {s_rmse:.4f}, K5 {s_k5}, VSM pages "
         f"{s_pages}, CPU {s_ms / 1e3:.1f} s | registers: "
-        + registers(r"tangent") + f" | {smi}")
+        + registers(r"span_groups|resolve_groups") + f" | {smi}")
     return recs
 
 
@@ -2640,7 +2731,8 @@ def slice5_occlusion(np, torch, dev, kernels, smi, soup, yard):
         f"overflow {c_ovf}; K1 seeded on clustered rows {c_sms:.4f} ms (bound "
         f"{c_sb:.4f} {c_sby}, plain {c_splain:.0f} ms, max_abs_err "
         f"{c_serr:.3g}) | registers: "
-        + registers(r"raster_tiles_kernel<16,0>|tangent") + f" | {smi}")
+        + registers(r"span_tiles|resolve_tiles|resolve_kernel<16,tangent>")
+        + f" | {smi}")
     return recs
 
 
