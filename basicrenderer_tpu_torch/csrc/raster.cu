@@ -92,11 +92,27 @@
 // One call launches four kernels: the work queue (one block), the key
 // plane's start, pass 1 and the resolve.
 //
-// Accum mode keeps the first design (accum_*_kernel): one block a tile
-// (per pixel slice), each thread's pixels and their 8 sums in registers
-// for the whole walk, rows staged 128 at a time. Its sums are fused
-// multiply-adds in walk order; splitting the walk would change their
-// rounding.
+// Accum mode sums, it does not take a maximum: each pixel's 8 sums are
+// fused multiply-adds in walk order, and cutting the walk would change
+// their rounding. So a tile is cut by pixels, never by walk.
+// - K2 (accum_groups_kernel): one pixel a thread, a block a 256-pixel slice
+//   of a tile (16 blocks for a 32 x 128 tile; slice fastest in the grid,
+//   so the slices that read the same groups run together and the L2
+//   serves the repeats), each pixel's sums in registers for the tile's
+//   whole walk. The busiest tile's walk then runs on 16 SMs at once, and
+//   registers fall from 117 (4 pixels a thread) to what one pixel needs,
+//   so several blocks share an SM. The groups come through pass 1's
+//   double-buffered cp.async ring (stage_group_entries, the same kStage
+//   rows a stage): the walk is the same entry sequence, and the ring lets
+//   stage c+1 land while stage c is summed. What is the same for every
+//   pixel of a row is done once a stage by warp 0: the entry's box and the
+//   row's liveness and tile bbox tests, and the payload's byte decode and
+//   scaling (decode_payload). The live covering rows are compacted, in
+//   walk order (ballot and popc), to 64-byte records of planes and
+//   payload; each thread then evaluates only the three planes, the tests,
+//   the weight and the sums.
+// - K1 (accum_tiles_kernel) keeps the first design: one block a tile per
+//   pixel slice, 4 pixels a thread, rows staged 128 at a time.
 
 #include <cuda_runtime.h>
 
@@ -371,6 +387,27 @@ __device__ __forceinline__ long long entry_group(
   return clamp_group(big_ids[p], n_groups);
 }
 
+// K2 walk entries [c0, c0 + ne) of a tile into a ring stage: the whole
+// group behind each entry (own pair, then big entry), 16 B a thread and
+// copy. A big entry whose box misses the tile is not copied: its slot
+// keeps stale rows, and the walk skips the entry.
+__device__ __forceinline__ void stage_group_entries(
+    float4* dst, long long c0, int ne, long long start, long long own,
+    const int* group_ids, const int* big_ids, const int* big_bx,
+    const int* big_by, const float* lanes, long long n_groups,
+    int group_rows, int tx, int tyg) {
+  const int group_pieces = group_rows * kPieces;
+  for (int q = threadIdx.x; q < ne * group_pieces; q += kThreads) {
+    const int ei = q / group_pieces;
+    const long long g = entry_group(c0 + ei, start, own, group_ids, big_ids,
+                                    big_bx, big_by, n_groups, tx, tyg);
+    if (g < 0) continue;
+    cp_async16(dst + q, lanes + (g * group_rows) * kLanes +
+                            (q - ei * group_pieces) * 4);
+  }
+  cp_async_commit();
+}
+
 template <int PPT, int MODE>
 __global__ void __launch_bounds__(kThreads, 2)
 span_groups_kernel(int* __restrict__ queue,
@@ -393,7 +430,6 @@ span_groups_kernel(int* __restrict__ queue,
   const int width = tiles_x * tile_w;
   const long long nbig = max(0, min(big_count[0], n_big_cap));
   const int per_stage = kStage / group_rows;   // entries a stage
-  const int group_pieces = group_rows * kPieces;
   int tile, sp, slice;
   while (take_item(queue, tiles_x * tiles_y, slices, item, tile, sp, slice)) {
     const int ty = tile / tiles_x;
@@ -411,18 +447,9 @@ span_groups_kernel(int* __restrict__ queue,
     const float txf = (float)tx;
     const float tyf = (float)tyg;
     const int stages = (int)((e1 - e0 + per_stage - 1) / per_stage);
-    // Entries [c0, c0 + ne) into a ring stage, whole groups.
     auto stage = [&](float4* dst, long long c0, int ne) {
-      for (int q = threadIdx.x; q < ne * group_pieces; q += kThreads) {
-        const int ei = q / group_pieces;
-        const long long g =
-            entry_group(c0 + ei, start, own, group_ids, big_ids, big_bx,
-                        big_by, n_groups, tx, tyg);
-        if (g < 0) continue;
-        cp_async16(dst + q, lanes + (g * group_rows) * kLanes +
-                                (q - ei * group_pieces) * 4);
-      }
-      cp_async_commit();
+      stage_group_entries(dst, c0, ne, start, own, group_ids, big_ids, big_bx,
+                          big_by, lanes, n_groups, group_rows, tx, tyg);
     };
     stage(ring[0], e0, (int)min((long long)per_stage, e1 - e0));
     for (int c = 0; c < stages; ++c) {
@@ -610,8 +637,44 @@ __global__ void resolve_groups_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// Accum mode: the one-block-a-tile walk (sums in walk order).
+// Accum mode: the payload decode and band weight of both kernels, and K1's
+// one-block-a-tile walk (sums in walk order).
 // ---------------------------------------------------------------------------
+
+// A row's accum payload (lanes 28, 30, 31), by the JAX package's
+// floor-divide chain (exact: integers below 2^24), then scaled: v = (a, r,
+// g, b) / 255 and the three optical depths * 4 / 255.
+__device__ __forceinline__ void decode_payload(float p28, float p30,
+                                               float p31, float* v) {
+  const float hi = floorf(__fmul_rn(p30, kInv256));
+  const float a8 = __fsub_rn(p30, __fmul_rn(hi, 256.0f));
+  const float hi2 = floorf(__fmul_rn(hi, kInv256));
+  const float odr8 = __fsub_rn(hi, __fmul_rn(hi2, 256.0f));
+  const float c1 = floorf(__fmul_rn(p28, kInv256));
+  const float r8 = __fsub_rn(p28, __fmul_rn(c1, 256.0f));
+  const float b8 = floorf(__fmul_rn(c1, kInv256));
+  const float g8 = __fsub_rn(c1, __fmul_rn(b8, 256.0f));
+  v[0] = __fmul_rn(a8, kInv255);
+  v[1] = __fmul_rn(r8, kInv255);
+  v[2] = __fmul_rn(g8, kInv255);
+  v[3] = __fmul_rn(b8, kInv255);
+  v[4] = __fmul_rn(odr8, kFour255);
+  v[5] = __fmul_rn(hi2, kFour255);
+  v[6] = __fmul_rn(p31, kFour255);
+}
+
+// One fragment's depth-warp weight: u = clip((z - seed) / max(bound -
+// seed, 1e-6), 0, 1); w = u*u + 0.05 as one fma (XLA's CPU form of the
+// reference).
+__device__ __forceinline__ float band_weight(float z, float seed,
+                                             float bound) {
+  const float u = fminf(
+      fmaxf(__fdiv_rn(__fsub_rn(z, seed),
+                      fmaxf(__fsub_rn(bound, seed), 1e-6f)),
+            0.0f),
+      1.0f);
+  return __fmaf_rn(u, u, 0.05f);
+}
 
 template <int PPT>
 struct Sums {
@@ -628,25 +691,10 @@ __device__ __forceinline__ void accum_row(const float* r, Sums<PPT>& s,
   const float a0 = r[0], b0 = r[1], c0e = r[2];
   const float a1 = r[3], b1 = r[4], c1e = r[5];
   const float az = r[6], bz = r[7], cz = r[8];
-  // The payload bytes, by the JAX package's floor-divide chain (exact:
-  // integers below 2^24), then scaled.
-  const float p30 = r[30];
-  const float hi = floorf(__fmul_rn(p30, kInv256));
-  const float a8 = __fsub_rn(p30, __fmul_rn(hi, 256.0f));
-  const float hi2 = floorf(__fmul_rn(hi, kInv256));
-  const float odr8 = __fsub_rn(hi, __fmul_rn(hi2, 256.0f));
-  const float p28 = r[28];
-  const float c1 = floorf(__fmul_rn(p28, kInv256));
-  const float r8 = __fsub_rn(p28, __fmul_rn(c1, 256.0f));
-  const float b8 = floorf(__fmul_rn(c1, kInv256));
-  const float g8 = __fsub_rn(c1, __fmul_rn(b8, 256.0f));
-  const float va = __fmul_rn(a8, kInv255);
-  const float vr = __fmul_rn(r8, kInv255);
-  const float vg = __fmul_rn(g8, kInv255);
-  const float vb = __fmul_rn(b8, kInv255);
-  const float o0 = __fmul_rn(odr8, kFour255);
-  const float o1 = __fmul_rn(hi2, kFour255);
-  const float o2 = __fmul_rn(r[31], kFour255);
+  float v[7];
+  decode_payload(r[28], r[30], r[31], v);
+  const float va = v[0], vr = v[1], vg = v[2], vb = v[3];
+  const float o0 = v[4], o1 = v[5], o2 = v[6];
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
     const float e0 = plane(a0, b0, c0e, s.px[k], s.py[k]);
@@ -655,17 +703,7 @@ __device__ __forceinline__ void accum_row(const float* r, Sums<PPT>& s,
     const float z = plane(az, bz, cz, s.px[k], s.py[k]);
     if (!(e0 >= 0.0f && e1 >= 0.0f && e2 >= 0.0f && z > s.seed[k])) continue;
     if (banded && !(z < s.bound[k])) continue;
-    float w = 1.0f;
-    if (banded) {
-      // u = clip((z - seed) / max(bound - seed, 1e-6), 0, 1);
-      // w = u*u + 0.05 as one fma (XLA's CPU form of the reference).
-      const float u = fminf(
-          fmaxf(__fdiv_rn(__fsub_rn(z, s.seed[k]),
-                          fmaxf(__fsub_rn(s.bound[k], s.seed[k]), 1e-6f)),
-                0.0f),
-          1.0f);
-      w = __fmaf_rn(u, u, 0.05f);
-    }
+    const float w = banded ? band_weight(z, s.seed[k], s.bound[k]) : 1.0f;
     s.ch[0][k] = __fmaf_rn(w, va, s.ch[0][k]);
     s.ch[1][k] = __fmaf_rn(w, vr, s.ch[1][k]);
     s.ch[2][k] = __fmaf_rn(w, vg, s.ch[2][k]);
@@ -778,8 +816,51 @@ accum_tiles_kernel(const int* __restrict__ tile_offsets,
                   depth_out, vis_out, chan_out);
 }
 
-template <int PPT>
-__global__ void __launch_bounds__(kThreads, 1)
+// ---------------------------------------------------------------------------
+// Accum mode, K2: one pixel a thread, each row's uniform work once a block.
+// ---------------------------------------------------------------------------
+
+// A live row that covers the tile, as the pixels need it (4 float4s): its
+// edge and depth planes (lanes 0-8) and its decoded, scaled payload.
+__device__ __forceinline__ void accum_record(const float4* r, float4* rec) {
+  const float4 q2 = r[2], q7 = r[7];  // lanes 8-11; 28-31
+  float v[7];
+  decode_payload(q7.x, q7.z, q7.w, v);
+  rec[0] = r[0];
+  rec[1] = r[1];
+  rec[2] = make_float4(q2.x, v[0], v[1], v[2]);
+  rec[3] = make_float4(v[3], v[4], v[5], v[6]);
+}
+
+// One record's fragment at this thread's pixel into its 8 sums (accum_row's
+// operations for one pixel).
+__device__ __forceinline__ void accum_pixel(const float4* rec, float px,
+                                            float py, float seed, float bound,
+                                            bool banded, float* ch) {
+  const float4 q0 = rec[0], q1 = rec[1], q2 = rec[2], q3 = rec[3];
+  const float e0 = plane(q0.x, q0.y, q0.z, px, py);
+  const float e1 = plane(q0.w, q1.x, q1.y, px, py);
+  const float e2 = __fsub_rn(__fsub_rn(1.0f, e0), e1);
+  const float z = plane(q1.z, q1.w, q2.x, px, py);
+  if (!(e0 >= 0.0f && e1 >= 0.0f && e2 >= 0.0f && z > seed)) return;
+  if (banded && !(z < bound)) return;
+  const float w = banded ? band_weight(z, seed, bound) : 1.0f;
+  ch[0] = __fmaf_rn(w, q2.y, ch[0]);
+  ch[1] = __fmaf_rn(w, q2.z, ch[1]);
+  ch[2] = __fmaf_rn(w, q2.w, ch[2]);
+  ch[3] = __fmaf_rn(w, q3.x, ch[3]);
+  ch[4] = __fadd_rn(ch[4], q3.y);
+  ch[5] = __fadd_rn(ch[5], q3.z);
+  ch[6] = __fadd_rn(ch[6], q3.w);
+  ch[7] = __fadd_rn(ch[7], 1.0f);
+}
+
+// Block = (tile, 256-pixel slice), slice fastest; thread = pixel. The
+// tile's walk (own pairs, then big entries) goes through the ring in
+// stages of kStage rows; warp 0 compacts each stage to its live rows that
+// cover the tile, in walk order, as records; then every thread adds the
+// records' fragments to its pixel's sums.
+__global__ void __launch_bounds__(kThreads)
 accum_groups_kernel(const int* __restrict__ tile_offsets,
                     const int* __restrict__ group_ids,
                     const int* __restrict__ big_ids,
@@ -792,62 +873,95 @@ accum_groups_kernel(const int* __restrict__ tile_offsets,
                     const float* __restrict__ peel,
                     float* __restrict__ depth_out, int* __restrict__ vis_out,
                     float* __restrict__ chan_out, int tiles_x, int tiles_y,
-                    int tile_h, int tile_w, int tile_row0) {
-  __shared__ __align__(16) float rows[kAccumChunk * kLanes];
-  const int tile = blockIdx.x;
+                    int tile_h, int tile_w, int tile_row0, int slices) {
+  __shared__ float4 ring[2][kStage * kPieces];
+  __shared__ float4 recs[kStage][4];
+  __shared__ int n_live;
+  const int tile = blockIdx.x / slices;
+  const int slice = blockIdx.x - tile * slices;
   const int ty = tile / tiles_x;
   const int tx = tile - ty * tiles_x;
+  const int tyg = ty + tile_row0;
   const int npix = tile_h * tile_w;
-  const int pix0 = blockIdx.y * (PPT * kThreads);
   const int width = tiles_x * tile_w;
   const size_t plane_size = (size_t)width * (size_t)(tiles_y * tile_h);
-  Sums<PPT> s;
-  start_sums<PPT>(tx, ty, tile_row0, tile_w, tile_h, npix, pix0, width,
-                  depth0, peel, s);
-  const float txf = (float)tx;
-  const float tyf = (float)(ty + tile_row0);
+  const int p = slice * kThreads + threadIdx.x;
+  const bool in = p < npix;
+  const int y = p / tile_w;
+  const int x = p - y * tile_w;
+  const size_t o = (size_t)(ty * tile_h + y) * width + (tx * tile_w + x);
+  // Integer sums are exact in f32 below 2^24: the JAX package's centres.
+  const float px = (float)(tx * tile_w + x) + 0.5f;
+  const float py = (float)(tyg * tile_h + y) + 0.5f;
   const bool banded = peel != nullptr;
-  const int group_floats = group_rows * kLanes;
+  float seed = 0.0f, bound = 0.0f;
+  if (in && depth0 != nullptr) seed = depth0[o];
+  if (in && banded) bound = peel[o];
+  float ch[kAccumCh];
+#pragma unroll
+  for (int c = 0; c < kAccumCh; ++c) ch[c] = 0.0f;
 
-  // This tile's own (group, tile) pairs, kAccumChunk / group_rows groups a
-  // stage.
-  const int per_stage = kAccumChunk / group_rows;
-  const int start = min(tile_offsets[tile], n_pairs_cap);
-  const int end = min(tile_offsets[tile + 1], n_pairs_cap);
-  for (int p0 = start; p0 < end; p0 += per_stage) {
-    const int ng = min(per_stage, end - p0);
-    __syncthreads();  // the previous stage is consumed
-    for (int i = threadIdx.x; i < ng * group_floats; i += kThreads) {
-      const int gi = i / group_floats;
-      const long long g = clamp_group(group_ids[p0 + gi], n_groups);
-      rows[i] = lanes[g * group_floats + (i - gi * group_floats)];
+  const float txf = (float)tx;
+  const float tyf = (float)tyg;
+  const long long nbig = max(0, min(big_count[0], n_big_cap));
+  const long long start = min(tile_offsets[tile], n_pairs_cap);
+  const long long own =
+      max(0LL, (long long)min(tile_offsets[tile + 1], n_pairs_cap) - start);
+  const long long total = own + nbig;
+  const int per_stage = kStage / group_rows;   // entries a stage
+  const int stages = (int)((total + per_stage - 1) / per_stage);
+  auto stage = [&](float4* dst, long long c0) {
+    stage_group_entries(dst, c0, (int)min((long long)per_stage, total - c0),
+                        start, own, group_ids, big_ids, big_bx, big_by,
+                        lanes, n_groups, group_rows, tx, tyg);
+  };
+  if (stages > 0) stage(ring[0], 0);
+  const int lane = threadIdx.x & 31;
+  for (int c = 0; c < stages; ++c) {
+    const long long c0 = (long long)c * per_stage;
+    const int nrows = (int)min((long long)per_stage, total - c0) * group_rows;
+    if (c + 1 < stages) {
+      stage(ring[(c + 1) & 1], c0 + per_stage);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-    __syncthreads();
-    for (int j = 0; j < ng * group_rows; ++j) {
-      const float* r = rows + j * kLanes;
-      if (!row_covers(reinterpret_cast<const float4*>(r), txf, tyf)) continue;
-      accum_row<PPT>(r, s, banded);
+    __syncthreads();  // stage c has landed for every thread
+    if (threadIdx.x < 32) {
+      // Warp 0: the stage's rows in order, 32 at a time; a kept row's
+      // record goes to the count of kept rows before it.
+      const float4* rows = ring[c & 1];
+      int kept = 0;
+      for (int r0 = 0; r0 < nrows; r0 += 32) {
+        const int j = r0 + lane;
+        bool keep = false;
+        if (j < nrows) {
+          const long long e = c0 + j / group_rows;
+          const float4* r = rows + j * kPieces;
+          keep = (e < own ||
+                  box_covers(big_bx[e - own], big_by[e - own], tx, tyg)) &&
+                 r[2].y > 0.5f && row_covers(r, txf, tyf);
+        }
+        const unsigned m = __ballot_sync(0xFFFFFFFFu, keep);
+        if (keep)
+          accum_record(rows + j * kPieces,
+                       recs[kept + __popc(m & ((1u << lane) - 1u))]);
+        kept += __popc(m);
+      }
+      if (lane == 0) n_live = kept;
     }
+    __syncthreads();  // the stage's records are written
+    const int nl = n_live;
+    if (in)
+      for (int j = 0; j < nl; ++j)
+        accum_pixel(recs[j], px, py, seed, bound, banded, ch);
+    __syncthreads();  // records and stage c are consumed before a refill
   }
-
-  // The global big-group list: box test first, rows only on overlap.
-  const int nbig = min(big_count[0], n_big_cap);
-  const int tyg = ty + tile_row0;
-  for (int p = 0; p < nbig; ++p) {
-    if (!box_covers(big_bx[p], big_by[p], tx, tyg)) continue;
-    __syncthreads();
-    const long long g = clamp_group(big_ids[p], n_groups);
-    for (int i = threadIdx.x; i < group_floats; i += kThreads)
-      rows[i] = lanes[g * group_floats + i];
-    __syncthreads();
-    for (int j = 0; j < group_rows; ++j) {
-      const float* r = rows + j * kLanes;
-      if (!row_covers(reinterpret_cast<const float4*>(r), txf, tyf)) continue;
-      accum_row<PPT>(r, s, banded);
-    }
-  }
-  store_sums<PPT>(tx, ty, tile_w, tile_h, npix, pix0, width, plane_size, s,
-                  depth_out, vis_out, chan_out);
+  if (!in) return;
+  depth_out[o] = seed;
+  vis_out[o] = 0;
+#pragma unroll
+  for (int c = 0; c < kAccumCh; ++c) chan_out[c * plane_size + o] = ch[c];
 }
 
 // ---------------------------------------------------------------------------
@@ -1031,15 +1145,14 @@ extern "C" int br_raster_groups(
   const int tiles = tiles_x * tiles_y;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (mode == kAccum) {
-    const int ppt = pixels_per_thread(npix, kMaxPptAccum);
-    const dim3 grid(tiles, slices_of(npix, ppt));
-#define BR_ACCUM_GROUPS(P)                                                 \
-  accum_groups_kernel<P><<<grid, kThreads, 0, s>>>(                        \
-      tile_offsets, group_ids, big_ids, big_count, big_bx, big_by, lanes,  \
-      n_groups, group_rows, n_pairs_cap, n_big_cap, depth0, peel, depth,   \
-      vis, channels, tiles_x, tiles_y, tile_h, tile_w, tile_row0);
-    BR_ACCUM_DISPATCH(BR_ACCUM_GROUPS)
-#undef BR_ACCUM_GROUPS
+    const int slices = slices_of(npix, 1);
+    const long long blocks = (long long)tiles * slices;
+    if (blocks <= 0 || blocks > 0x7FFFFFFFLL)
+      return (int)cudaErrorInvalidValue;
+    accum_groups_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(
+        tile_offsets, group_ids, big_ids, big_count, big_bx, big_by, lanes,
+        n_groups, group_rows, n_pairs_cap, n_big_cap, depth0, peel, depth,
+        vis, channels, tiles_x, tiles_y, tile_h, tile_w, tile_row0, slices);
     return (int)cudaGetLastError();
   }
   if (queue == nullptr || keys == nullptr || span <= 0)
@@ -1097,11 +1210,12 @@ extern "C" int br_raster_blocks_per_sm(int kernel, int mode, int npix,
                                        int tiles, int* ppt_out) {
   int ppt = 0;
   int n = 0;
-  if (mode == kAccum) {
+  if (mode == kAccum && kernel) {
+    ppt = 1;
+    n = blocks_per_sm(accum_groups_kernel);
+  } else if (mode == kAccum) {
     ppt = pixels_per_thread(npix, kMaxPptAccum);
-#define BR_ACCUM_OCC(P)                              \
-  n = kernel ? blocks_per_sm(accum_groups_kernel<P>) \
-             : blocks_per_sm(accum_tiles_kernel<P>);
+#define BR_ACCUM_OCC(P) n = blocks_per_sm(accum_tiles_kernel<P>);
     BR_ACCUM_DISPATCH(BR_ACCUM_OCC)
 #undef BR_ACCUM_OCC
   } else if (mode == kPlain || mode == kPeel) {

@@ -11,6 +11,10 @@ tile. Directional lights stay in the full-screen pass (ops/shade.py).
 
 `tiled_shade` picks the implementation by the device of its inputs: CUDA
 tensors launch the kernel (or raise), CPU tensors run the plain version.
+On the card one thread shades one pixel and a block a 256-pixel slice of a
+tile; a warp of 32 pixels (row-major within the tile) none of which is
+valid writes +0.0 without walking the lights, which is what the plain
+version gives there (see csrc/tiled_shade.cu).
 """
 
 from __future__ import annotations
@@ -218,18 +222,26 @@ def tiled_shade_plain(shade_in: torch.Tensor, payload: torch.Tensor,
         2, 0, 3, 1, 4).reshape(3, tiles_y * th, tiles_x * tw)
 
 
-_shade_fn = None
+_fns = {}
 
 
-def _kernel_fn():
-    global _shade_fn
-    if _shade_fn is None:
-        fn = cuda_build.load(SOURCE).lib.br_tiled_shade
+def _kernel_fn(name: str = "br_tiled_shade"):
+    """An entry point of the built library with its ctypes signature."""
+    if name not in _fns:
+        fn = getattr(cuda_build.load(SOURCE).lib, name)
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+        fn.argtypes = ([p, p, p, p, p, i, i, i, i, i, p]
+                       if name == "br_tiled_shade" else [i])
         fn.restype = ctypes.c_int
-        _shade_fn = fn
-    return _shade_fn
+        _fns[name] = fn
+    return _fns[name]
+
+
+def blocks_per_sm(config: FrameConfig) -> int:
+    """Resident blocks an SM of the kernel at `config`'s light slots a
+    tile (256 threads, one pixel each)."""
+    return _kernel_fn("br_tiled_shade_blocks_per_sm")(
+        config.max_lights_per_cluster)
 
 
 def tiled_shade_cuda(shade_in: torch.Tensor, payload: torch.Tensor,

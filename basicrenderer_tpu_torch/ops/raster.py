@@ -36,8 +36,10 @@ tensors launch a kernel (or raise), CPU tensors run the plain version.
 On the card the plain, seeded and peel modes cut each tile's walk into
 spans (`span_queue` is the plain version of that work queue) that a
 persistent grid shares out, and keep the winner of each pixel as a 64-bit
-(depth, walk order) key (csrc/raster.cu); accum mode walks a tile in one
-block.
+(depth, walk order) key (csrc/raster.cu). Accum mode's sums keep walk
+order, so a tile is cut by pixels instead: K2 one pixel a thread, the
+rows' common work (tests, payload decode) once a block; K1 a block per
+tile slice at 4 pixels a thread.
 
 Plane evaluation is the one numerical contract shared with the JAX
 reference: every plane is fma(a, px, b*py) + c, each step rounded to f32
@@ -597,7 +599,8 @@ def raster_groups_cuda(pairs: GroupBinnedPairs, config: FrameConfig,
     """Launch K2 on the current stream (no synchronisation), seeded from
     `init` when given, else in the mode of `peel` / `accum`, with the
     tangent channel under config.enable_vertex_tangents (as
-    `raster_tiles`); its launches as `raster_tiles_cuda`'s.
+    `raster_tiles`); its launches as `raster_tiles_cuda`'s (accum mode:
+    one kernel, a block per 256-pixel slice of a tile).
     `raster_groups_cuda.launches` counts the calls of every mode,
     MODE_LAUNCHES each mode's."""
     lanes = pairs.lanes

@@ -10,10 +10,15 @@ NVIDIA GPU (written for an H100).
 
 Run from the root of a checkout. Phases, one line each:
  1. the card and toolchain;
- 2. one build of every kernel (one nvcc per source, all started together);
+ 2. one build of every kernel (one nvcc per source, all started together),
+    each instance's registers, and the blocks an SM that each K1/K2 mode
+    and K3 launch;
  3. every kernel against its plain PyTorch version on the card, on small
     inputs: K1 and K2 (plain and seeded) exact on vis and depth, K3 and K4
-    within their tolerances, K4's BC3 mode on random BC3 windows and on
+    within their tolerances (K3 on the rig's frame and on a 1024x500 case
+    with tiles at 64 and 0 lights, point and spot, warps with no valid
+    pixel and warps with some: its largest ulp distance, and +0.0 at every
+    invalid pixel), K4's BC3 mode on random BC3 windows and on
     the windows of a BC3-textured 512x512 frame, K5 (the TAA history
     warp) exact on random history at 64x256 and 1088x1920 with shifts
     past the clip limits, K1's and K2's peel and accum modes and K6 (the
@@ -21,7 +26,9 @@ Run from the root of a checkout. Phases, one line each:
     depth, peel bound and accum payload; K1's seeded mode, the tangent
     instances of K1's and K2's plain, seeded and peel modes and K6's
     tangent mode exact on a random 512x512 scene with a random tangent
-    angle per triangle;
+    angle per triangle; K2's accum mode on a skewed scene (one tile's walk
+    ~6,000 rows over half the tile) at group_rows 8 and 32, its banded
+    launch also timed alone, and on the tie case;
  4. the 128x128 golden scene against tests/goldens/basic_deferred.png and
     against the port on the CPU; the flagship frame of
     __graft_entry__.entry() (256x128) against the port on the CPU; the
@@ -44,7 +51,9 @@ Run from the root of a checkout. Phases, one line each:
     config1_minimal (two-phase HZB occlusion, clustered lights, alpha-MASK
     pass) over the dense LOD courtyard with 1000 point lights, timed with
     per-stage CUDA events; K2, K3 and K4 timed alone against their plain
-    versions on the frame's own inputs;
+    versions on the frame's own inputs; K3's lights per tile, the share of
+    warp-light iterations its warp skip saves, its light loop's SASS
+    instructions (cuobjdump) and the issue-rate floor they give;
  8. slice 3 at full size: bench.py's config4_post (GTAO, bloom, TAA,
     auto-exposure, SSR over the config1_minimal base) over the same
     courtyard, the camera orbiting a small angle per frame through
@@ -70,7 +79,8 @@ Run from the root of a checkout. Phases, one line each:
     CUDA events (the OIT stages and the second mask peel); launches per
     frame of every K1/K2 mode; the transparent cut, the OIT pairs and
     the overflow; K2's peel and accum launches of one captured frame
-    checked and timed alone against their bounds and plain versions;
+    checked and timed alone against their bounds (operations and bytes)
+    and plain versions, with the accum launch's rows walked per tile;
     K1's peel and accum modes and K6 timed on that frame's transparent
     rows binned per triangle (K6 against K1's fused channels); then a
     few frames with group_binning=False and no occlusion, the frame path
@@ -209,6 +219,14 @@ def host_ms(torch, fn):
     out = fn()
     torch.cuda.synchronize()
     return out, (time.perf_counter() - t0) * 1e3
+
+
+def sm_clock_mhz():
+    """The card's maximum SM clock in MHz (nvidia-smi)."""
+    return int(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+         "nounits", "-i", "0"], capture_output=True, text=True,
+        check=True).stdout.strip())
 
 
 def reset_launches(kernels):
@@ -558,16 +576,18 @@ def random_band(torch, np, seed, cfg, dev):
 
 
 def tie_case(torch, np, dev, cfg):
-    """The split design's tie case at 512x512: 1024 random triangles, each
-    three times (itself; a coplanar twin with another id, combo, attribute
-    planes and tangent; a duplicate with another tangent), shuffled, so
-    that a tile's equal-z rows lie in different spans of its walk. Yields
+    """The split design's tie case at 512x512: 1024 random triangles with
+    random accum payload bytes, each three times (itself; a coplanar twin
+    with another id, combo, attribute planes and tangent; a duplicate with
+    another tangent), shuffled, so that a tile's equal-z rows lie in
+    different spans of its walk. Yields
     (kernel, pairs, spans of the busiest tile) for K1 and K2; checks that
     the busiest tile has more than 3 spans."""
     from basicrenderer_tpu_torch.ops import raster, raster_setup
     rng = np.random.default_rng(18)
     lanes, bbox, valid = random_groups(torch, np, 18, 1024, cfg, dev)
-    rows = random_tangents(torch, np, lanes, 19).cpu().numpy()
+    rows = random_payload(torch, np, random_tangents(torch, np, lanes, 19),
+                          20).cpu().numpy()
     n = rows.shape[0]
     live = rows[:, 9] > 0.5
     twin, dup = rows.copy(), rows.copy()
@@ -678,7 +698,19 @@ def k6_check(torch, pairs, vis, cfg, label):
                       label)
 
 
+def max_ulp(torch, a, b):
+    """The largest distance in units in the last place between two f32
+    tensors of one shape (+0 and -0 at distance 0)."""
+    def ordered(x):
+        i = x.contiguous().view(torch.int32).long()
+        return torch.where(i >= 0, i, -(i & 0x7FFFFFFF))
+    return int((ordered(a) - ordered(b)).abs().max()) if a.numel() else 0
+
+
 def k3_check(torch, args, label):
+    """K3 vs its plain version: within SHADE_RTOL / SHADE_ATOL, and +0.0
+    exactly (sign bit included) at every pixel with valid == 0, as the
+    kernel's warp skip writes. Returns (max abs err, max ulp)."""
     from basicrenderer_tpu_torch.ops import lighting
     k = lighting.tiled_shade_cuda(*args)
     p = lighting.tiled_shade_plain(*args)
@@ -686,7 +718,169 @@ def k3_check(torch, args, label):
         torch.testing.assert_close(k, p, rtol=SHADE_RTOL, atol=SHADE_ATOL)
     except AssertionError as e:
         raise CheckFailed(f"{label}: tiled shade kernel vs plain: {e}")
-    return float((k - p).abs().max())
+    inv = args[0][11] == 0
+    nz = int((k.view(torch.int32)[:, inv] != 0).sum())
+    check(nz == 0, f"{label}: {nz} values at valid == 0 pixels are not +0.0")
+    return float((k - p).abs().max()), max_ulp(torch, k, p)
+
+
+def k3_case(torch, np, dev):
+    """Phase 3's K3 case: tiled_shade arguments of a 1024x500 frame (tiles
+    32x128, padded to 512 rows, 64 light slots a tile) with random G-buffer
+    planes; light slots alternate point and spot lights; tile 0 walks all
+    64, tile 1 none, the others 1-64 (dead slots with intensity 0, as the
+    cull leaves them); sky rows (whole invalid warps), rows invalid on
+    every other lane (partly valid warps), one invalid warp inside a tile,
+    scattered invalid pixels and the zero pad rows."""
+    from basicrenderer_tpu_torch.graph.framedata import FrameConfig
+    rng = np.random.default_rng(23)
+    cfg = FrameConfig(width=1024, height=500, tile_h=32, tile_w=128)
+    H, W = cfg.padded_height, cfg.padded_width
+    n = rng.normal(size=(3, H, W))
+    n /= np.linalg.norm(n, axis=0, keepdims=True)
+    valid = (rng.uniform(0, 1, (H, W)) > 0.1).astype(np.float32)
+    valid[0:6] = 0.0
+    valid[6:12, ::2] = 0.0
+    valid[40:44, 300:332] = 0.0
+    shade_in = np.concatenate([
+        n, rng.uniform(0, 1, (3, H, W)), rng.uniform(0, 1, (1, H, W)),
+        rng.uniform(0.05, 1, (1, H, W)), rng.uniform(-6, 6, (3, H, W)),
+        valid[None]]).astype(np.float32)
+    shade_in[:, cfg.height:] = 0.0
+    nt, mx = cfg.num_tiles, cfg.max_lights_per_cluster
+    lights = np.zeros((nt, mx, 16), np.float32)
+    lights[..., 0:3] = rng.uniform(-6, 6, (nt, mx, 3))
+    lights[..., 3] = np.where(np.arange(mx) % 2 == 0, 1.0, 2.0)
+    d = rng.normal(size=(nt, mx, 3))
+    lights[..., 4:7] = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    lights[..., 7] = rng.uniform(1, 10, (nt, mx))
+    lights[..., 8:11] = rng.uniform(0.2, 1, (nt, mx, 3))
+    lights[..., 11] = rng.uniform(2, 8, (nt, mx))
+    lights[..., 12] = np.cos(0.3)
+    lights[..., 13] = np.cos(0.9)
+    counts = rng.integers(1, mx + 1, nt).astype(np.int32)
+    counts[0], counts[1] = mx, 0
+    for t in range(nt):
+        lights[t, counts[t]:, 7] = 0.0
+    return (torch.as_tensor(shade_in, device=dev),
+            torch.as_tensor(lights, device=dev),
+            torch.as_tensor(counts, device=dev),
+            torch.tensor([3.0, 2.0, 4.0], device=dev), cfg)
+
+
+def warp_light_share(torch, args):
+    """(warp-light iterations of a K3 launch, those its warp skip saves):
+    a warp of 32 pixels (row-major within its tile) walks its tile's
+    lights unless none of its pixels is valid."""
+    shade_in, counts, cfg = args[0], args[2], args[4]
+    th, tw = cfg.tile_h, cfg.tile_w
+    v = shade_in[11].reshape(cfg.tiles_y, th, cfg.tiles_x, tw).permute(
+        0, 2, 1, 3).reshape(cfg.num_tiles, -1, 32)
+    n = counts.long().clamp(0, cfg.max_lights_per_cluster)
+    skipped = (~(v != 0).any(-1)).sum(1)
+    return int((n * v.shape[1]).sum()), int((n * skipped).sum())
+
+
+def sass_loop(lib_path, kernel):
+    """The light loop of `kernel` in `cuobjdump --dump-sass` of the library
+    at `lib_path`: the span from the target of a predicated backward branch
+    (a not unrolled loop's latch) to that branch, the largest such span.
+    Returns (instructions in the span, instructions issued by one trip on
+    the common path, all the kernel's instructions, the span's opcodes by
+    count). The common path takes every forward branch whose skipped
+    instructions hold a CALL (the IEEE divide's and square root's slow
+    paths, and the spot-light block, whose divide has one) and no other:
+    a point light's iteration with no slow path taken."""
+    import collections
+    import re
+    from basicrenderer_tpu_torch.utils import cuda_build
+    tool = os.path.join(os.path.dirname(cuda_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "--dump-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True).stdout
+    funcs = [f for f in re.split(r"\n\s*Function : ", sass)[1:]
+             if kernel in f.splitlines()[0]]
+    check(len(funcs) == 1, f"{kernel}: {len(funcs)} functions in the SASS")
+    ins = [(int(a, 16), t.strip()) for a, t in
+           re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", funcs[0])]
+    branch = re.compile(r"(@!?U?P\w+\s+)?BRA(?:\.\w+)*\s+`?\(?0x([0-9a-f]+)")
+    best = None
+    for addr, text in ins:
+        m = branch.match(text)
+        if m and m.group(1) and int(m.group(2), 16) < addr:
+            span = (int(m.group(2), 16), addr)
+            if best is None or span[1] - span[0] > best[1] - best[0]:
+                best = span
+    check(best is not None, f"{kernel}: no loop in the SASS")
+    body = [(a, t) for a, t in ins if best[0] <= a <= best[1]]
+    at = {a: i for i, (a, _) in enumerate(body)}
+    issued, i = 0, 0
+    while i < len(body):
+        addr, text = body[i]
+        issued += 1
+        m = branch.match(text)
+        if m and int(m.group(2), 16) > addr:
+            target = int(m.group(2), 16)
+            skipped = [t for a, t in body if addr < a < target]
+            if not m.group(1) or any(t.split()[0].startswith("CALL")
+                                     for t in skipped):
+                check(target in at, f"{kernel}: a branch leaves the loop")
+                i = at[target]
+                continue
+        i += 1
+    ops = collections.Counter(
+        re.sub(r"^@!?U?P\w+\s+", "", t).split()[0].split(".")[0]
+        for _, t in body)
+    return len(body), issued, len(ins), ops
+
+
+def rows_per_tile(torch, raster, pairs, cfg):
+    """Rows each tile's K2 walk evaluates (after the bbox tests), as a
+    (tiles,) tensor."""
+    offs = raster.expand_group_pairs(pairs, cfg)[1].long()
+    return offs[1:] - offs[:-1]
+
+
+def skew_case(torch, np, dev, cfg, seed):
+    """Phase 3's skewed accum scene: 6144 small front-facing triangles
+    inside the left half of the first 32x128 tile, then 1024 random ones
+    below it, set up by the port with random payload bytes and
+    group-binned at cfg.group_rows."""
+    from basicrenderer_tpu_torch.ops import raster_setup
+    rng = np.random.default_rng(seed)
+    busy, rest = 6144, 1024
+    w = rng.uniform(2.0, 10.0, size=(busy + rest, 3, 1))
+    x0, y0 = -1.0 + 2.0 * 64 / cfg.width, 1.0 - 2.0 * cfg.tile_h / cfg.height
+    c = np.stack([rng.uniform(-0.99, x0, busy),
+                  rng.uniform(y0, 0.99, busy)], -1)[:, None, :]
+    xy_busy = np.clip(c + rng.uniform(-0.03, 0.03, (busy, 3, 2)),
+                      [-0.995, y0 + 0.005], [x0 - 0.005, 0.995])
+    xy_rest = np.stack([rng.uniform(-0.9, 0.9, (rest, 3)),
+                        rng.uniform(-0.9, y0 - 0.1, (rest, 3))], -1)
+    xy = np.concatenate([xy_busy, xy_rest])
+    e1, e2 = xy[:, 1] - xy[:, 0], xy[:, 2] - xy[:, 0]
+    cw = e1[:, 0] * e2[:, 1] - e1[:, 1] * e2[:, 0] < 0
+    xy[cw] = xy[cw][:, [0, 2, 1]]
+    z = rng.uniform(0.05, 0.95, size=(busy + rest, 3, 1))
+    clip = torch.as_tensor(np.concatenate([xy * w, z * w, w], -1)
+                           .astype(np.float32).reshape(-1, 4), device=dev)
+    n = busy + rest
+    idx = torch.arange(3 * n, dtype=torch.int32, device=dev).view(n, 3)
+    lanes, bbox, valid, _ = raster_setup.triangle_setup_packed(
+        clip, idx, torch.ones(n, dtype=torch.bool, device=dev), cfg,
+        None, None)
+    lanes = random_payload(torch, np, lanes, seed + 1)
+    return raster_setup.bin_groups(lanes, bbox, valid, cfg)
+
+
+def skew_launch(torch, np, dev, group_rows):
+    """Phase 3's skewed K2 accum launch at `group_rows`: (pairs, cfg,
+    peel band), the band that of phase 3's random 512x512 scenes."""
+    import dataclasses
+    from basicrenderer_tpu_torch.graph.framedata import FrameConfig
+    cfg512 = FrameConfig(**CFG512)
+    scfg = dataclasses.replace(cfg512, group_rows=group_rows)
+    return (skew_case(torch, np, dev, scfg, 24 + group_rows), scfg,
+            random_band(torch, np, 15, cfg512, dev))
 
 
 def k4_check(torch, args, label, bc3=False):
@@ -925,10 +1119,13 @@ def main():
                 n_sm, ppt = raster.blocks_per_sm(kname, mname, gcfg_)
                 occupancy.append(f"{kname}-{mname} {glabel} {ppt} px/thread "
                                  f"{n_sm} blocks/SM")
+    k3_occ = lighting.blocks_per_sm(FrameConfig(width=1920, height=1080,
+                                                tile_h=32, tile_w=128))
     say(f"phase 2 build: {len(libs)} libraries in {time.perf_counter() - t0:.2f}"
         f" s | ptxas: {' || '.join(reports)} | raster instances launched "
-        f"(pass 1 of the split design; accum: the tile walk): "
-        + ", ".join(occupancy))
+        f"(pass 1 of the split design; accum: K2 one pixel a thread, K1 the "
+        f"tile walk): " + ", ".join(occupancy) + f" | K3 tiled_shade_kernel "
+        f"1 px/thread {k3_occ} blocks/SM at 64 light slots")
 
     # -- 3. kernels vs plain on the card -----------------------------------
     res = []
@@ -939,9 +1136,7 @@ def main():
         res.append((f"K1 random{seed}", k1_check(
             torch, raster_setup.bin_pairs(lanes, bbox, valid, cfg), cfg,
             f"K1 random seed {seed}")))
-    cfg512 = FrameConfig(width=512, height=512, tile_h=32, tile_w=128,
-                         max_pairs=1 << 16, max_tiles_per_tri=8,
-                         max_tiles_per_group=4, max_group_pairs=1 << 13)
+    cfg512 = FrameConfig(**CFG512)
     lanes, bbox, valid = random_groups(torch, np, 9, 3008, cfg512, dev)
     pairs = raster_setup.bin_pairs(lanes, bbox, valid, cfg512)
     check(int(pairs.big_count) > 0, "512x512 scene has no big triangles")
@@ -977,7 +1172,16 @@ def main():
     res.append(("K2 rig", k2_check(torch, rig_pairs, rcfg, "K2 rig")))
     res.append(("K2 seeded rig", k2_check(torch, rig_pairs, rcfg, "K2 seeded rig",
                                           init=rc.calls[1][3])))
-    res.append(("K3 rig", k3_check(torch, lc.calls[0][1], "K3 rig")))
+    k3_err, k3_ulp = k3_check(torch, lc.calls[0][1], "K3 rig")
+    res.append(("K3 rig", k3_err))
+    k3_args = k3_case(torch, np, dev)
+    k3_err, k3_case_ulp = k3_check(torch, k3_args, "K3 case")
+    res.append(("K3 case", k3_err))
+    k3_all, k3_skip = warp_light_share(torch, k3_args)
+    k3_line = (f"K3 max ulp vs plain: rig {k3_ulp}, case {k3_case_ulp} (case "
+               f"1024x500: tiles at 64 and 0 lights, point and spot; "
+               f"{k3_skip} of {k3_all} warp-light iterations skipped; every "
+               f"valid == 0 pixel +0.0)")
     res.append(("K4 rig", k4_check(torch, tc.calls[0][1], "K4 rig")))
     res.append(("K4-BC3 random", k4_check(
         torch, random_bc3_windows(torch, np, 11, dev), "K4-BC3 random",
@@ -1018,6 +1222,31 @@ def main():
     _, k1_vis, _ = raster.raster_tiles_cuda(mpairs, cfg512)
     res.append(("K6 random512", k6_check(torch, mpairs, k1_vis, cfg512,
                                          "K6 random512")))
+    # K2's accum mode on a skewed scene: one tile's walk thousands of rows
+    # long over half the tile, at group_rows 8 and the frames' 32; the
+    # banded launch also timed alone (the tile's walk under load, where the
+    # captured frame's launch walks few rows).
+    skews = []
+    for gr in (8, 32):
+        spairs, scfg, _ = skew_launch(torch, np, dev, gr)
+        walk = rows_per_tile(torch, raster, spairs, scfg)
+        check(int(walk[0]) >= 5000 and int(walk[0]) > 4 * int(walk[1:].max()),
+              f"skew case (group_rows {gr}): rows per tile {walk.tolist()}")
+        for mname, kw in (("accum", dict(peel=band, accum=True)),
+                          ("accum unbanded", dict(peel=None, accum=True))):
+            label = f"K2-{mname} skew512 gr{gr}"
+            res.append((label, raster_mode_check(torch, spairs, scfg, label,
+                                                 **kw)))
+        s_out = raster.raster_groups_cuda(spairs, scfg, 0, None, band, True)
+        s_ms = cuda_ms(torch, lambda: raster.raster_groups_cuda(
+            spairs, scfg, 0, None, band, True), 20)
+        s_b, s_by, s_walked, s_ops, s_bytes = mode_bound(
+            torch, raster, spairs, scfg, True, s_out)
+        skews.append(f"group_rows {gr}: busiest tile {int(walk[0])} rows, "
+                     f"next {int(walk[1:].max())}, rows walked {s_walked}, "
+                     f"fragments {int(s_out[2][7].sum())}, banded launch "
+                     f"{s_ms:.4f} ms (bound {s_b:.4f} {s_by}: operations "
+                     f"{s_ops:.4f}, bytes {s_bytes:.4f})")
     # K1 seeded, and the tangent instances of the plain, seeded and peel
     # modes of both kernels, on the same scene with a random tangent angle
     # per triangle in lane 27 and a seed with random channels 5-7; then K6
@@ -1050,13 +1279,15 @@ def main():
         for mname, c_, kw in (("seeded", tie_cfg, dict(init=seed1)),
                               ("seeded+tangent", tie_tcfg, dict(init=seed1)),
                               ("plain", tie_cfg, {}),
-                              ("peel", tie_cfg, dict(peel=band))):
+                              ("peel", tie_cfg, dict(peel=band)),
+                              ("accum", tie_cfg, dict(peel=band,
+                                                      accum=True))):
             label = f"{kname}-{mname} ties512"
             res.append((label, raster_mode_check(torch, prs_, c_, label,
                                                  **kw)))
         ties.append(f"{kname} busiest tile {spans} spans")
-    ties = ", ".join(ties) + (" (seeded, seeded+tangent, plain, peel exact;"
-                              " work queue kernel == span_queue)")
+    ties = ", ".join(ties) + (" (seeded, seeded+tangent, plain, peel, accum"
+                              " exact; work queue kernel == span_queue)")
     per_call = ", ".join(
         f"{kname}-{mname} {launches_per_call(torch, lambda: fn(prs_, c_, **kw))}"
         for kname, fn, prs_ in (("K1", raster.raster_tiles_cuda, tpairs),
@@ -1070,8 +1301,9 @@ def main():
         + f" (K1/K2 every mode: vis, depth and channels exact; K3 rtol "
         f"{SHADE_RTOL} atol {SHADE_ATOL}; K4 and K4-BC3 atol {TEX_ATOL} on "
         f"0-255; K5 atol {WARP_ATOL}; K6 every output exact) | K1/K2 split "
-        f"design tie case: {ties} | CUDA launches per raster call "
-        f"(torch.profiler): {per_call}")
+        f"design tie case: {ties} | K2-accum skew case: {'; '.join(skews)} "
+        f"| {k3_line} | CUDA launches per raster call (torch.profiler): "
+        f"{per_call}")
 
     # -- 4. golden on the card ---------------------------------------------
     frame = build_frame_fn(gcfg)
@@ -1287,6 +1519,9 @@ def slice1(np, torch, dev, kernels, soup):
         "library_ms": None}}
 
 
+CFG512 = dict(width=512, height=512, tile_h=32, tile_w=128,   # phase 3
+              max_pairs=1 << 16, max_tiles_per_tri=8, max_tiles_per_group=4,
+              max_group_pairs=1 << 13)
 CONFIG1_MINIMAL = dict(width=1920, height=1080, tile_h=32, tile_w=128,
                        max_pairs=1 << 18, max_tiles_per_tri=8,
                        enable_clod=True, max_visible_clusters=3072,
@@ -1324,6 +1559,7 @@ def slice2(np, torch, dev, kernels, smi, yard, profile=False):
                                                          FrameParams, make_view)
     from basicrenderer_tpu_torch.graph.temporal import TemporalState
     from basicrenderer_tpu_torch.ops import clod, lighting, raster, textures
+    from basicrenderer_tpu_torch.utils import cuda_build
     built, bridge, buf, setup_s = yard
     view = make_view(*built.scene.camera_matrices(aspect=16 / 9), device=dev)
     params = FrameParams.default(dev)
@@ -1401,7 +1637,7 @@ def slice2(np, torch, dev, kernels, smi, yard, profile=False):
     a3 = lc.calls[0][1]
     k3_ms = cuda_ms(torch, lambda: lighting.tiled_shade_cuda(*a3), reps)
     _, k3_plain = host_ms(torch, lambda: lighting.tiled_shade_plain(*a3))
-    k3_err = k3_check(torch, a3, "K3 1080p")
+    k3_err, k3_ulp = k3_check(torch, a3, "K3 1080p")
     shade_in, payload, counts = a3[0], a3[1], a3[2]
     pix_lights = int(counts.long().sum()) * npix
     hw = shade_in.shape[1] * shade_in.shape[2]
@@ -1409,6 +1645,25 @@ def slice2(np, torch, dev, kernels, smi, yard, profile=False):
                          + hw * SHADE_FLOPS_PER_PIXEL,
                          shade_in.numel() * 4 + payload.numel() * 4
                          + counts.numel() * 4 + hw * 12)
+    # The issue-rate floor: warp-light iterations x the light loop's SASS
+    # instructions over the card's warp issue slots (4 an SM and clock).
+    loop_span, loop_ins, k3_ins, loop_ops = sass_loop(
+        cuda_build.load(lighting.SOURCE).path, "tiled_shade_kernel")
+    warp_lights, warp_skipped = warp_light_share(torch, a3)
+    issue_hz = (torch.cuda.get_device_properties(0).multi_processor_count * 4
+                * sm_clock_mhz() * 1e6)
+    floor_all = warp_lights * loop_ins / issue_hz * 1e3
+    floor_run = (warp_lights - warp_skipped) * loop_ins / issue_hz * 1e3
+    lpt = counts.long().clamp(0, cfg.max_lights_per_cluster).float()
+    k3_extra = (f"max ulp {k3_ulp}; lights per tile max {int(lpt.max())} "
+                f"median {float(lpt.median()):.0f}; warp-light iterations "
+                f"{warp_lights}, {warp_skipped} skipped "
+                f"({warp_skipped / max(warp_lights, 1):.4f}); light loop "
+                f"{loop_span} SASS instructions of {k3_ins}, {loop_ins} "
+                f"issued a point light's trip ("
+                + " ".join(f"{k} {v}" for k, v in loop_ops.most_common(12))
+                + f"); issue floor {floor_all:.3f} ms over every warp-light, "
+                f"{floor_run:.3f} over those walked, at {sm_clock_mhz()} MHz")
     recs["K3"] = {
         "name": "tiled_shade (K3)", "route": "cuda",
         "source": "basicrenderer_tpu_torch/csrc/tiled_shade.cu",
@@ -1444,7 +1699,8 @@ def slice2(np, torch, dev, kernels, smi, yard, profile=False):
                                         if k in stages)
         + f" | K2 {k2_ms:.3f} ms per frame = " + "; ".join(k2_parts)
         + f" | K3 {k3_ms:.3f} ms (bound {b3_ms:.3f} {b3_by}, plain "
-        f"{k3_plain:.1f}, {pix_lights // npix} tile-lights) | K4 {k4_ms:.3f} ms "
+        f"{k3_plain:.1f}, {pix_lights // npix} tile-lights; {k3_extra}) | "
+        f"K4 {k4_ms:.3f} ms "
         f"(bound {b4_ms:.4f} {b4_by}, plain {k4_plain:.1f}, {jobs} jobs) | "
         f"launches K1 {launches[0]} K2 {launches[1]} K3 {launches[2]} K4 "
         f"{launches[3]} in {n} frames | visible clusters {live[0]}, phase-2 "
@@ -2044,11 +2300,11 @@ def k1_walked(torch, pairs, cfg):
 
 
 def mode_bound(torch, raster, pairs, cfg, accum, out):
-    """(bound ms, by, rows walked) of one peel / accum launch: every walked
-    (row, tile) tested on its tile's pixels, each walked row read once, the
-    seed and bound read and depth, vis and 8 channels written; in accum
-    mode also the weight and 8 sums of each fragment this run's data
-    passes (channel 7 counts them)."""
+    """(bound ms, by, rows walked, operations ms, bytes ms) of one peel /
+    accum launch: every walked (row, tile) tested on its tile's pixels,
+    each walked row read once, the seed and bound read and depth, vis and
+    8 channels written; in accum mode also the weight and 8 sums of each
+    fragment this run's data passes (channel 7 counts them)."""
     from basicrenderer_tpu_torch.ops import raster_setup
     if isinstance(pairs, raster_setup.GroupBinnedPairs):
         walked = raster.expand_group_pairs(pairs, cfg)[0].shape[0]
@@ -2059,8 +2315,10 @@ def mode_bound(torch, raster, pairs, cfg, accum, out):
     if accum:
         flops += int(out[2][7].sum()) * ACCUM_FLOPS_PER_FRAGMENT
     hw = cfg.padded_height * cfg.padded_width
-    b_ms, b_by = bound(flops, walked * 128 + hw * (8 + 40))
-    return b_ms, b_by, walked
+    nbytes = walked * 128 + hw * (8 + 40)
+    b_ms, b_by = bound(flops, nbytes)
+    return (b_ms, b_by, walked, flops / PEAK_F32_FLOPS * 1e3,
+            nbytes / PEAK_BYTES * 1e3)
 
 
 def time_mode_launches(torch, raster, calls, plain_fn, label):
@@ -2076,12 +2334,13 @@ def time_mode_launches(torch, raster, calls, plain_fn, label):
         pout, p_ms = host_ms(torch, lambda: plain_fn(*a, **kw))
         err = max(err, mode_check(torch, kout, pout, f"{label} launch {k}"))
         accum = bool(a[-1])
-        b_ms, b_by, walked = mode_bound(torch, raster, a[0], a[1], accum,
-                                        kout)
+        b_ms, b_by, walked, ops_ms, bytes_ms = mode_bound(
+            torch, raster, a[0], a[1], accum, kout)
         if b_ms > b_big:
             b_big, by = b_ms, b_by
         ms_sum, plain_sum, b_sum = ms_sum + ms, plain_sum + p_ms, b_sum + b_ms
-        parts.append(f"{ms:.4f} ms (bound {b_ms:.4f} {b_by}, plain "
+        parts.append(f"{ms:.4f} ms (bound {b_ms:.4f} {b_by}: operations "
+                     f"{ops_ms:.4f}, bytes {bytes_ms:.4f}; plain "
                      f"{p_ms:.0f}, rows walked {walked}, pairs "
                      f"{int(a[0].num_pairs)}"
                      + (f", fragments {int(kout[2][7].sum())}" if accum
@@ -2189,6 +2448,17 @@ def slice4(np, torch, dev, kernels, smi, yard, profile=False):
               f"captured full_oit ({variant}) frame: peel / accum launches "
               f"{len(mode_calls['peel'])} / {len(mode_calls['accum'])}")
         parts = []
+        if variant == "K2":
+            # The accum launch's walk per tile, as its schedule sees it.
+            a_ = mode_calls["accum"][0][1]
+            walk = rows_per_tile(torch, raster, a_[0], a_[1]).float()
+            tot = float(walk.sum())
+            parts.append(
+                f"K2-accum rows walked per tile: max {int(walk.max())}, "
+                f"median {float(walk.median()):.0f}, total {int(tot)}, "
+                f"tiles walking any {int((walk > 0).sum())} of "
+                f"{walk.numel()}, busiest tile's share "
+                f"{float(walk.max()) / max(tot, 1.0):.4f}")
         for m in ("peel", "accum"):
             ms, p_ms, b_ms, b_by, err, txt = time_mode_launches(
                 torch, raster, mode_calls[m], plain_fn,
@@ -2455,7 +2725,7 @@ def slice5_tangents(np, torch, dev, kernels, smi, yard):
         ms, p_ms, b_ms, b_by, err, _parts = time_launches(
             torch, [("", (prs_, rcfg, 0, None, band, False), {}, kout)],
             cuda_fn, plain_fn,
-            lambda a, o: mode_bound(torch, raster, a[0], a[1], False, o),
+            lambda a, o: mode_bound(torch, raster, a[0], a[1], False, o)[:3],
             f"{kname}-peel+tangent random 1080p")
         recs[f"{kname}-peel-tangent"] = mode_record(
             f"{'raster_tiles' if kname == 'K1' else 'raster_groups'} "

@@ -1,11 +1,14 @@
 """The port imports torch and never jax, directly or through another
 module: import every module of basicrenderer_tpu_torch in a fresh
-interpreter and check that no jax module was loaded."""
+interpreter and check that no jax module was loaded; and the scripts that
+drive it on the card import neither jax nor the JAX package."""
 
 import json
 import os
 import subprocess
 import sys
+
+import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -41,3 +44,20 @@ def test_port_never_imports_jax():
         assert f"basicrenderer_tpu_torch.{mod}" in out["modules"], mod
     assert out["jax"] == []
     assert out["tf32"] == [False, False]
+
+
+@pytest.mark.parametrize("script", ["chip_smoke.py",
+                                    "tools/checkout_turns.py"])
+def test_card_scripts_never_import_jax(script):
+    """The card scripts import neither jax nor the JAX package, at top
+    level or inside a function (they import inside functions so that a
+    missing card fails before any import)."""
+    import ast
+    tree = ast.parse(open(os.path.join(REPO, script)).read())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+             for a in n.names]
+    names += [n.module or "" for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom)]
+    roots = {name.split(".")[0] for name in names}
+    assert "torch" in roots
+    assert not roots & {"jax", "jaxlib", "flax", "basicrenderer_tpu"}, roots
