@@ -94,25 +94,27 @@
 //
 // Accum mode sums, it does not take a maximum: each pixel's 8 sums are
 // fused multiply-adds in walk order, and cutting the walk would change
-// their rounding. So a tile is cut by pixels, never by walk.
-// - K2 (accum_groups_kernel): one pixel a thread, a block a 256-pixel slice
-//   of a tile (16 blocks for a 32 x 128 tile; slice fastest in the grid,
-//   so the slices that read the same groups run together and the L2
-//   serves the repeats), each pixel's sums in registers for the tile's
-//   whole walk. The busiest tile's walk then runs on 16 SMs at once, and
-//   registers fall from 117 (4 pixels a thread) to what one pixel needs,
-//   so several blocks share an SM. The groups come through pass 1's
-//   double-buffered cp.async ring (stage_group_entries, the same kStage
-//   rows a stage): the walk is the same entry sequence, and the ring lets
-//   stage c+1 land while stage c is summed. What is the same for every
-//   pixel of a row is done once a stage by warp 0: the entry's box and the
-//   row's liveness and tile bbox tests, and the payload's byte decode and
-//   scaling (decode_payload). The live covering rows are compacted, in
-//   walk order (ballot and popc), to 64-byte records of planes and
-//   payload; each thread then evaluates only the three planes, the tests,
-//   the weight and the sums.
-// - K1 (accum_tiles_kernel) keeps the first design: one block a tile per
-//   pixel slice, 4 pixels a thread, rows staged 128 at a time.
+// their rounding. So a tile is cut by pixels, never by walk: one pixel a
+// thread, a block a 256-pixel slice of a tile (16 blocks for a 32 x 128
+// tile; slice fastest in the grid, so the slices that read the same rows
+// run together and the L2 serves the repeats), each pixel's sums in
+// registers for the tile's whole walk. The busiest tile's walk then runs
+// on 16 SMs at once. What is the same for every pixel of a row is done
+// once a block: the row's liveness and tile bbox tests (K2: the entry's
+// box too) and the payload's byte decode and scaling (decode_payload).
+// The live covering rows of a stage are compacted, in walk order (ballot
+// and popc), to 64-byte records of planes and payload; each pixel then
+// evaluates only the three planes, the tests, the weight and the sums.
+// - K2 (accum_groups_kernel): the groups come through pass 1's
+//   double-buffered cp.async ring (stage_group_entries, kStage rows a
+//   stage); warp 0 compacts each landed stage while the other warps wait
+//   at a barrier, then all 8 warps sum it.
+// - K1 (accum_rows_kernel): warp-specialised. A ninth warp owns no pixel:
+//   it keeps the cp.async ring of rows full (stage_tile_rows) and compacts
+//   stage c + 1 into the second of two record buffers while the 8 pixel
+//   warps sum stage c from the first. Named barriers hand each buffer from
+//   the producer to the pixel warps (full) and back (empty), so the
+//   compaction's latency hides behind the sums.
 
 #include <cuda_runtime.h>
 
@@ -125,10 +127,12 @@ constexpr int kStage = 64;         // rows a stage of pass 1's ring
 constexpr int kMaxPpt = 16;        // pass 1 pixels per thread (plain)
 constexpr int kMaxPptPeel = 8;     // pass 1, peel: + the bound a pixel
 constexpr int kMinPpt = 4;         // pass 1 on a launch of few tiles
-constexpr int kAccumChunk = 128;   // accum walk: rows staged at a time
-constexpr int kMaxPptAccum = 4;    // accum walk: 8 sums, seed, bound a pixel
 constexpr int kTangentLane = 27;   // flat tangent angle -> channel 5
 constexpr int kAccumCh = 8;        // channels summed in accum mode
+// K1 accum: named barriers (0 is __syncthreads) kBarFull + b and
+// kBarEmpty + b for record buffer b.
+constexpr int kBarFull = 1;
+constexpr int kBarEmpty = 3;
 constexpr unsigned kNone = 0xFFFFFFFFu;  // key low word: no row won
 // Accum mode's byte scales, rounded to f32 from their double values as the
 // JAX package's f32 constants are.
@@ -302,13 +306,14 @@ __device__ __forceinline__ void publish(const Best<PPT, MODE>& b, int tx,
 }
 
 // K1 rows [c0, c0 + n) of a tile's walk into a ring stage: walk index w is
-// own row start + w below `own`, else big row w - own.
+// own row start + w below `own`, else big row w - own. Threads `tid` of
+// `nthreads` copy (pass 1: the whole block; accum: the producer warp).
 __device__ __forceinline__ void stage_tile_rows(float4* dst,
                                                 const float* pair_data,
                                                 long long start,
                                                 long long own, long long c0,
-                                                int n) {
-  for (int q = threadIdx.x; q < n * kPieces; q += kThreads) {
+                                                int n, int tid, int nthreads) {
+  for (int q = tid; q < n * kPieces; q += nthreads) {
     const long long w = c0 + q / kPieces;
     const long long row = w < own ? start + w : w - own;
     cp_async16(dst + q, pair_data + row * kLanes + (q % kPieces) * 4);
@@ -348,14 +353,16 @@ span_tiles_kernel(int* __restrict__ queue, const int* __restrict__ tile_offsets,
     const float tyf = (float)(ty + tile_row0);
     const int stages = (int)((w1 - w0 + kStage - 1) / kStage);
     stage_tile_rows(ring[0], pair_data, start, own, w0,
-                    (int)min((long long)kStage, w1 - w0));
+                    (int)min((long long)kStage, w1 - w0), threadIdx.x,
+                    kThreads);
     for (int c = 0; c < stages; ++c) {
       const long long c0 = w0 + (long long)c * kStage;
       const int n = (int)min((long long)kStage, w1 - c0);
       if (c + 1 < stages) {
         stage_tile_rows(ring[(c + 1) & 1], pair_data, start, own,
                         c0 + kStage,
-                        (int)min((long long)kStage, w1 - c0 - kStage));
+                        (int)min((long long)kStage, w1 - c0 - kStage),
+                        threadIdx.x, kThreads);
         cp_async_wait<1>();
       } else {
         cp_async_wait<0>();
@@ -637,8 +644,7 @@ __global__ void resolve_groups_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// Accum mode: the payload decode and band weight of both kernels, and K1's
-// one-block-a-tile walk (sums in walk order).
+// Accum mode: one pixel a thread, each row's uniform work once a block.
 // ---------------------------------------------------------------------------
 
 // A row's accum payload (lanes 28, 30, 31), by the JAX package's
@@ -676,150 +682,6 @@ __device__ __forceinline__ float band_weight(float z, float seed,
   return __fmaf_rn(u, u, 0.05f);
 }
 
-template <int PPT>
-struct Sums {
-  float px[PPT], py[PPT], seed[PPT], bound[PPT];
-  float ch[kAccumCh][PPT];
-};
-
-// One setup row's fragments into this thread's sums. `banded`: a peel
-// bound limits the pass and weights each fragment by its depth warp.
-template <int PPT>
-__device__ __forceinline__ void accum_row(const float* r, Sums<PPT>& s,
-                                          bool banded) {
-  if (!(r[9] > 0.5f)) return;
-  const float a0 = r[0], b0 = r[1], c0e = r[2];
-  const float a1 = r[3], b1 = r[4], c1e = r[5];
-  const float az = r[6], bz = r[7], cz = r[8];
-  float v[7];
-  decode_payload(r[28], r[30], r[31], v);
-  const float va = v[0], vr = v[1], vg = v[2], vb = v[3];
-  const float o0 = v[4], o1 = v[5], o2 = v[6];
-#pragma unroll
-  for (int k = 0; k < PPT; ++k) {
-    const float e0 = plane(a0, b0, c0e, s.px[k], s.py[k]);
-    const float e1 = plane(a1, b1, c1e, s.px[k], s.py[k]);
-    const float e2 = __fsub_rn(__fsub_rn(1.0f, e0), e1);
-    const float z = plane(az, bz, cz, s.px[k], s.py[k]);
-    if (!(e0 >= 0.0f && e1 >= 0.0f && e2 >= 0.0f && z > s.seed[k])) continue;
-    if (banded && !(z < s.bound[k])) continue;
-    const float w = banded ? band_weight(z, s.seed[k], s.bound[k]) : 1.0f;
-    s.ch[0][k] = __fmaf_rn(w, va, s.ch[0][k]);
-    s.ch[1][k] = __fmaf_rn(w, vr, s.ch[1][k]);
-    s.ch[2][k] = __fmaf_rn(w, vg, s.ch[2][k]);
-    s.ch[3][k] = __fmaf_rn(w, vb, s.ch[3][k]);
-    s.ch[4][k] = __fadd_rn(s.ch[4][k], o0);
-    s.ch[5][k] = __fadd_rn(s.ch[5][k], o1);
-    s.ch[6][k] = __fadd_rn(s.ch[6][k], o2);
-    s.ch[7][k] = __fadd_rn(s.ch[7][k], 1.0f);
-  }
-}
-
-template <int PPT, bool kBBox>
-__device__ __forceinline__ void accum_walk(const float* __restrict__ rows_in,
-                                           long long start, long long end,
-                                           float* rows, float txf, float tyf,
-                                           Sums<PPT>& s, bool banded) {
-  for (long long c0 = start; c0 < end; c0 += kAccumChunk) {
-    const int n = (int)min((long long)kAccumChunk, end - c0);
-    __syncthreads();  // the previous chunk is consumed
-    const float* src = rows_in + c0 * kLanes;
-    for (int i = threadIdx.x; i < n * kLanes; i += kThreads) rows[i] = src[i];
-    __syncthreads();
-    for (int j = 0; j < n; ++j) {
-      const float* r = rows + j * kLanes;
-      if (kBBox && !row_covers(reinterpret_cast<const float4*>(r), txf, tyf))
-        continue;
-      accum_row<PPT>(r, s, banded);
-    }
-  }
-}
-
-// Pixel centres, the seed depth (or 0) and the bound (when banded).
-template <int PPT>
-__device__ __forceinline__ void start_sums(int tx, int ty, int tile_row0,
-                                           int tile_w, int tile_h, int npix,
-                                           int pix0, int width,
-                                           const float* depth0,
-                                           const float* peel, Sums<PPT>& s) {
-#pragma unroll
-  for (int k = 0; k < PPT; ++k) {
-    const int p = pix0 + threadIdx.x + k * kThreads;
-    const int y = p / tile_w;
-    const int x = p - y * tile_w;
-    s.px[k] = (float)(tx * tile_w + x) + 0.5f;
-    s.py[k] = (float)((ty + tile_row0) * tile_h + y) + 0.5f;
-    s.seed[k] = 0.0f;
-    s.bound[k] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < kAccumCh; ++c) s.ch[c][k] = 0.0f;
-    if (p >= npix) continue;
-    const size_t o = (size_t)(ty * tile_h + y) * width + (tx * tile_w + x);
-    if (depth0 != nullptr) s.seed[k] = depth0[o];
-    if (peel != nullptr) s.bound[k] = peel[o];
-  }
-}
-
-// Depth stays at the start, vis 0, the 8 sums.
-template <int PPT>
-__device__ __forceinline__ void store_sums(int tx, int ty, int tile_w,
-                                           int tile_h, int npix, int pix0,
-                                           int width, size_t plane_size,
-                                           const Sums<PPT>& s,
-                                           float* __restrict__ depth_out,
-                                           int* __restrict__ vis_out,
-                                           float* __restrict__ chan_out) {
-#pragma unroll
-  for (int k = 0; k < PPT; ++k) {
-    const int p = pix0 + threadIdx.x + k * kThreads;
-    if (p >= npix) continue;
-    const int y = p / tile_w;
-    const int x = p - y * tile_w;
-    const size_t o = (size_t)(ty * tile_h + y) * width + (tx * tile_w + x);
-    depth_out[o] = s.seed[k];
-    vis_out[o] = 0;
-#pragma unroll
-    for (int c = 0; c < kAccumCh; ++c) chan_out[c * plane_size + o] = s.ch[c][k];
-  }
-}
-
-template <int PPT>
-__global__ void __launch_bounds__(kThreads, 1)
-accum_tiles_kernel(const int* __restrict__ tile_offsets,
-                   const int* __restrict__ big_count,
-                   const float* __restrict__ pair_data, long long n_rows,
-                   const float* __restrict__ depth0,
-                   const float* __restrict__ peel,
-                   float* __restrict__ depth_out, int* __restrict__ vis_out,
-                   float* __restrict__ chan_out, int tiles_x, int tiles_y,
-                   int tile_h, int tile_w, int tile_row0) {
-  __shared__ __align__(16) float rows[kAccumChunk * kLanes];
-  const int tile = blockIdx.x;
-  const int ty = tile / tiles_x;
-  const int tx = tile - ty * tiles_x;
-  const int npix = tile_h * tile_w;
-  const int pix0 = blockIdx.y * (PPT * kThreads);
-  const int width = tiles_x * tile_w;
-  const size_t plane_size = (size_t)width * (size_t)(tiles_y * tile_h);
-  Sums<PPT> s;
-  start_sums<PPT>(tx, ty, tile_row0, tile_w, tile_h, npix, pix0, width,
-                  depth0, peel, s);
-  const float txf = (float)tx;
-  const float tyf = (float)(ty + tile_row0);
-  const bool banded = peel != nullptr;
-  const long long start = min((long long)tile_offsets[tile], n_rows);
-  const long long end = min((long long)tile_offsets[tile + 1], n_rows);
-  accum_walk<PPT, false>(pair_data, start, end, rows, txf, tyf, s, banded);
-  const long long nbig = min((long long)big_count[0], n_rows);
-  accum_walk<PPT, true>(pair_data, 0, nbig, rows, txf, tyf, s, banded);
-  store_sums<PPT>(tx, ty, tile_w, tile_h, npix, pix0, width, plane_size, s,
-                  depth_out, vis_out, chan_out);
-}
-
-// ---------------------------------------------------------------------------
-// Accum mode, K2: one pixel a thread, each row's uniform work once a block.
-// ---------------------------------------------------------------------------
-
 // A live row that covers the tile, as the pixels need it (4 float4s): its
 // edge and depth planes (lanes 0-8) and its decoded, scaled payload.
 __device__ __forceinline__ void accum_record(const float4* r, float4* rec) {
@@ -832,8 +694,8 @@ __device__ __forceinline__ void accum_record(const float4* r, float4* rec) {
   rec[3] = make_float4(v[3], v[4], v[5], v[6]);
 }
 
-// One record's fragment at this thread's pixel into its 8 sums (accum_row's
-// operations for one pixel).
+// One record's fragment at this thread's pixel into its 8 sums, in the
+// reference's operations and roundings.
 __device__ __forceinline__ void accum_pixel(const float4* rec, float px,
                                             float py, float seed, float bound,
                                             bool banded, float* ch) {
@@ -964,6 +826,139 @@ accum_groups_kernel(const int* __restrict__ tile_offsets,
   for (int c = 0; c < kAccumCh; ++c) chan_out[c * plane_size + o] = ch[c];
 }
 
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// K1: a landed stage's rows [0, n) (walk index c0 + j; own rows below
+// `own`, then big rows) compacted by one warp to records of the live rows
+// (big rows: those covering the tile), in walk order; returns the count.
+__device__ __forceinline__ int compact_rows(const float4* rows, int n,
+                                            long long c0, long long own,
+                                            float txf, float tyf, int lane,
+                                            float4 (*recs)[4]) {
+  int kept = 0;
+  for (int r0 = 0; r0 < n; r0 += 32) {
+    const int j = r0 + lane;
+    bool keep = false;
+    if (j < n) {
+      const float4* r = rows + j * kPieces;
+      keep = r[2].y > 0.5f && (c0 + j < own || row_covers(r, txf, tyf));
+    }
+    const unsigned m = __ballot_sync(0xFFFFFFFFu, keep);
+    if (keep)
+      accum_record(rows + j * kPieces,
+                   recs[kept + __popc(m & ((1u << lane) - 1u))]);
+    kept += __popc(m);
+  }
+  return kept;
+}
+
+// K1: block = (tile, 256-pixel slice), slice fastest; threads 0-255 are
+// the slice's pixels. The tile's walk (own rows, then big rows) goes
+// through the ring in stages of kStage rows, compacted to records. Warp 8
+// (the producer) owns no pixel. It copies, and compacts stage c into
+// record buffer c & 1, hands it over (kBarFull) and takes it back
+// (kBarEmpty) before it refills it at stage c + 2, so the compaction of
+// stage c + 1 overlaps the sums of stage c.
+__global__ void __launch_bounds__(kThreads + 32)
+accum_rows_kernel(const int* __restrict__ tile_offsets,
+                  const int* __restrict__ big_count,
+                  const float* __restrict__ pair_data, long long n_rows,
+                  const float* __restrict__ depth0,
+                  const float* __restrict__ peel,
+                  float* __restrict__ depth_out, int* __restrict__ vis_out,
+                  float* __restrict__ chan_out, int tiles_x, int tiles_y,
+                  int tile_h, int tile_w, int tile_row0, int slices) {
+  constexpr int kBlock = kThreads + 32;
+  __shared__ float4 ring[2][kStage * kPieces];
+  __shared__ float4 recs[2][kStage][4];
+  __shared__ int n_live[2];
+  const int tile = blockIdx.x / slices;
+  const int slice = blockIdx.x - tile * slices;
+  const int ty = tile / tiles_x;
+  const int tx = tile - ty * tiles_x;
+  const int tyg = ty + tile_row0;
+  const float txf = (float)tx;
+  const float tyf = (float)tyg;
+  const long long start = min((long long)tile_offsets[tile], n_rows);
+  const long long own =
+      max(0LL, min((long long)tile_offsets[tile + 1], n_rows) - start);
+  const long long total = own + max(0LL, min((long long)big_count[0], n_rows));
+  const int stages = (int)((total + kStage - 1) / kStage);
+  const int lane = threadIdx.x & 31;
+  // Rows [c0, c0 + kStage) of the walk into ring slot `slot`, copied by
+  // the producer warp.
+  auto stage = [&](int slot, long long c0) {
+    stage_tile_rows(ring[slot], pair_data, start, own, c0,
+                    (int)min((long long)kStage, total - c0), lane, 32);
+  };
+
+  if (threadIdx.x >= kThreads) {
+    if (stages > 0) stage(0, 0);
+    for (int c = 0; c < stages; ++c) {
+      const long long c0 = (long long)c * kStage;
+      const int b = c & 1;
+      __syncwarp();  // every lane is done reading the slot refilled next
+      if (c + 1 < stages) {
+        stage(b ^ 1, c0 + kStage);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncwarp();  // stage c has landed for every lane
+      if (c >= 2) bar_sync(kBarEmpty + b, kBlock);
+      const int kept =
+          compact_rows(ring[b], (int)min((long long)kStage, total - c0), c0,
+                       own, txf, tyf, lane, recs[b]);
+      if (lane == 0) n_live[b] = kept;
+      bar_arrive(kBarFull + b, kBlock);
+    }
+    // Take back the buffers of the last two stages, so that every arrival
+    // on a named barrier is matched before the block ends.
+    for (int c = max(0, stages - 2); c < stages; ++c)
+      bar_sync(kBarEmpty + (c & 1), kBlock);
+    return;
+  }
+
+  const int npix = tile_h * tile_w;
+  const int width = tiles_x * tile_w;
+  const size_t plane_size = (size_t)width * (size_t)(tiles_y * tile_h);
+  const int p = slice * kThreads + threadIdx.x;
+  const bool in = p < npix;
+  const int y = p / tile_w;
+  const int x = p - y * tile_w;
+  const size_t o = (size_t)(ty * tile_h + y) * width + (tx * tile_w + x);
+  // Integer sums are exact in f32 below 2^24: the JAX package's centres.
+  const float px = (float)(tx * tile_w + x) + 0.5f;
+  const float py = (float)(tyg * tile_h + y) + 0.5f;
+  const bool banded = peel != nullptr;
+  float seed = 0.0f, bound = 0.0f;
+  if (in && depth0 != nullptr) seed = depth0[o];
+  if (in && banded) bound = peel[o];
+  float ch[kAccumCh];
+#pragma unroll
+  for (int k = 0; k < kAccumCh; ++k) ch[k] = 0.0f;
+  for (int c = 0; c < stages; ++c) {
+    const int b = c & 1;
+    bar_sync(kBarFull + b, kBlock);  // buffer b holds stage c
+    const int nl = n_live[b];
+    if (in)
+      for (int j = 0; j < nl; ++j)
+        accum_pixel(recs[b][j], px, py, seed, bound, banded, ch);
+    bar_arrive(kBarEmpty + b, kBlock);
+  }
+  if (!in) return;
+  depth_out[o] = seed;
+  vis_out[o] = 0;
+#pragma unroll
+  for (int k = 0; k < kAccumCh; ++k) chan_out[k * plane_size + o] = ch[k];
+}
+
 // ---------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------
@@ -999,9 +994,9 @@ int span_ppt(int npix, int tiles, int mode) {
 }
 
 template <typename Kernel>
-int blocks_per_sm(Kernel kernel) {
+int blocks_per_sm(Kernel kernel, int threads = kThreads) {
   int n = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads, 0) !=
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, 0) !=
           cudaSuccess ||
       n < 1)
     n = 1;
@@ -1040,28 +1035,18 @@ bool valid_mode(int mode, const void* depth0, const void* vis0,
     default:                                                              \
       return (int)cudaErrorInvalidValue;                                  \
   }
-// The accum walk's instances: pixels per thread.
-#define BR_ACCUM_DISPATCH(LAUNCH)                                     \
-  switch (ppt) {                                                      \
-    case 1: LAUNCH(1) break;                                          \
-    case 2: LAUNCH(2) break;                                          \
-    case 4: LAUNCH(4) break;                                          \
-    default:                                                          \
-      return (int)cudaErrorInvalidValue;                              \
-  }
-
 // Launches K1 on `stream`; returns the first failing launch's
 // cudaGetLastError() (0 = launched). pair_data: (n_rows, 32) f32;
 // tile_offsets: (tiles_x*tiles_y + 1,) i32; big_count: (1,) i32;
 // depth/vis: (tiles_y*tile_h, tiles_x*tile_w); channels: (8, ...). mode 0:
 // depth0/vis0/chan0 seed the buffers (all null: zero start), peel null;
 // mode 1: depth0 the seed depth and peel the bound, vis0/chan0 null; mode
-// 2 (accum): as mode 1, or depth0 and peel both null. tangent != 0 writes
-// lane 27 to channel 5 (modes 0 and 1). Modes 0 and 1 take scratch for
-// the work queue, (tiles + 2,) i32, which the call fills (span_queue_kernel:
-// each tile's walk cut into spans of `span` rows), and for the key plane,
-// (H', W') u64; mode 2 ignores them. All contiguous, on device; pair_data
-// 16-byte aligned.
+// 2 (accum): as mode 1, or depth0 and peel both null. tangent != 0
+// writes lane 27 to channel 5 (modes 0 and 1). Modes 0 and 1 take scratch
+// for the work queue, (tiles + 2,) i32, which the call fills
+// (span_queue_kernel: each tile's walk cut into spans of `span` rows), and
+// for the key plane, (H', W') u64; mode 2 ignores them. All
+// contiguous, on device; pair_data 16-byte aligned.
 extern "C" int br_raster_tiles(const int* tile_offsets, const int* big_count,
                                const float* pair_data, long long n_rows,
                                const float* depth0, const int* vis0,
@@ -1077,14 +1062,13 @@ extern "C" int br_raster_tiles(const int* tile_offsets, const int* big_count,
   const int tiles = tiles_x * tiles_y;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (mode == kAccum) {
-    const int ppt = pixels_per_thread(npix, kMaxPptAccum);
-    const dim3 grid(tiles, slices_of(npix, ppt));
-#define BR_ACCUM_TILES(P)                                                 \
-  accum_tiles_kernel<P><<<grid, kThreads, 0, s>>>(                        \
-      tile_offsets, big_count, pair_data, n_rows, depth0, peel, depth, vis, \
-      channels, tiles_x, tiles_y, tile_h, tile_w, tile_row0);
-    BR_ACCUM_DISPATCH(BR_ACCUM_TILES)
-#undef BR_ACCUM_TILES
+    const int slices = slices_of(npix, 1);
+    const long long blocks = (long long)tiles * slices;
+    if (blocks <= 0 || blocks > 0x7FFFFFFFLL)
+      return (int)cudaErrorInvalidValue;
+    accum_rows_kernel<<<(unsigned)blocks, kThreads + 32, 0, s>>>(
+        tile_offsets, big_count, pair_data, n_rows, depth0, peel, depth, vis,
+        channels, tiles_x, tiles_y, tile_h, tile_w, tile_row0, slices);
     return (int)cudaGetLastError();
   }
   if (queue == nullptr || keys == nullptr || span <= 0)
@@ -1214,10 +1198,8 @@ extern "C" int br_raster_blocks_per_sm(int kernel, int mode, int npix,
     ppt = 1;
     n = blocks_per_sm(accum_groups_kernel);
   } else if (mode == kAccum) {
-    ppt = pixels_per_thread(npix, kMaxPptAccum);
-#define BR_ACCUM_OCC(P) n = blocks_per_sm(accum_tiles_kernel<P>);
-    BR_ACCUM_DISPATCH(BR_ACCUM_OCC)
-#undef BR_ACCUM_OCC
+    ppt = 1;
+    n = blocks_per_sm(accum_rows_kernel, kThreads + 32);
   } else if (mode == kPlain || mode == kPeel) {
     ppt = span_ppt(npix, tiles, mode);
 #define BR_SPAN_OCC(M, P)                               \

@@ -20,24 +20,36 @@
 // every other term is an exact zero, and the byte x bf16 products are
 // exact in f32, so the two-tap sums here round exactly as it does.
 //
-// What bounds it on this card: bytes. A job reads its WR x 512-byte window
-// (12 KB) and 8 bytes per pixel and writes 16 bytes per pixel, ~20 flops a
-// pixel: at 1080p / texture_downscale 2 the mask pass has 2,040 blocks x 2
-// jobs, ~60 MB, ~20 us at 3.35 TB/s.
+// With a `live` mask (JN, P) u8 the result is eval where live, else 0:
+// the frame passes the sampler's job masks, whose dead pixels it zeroes
+// anyway.
 //
-// What the design does about it: one block per job; the window is staged
-// in shared memory with coalesced 512-byte row reads (the atlas row gather
-// is fused into the kernel), then each thread evaluates one pixel's four
-// taps from shared memory and writes its RGBA as one 16-byte store.
+// What bounds it on this card: bytes. A live job reads its WR x 512-byte
+// window (12 KB) and 8 bytes per pixel and writes 16 bytes per pixel,
+// ~60 flops a pixel: at 1080p / texture_downscale 2 the channels pass has
+// 2,040 blocks x 4 jobs. A frame with no alpha-MASK material has a mask
+// pass of dead jobs only, and the channels pass's sky blocks are dead.
+//
+// What the design does about it: one block per job, one pixel a thread.
+// - A job with no live pixel reads no row and no tap centre: it writes
+//   its zeros and ends.
+// - A live job reads its window's row ids once into shared memory, then
+//   copies the window's 512-byte rows with cp.async, 16 bytes a thread,
+//   every copy in flight at once (the atlas row gather is fused into the
+//   kernel; no chain of dependent loads).
+// - Each thread evaluates its pixel's four taps from shared memory and
+//   writes its RGBA as one 16-byte store (0 at a dead pixel).
 //
 // BC3 mode (tex_block_bc3_kernel): the job's window is 7 block rows of 32
 // BC3 blocks (7 x 128 u32, 3.5 KB, words [a_lo, a_hi, c_ends, c_idx] per
-// block). The block gathers them, decodes them in shared memory into
-// 28 x 128 RGBA8 texel rows (14 KB; per texel the 565 expand, the
-// 4-colour palette and the 8-step alpha palette, rounded half to even to
-// a byte as bc3_decode_rows does), then runs the same evaluation. The
-// reference decodes in XLA between the gather and its kernel; here the
-// decode is fused into the window load, so a job reads 4x fewer bytes.
+// block), copied as above. Each tap decodes its own texel from the
+// staged block words (bc3_texel: the 565 expand, the 4-colour palette and
+// the 8-step alpha palette of its block, rounded half to even to a byte
+// as bc3_decode_rows does), at most 4 texels a pixel, so no decoded
+// window is kept: a job's 256 pixels read at most ~21 x 21 texels of the
+// window's 28 x 128 (FIT_TEXELS bumps the mip beyond that), and decoding
+// all of them cost ~8x the taps' decodes. The reference decodes in XLA
+// between the gather and its kernel; here a job reads 4x fewer bytes.
 // Every palette lerp is spelled as separate f32 products and sums; over
 // every 565 endpoint pair and every alpha pair, that form and both
 // fused contractions round to the same byte.
@@ -59,27 +71,67 @@ __device__ __forceinline__ float hat_x(int lane, float x) {
   return __bfloat162float(__float2bfloat16_rn(w));
 }
 
-// Copies the job's `wrows` atlas rows (ids clamped into the atlas) into
-// shared memory.
-__device__ __forceinline__ void gather_window(
-    const uint32_t* __restrict__ strips, long long n_rows,
-    const int* __restrict__ rows, long long job, int wrows, uint32_t* win) {
-  for (int i = threadIdx.x; i < wrows * kLanes; i += kThreads) {
-    long long r = rows[job * wrows + i / kLanes];
-    r = r < 0 ? 0 : (r >= n_rows ? n_rows - 1 : r);
-    win[i] = strips[r * kLanes + (i % kLanes)];
-  }
+constexpr int kMaxWrows = 64;   // window rows a job may have (32 KB)
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
 }
 
-// Each thread evaluates its pixels' two-by-two taps from the window of
-// `wrows` RGBA8 texel rows in shared memory.
+// Whether any of the job's pixels is live (every thread calls it); a
+// dead job writes its zeros here.
+__device__ __forceinline__ bool job_live(const uint8_t* __restrict__ live,
+                                         long long job, int npix,
+                                         float4* __restrict__ out) {
+  bool any = live == nullptr;
+  for (int p = threadIdx.x; p < npix && !any; p += kThreads)
+    any = live[job * npix + p] != 0;
+  if (__syncthreads_or(any)) return true;
+  for (int p = threadIdx.x; p < npix; p += kThreads)
+    out[job * npix + p] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  return false;
+}
+
+// Copies the job's `wrows` atlas rows (ids clamped into the atlas) into
+// shared memory: the ids once, then every 16-byte piece by cp.async, all
+// in flight together. Ends with the window visible to the block.
+__device__ __forceinline__ void gather_window(
+    const uint32_t* __restrict__ strips, long long n_rows,
+    const int* __restrict__ rows, long long job, int wrows, int* ids,
+    uint32_t* win) {
+  if (threadIdx.x < wrows) {
+    const long long r = rows[job * wrows + threadIdx.x];
+    ids[threadIdx.x] = (int)(r < 0 ? 0 : (r >= n_rows ? n_rows - 1 : r));
+  }
+  __syncthreads();
+  constexpr int kPieces = kLanes / 4;   // 16-byte pieces of a row
+  for (int q = threadIdx.x; q < wrows * kPieces; q += kThreads)
+    cp_async16(win + q * 4,
+               strips + (long long)ids[q / kPieces] * kLanes +
+                   (q % kPieces) * 4);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+}
+
+// Each thread evaluates its pixels' two-by-two taps over a window of
+// `wrows` texel rows: texel(r, l) gives the RGBA8 texel of row r, lane l.
+// Dead pixels (live[p] == 0) write 0.
+template <typename Texel>
 __device__ __forceinline__ void eval_window(
-    const uint32_t* win, int wrows, long long job,
-    const float* __restrict__ x_hat, const float* __restrict__ yf,
+    Texel texel, int wrows, long long job, const float* __restrict__ x_hat,
+    const float* __restrict__ yf, const uint8_t* __restrict__ live,
     float4* __restrict__ out, int npix) {
   for (int p = threadIdx.x; p < npix; p += kThreads) {
-    const float x = x_hat[job * npix + p];
-    const float y = yf[job * npix + p];
+    const long long i = job * npix + p;
+    if (live != nullptr && live[i] == 0) {
+      out[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      continue;
+    }
+    const float x = x_hat[i];
+    const float y = yf[i];
     const int l0 = ((int)floorf(x)) & (kLanes - 1);
     const int l1 = (l0 + 1) & (kLanes - 1);
     const float wa = hat_x(l0, x);
@@ -91,8 +143,8 @@ __device__ __forceinline__ void eval_window(
       if (r >= wrows) break;
       const float wy = fmaxf(__fsub_rn(1.0f, fabsf(__fsub_rn((float)r, y))),
                              0.0f);
-      const uint32_t ta = win[r * kLanes + l0];
-      const uint32_t tb = win[r * kLanes + l1];
+      const uint32_t ta = texel(r, l0);
+      const uint32_t tb = texel(r, l1);
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const float ca = (float)((ta >> (8 * c)) & 255u);
@@ -101,20 +153,23 @@ __device__ __forceinline__ void eval_window(
         acc[c] = __fadd_rn(acc[c], __fmul_rn(xr, wy));
       }
     }
-    out[job * npix + p] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+    out[i] = make_float4(acc[0], acc[1], acc[2], acc[3]);
   }
 }
 
 __global__ void __launch_bounds__(kThreads)
 tex_block_kernel(const uint32_t* __restrict__ strips, long long n_rows,
                  const int* __restrict__ rows, const float* __restrict__ x_hat,
-                 const float* __restrict__ yf, float4* __restrict__ out,
+                 const float* __restrict__ yf,
+                 const uint8_t* __restrict__ live, float4* __restrict__ out,
                  int wrows, int npix) {
-  extern __shared__ uint32_t win[];  // wrows x 128 words
+  extern __shared__ __align__(16) uint32_t win[];  // wrows x 128 words
+  __shared__ int ids[kMaxWrows];
   const long long job = blockIdx.x;
-  gather_window(strips, n_rows, rows, job, wrows, win);
-  __syncthreads();
-  eval_window(win, wrows, job, x_hat, yf, out, npix);
+  if (!job_live(live, job, npix, out)) return;
+  gather_window(strips, n_rows, rows, job, wrows, ids, win);
+  eval_window([&](int r, int l) { return win[r * kLanes + l]; }, wrows, job,
+              x_hat, yf, live, out, npix);
 }
 
 constexpr int kBcRows = 7;               // gathered block rows per window
@@ -169,36 +224,39 @@ __global__ void __launch_bounds__(kThreads)
 tex_block_bc3_kernel(const uint32_t* __restrict__ strips, long long n_rows,
                      const int* __restrict__ rows,
                      const float* __restrict__ x_hat,
-                     const float* __restrict__ yf, float4* __restrict__ out,
-                     int npix) {
-  __shared__ uint32_t blocks[kBcRows * kLanes];    // 3.5 KB
-  __shared__ uint32_t win[kBcTexelRows * kLanes];  // 14 KB
+                     const float* __restrict__ yf,
+                     const uint8_t* __restrict__ live,
+                     float4* __restrict__ out, int npix) {
+  __shared__ __align__(16) uint32_t blocks[kBcRows * kLanes];  // 3.5 KB
+  __shared__ int ids[kBcRows];
   const long long job = blockIdx.x;
-  gather_window(strips, n_rows, rows, job, kBcRows, blocks);
-  __syncthreads();
-  for (int i = threadIdx.x; i < kBcTexelRows * kLanes; i += kThreads) {
-    const int trow = i / kLanes, lane = i % kLanes;
-    win[i] = bc3_texel(&blocks[(trow / 4) * kLanes + (lane / 4) * 4],
-                       trow % 4, lane % 4);
-  }
-  __syncthreads();
-  eval_window(win, kBcTexelRows, job, x_hat, yf, out, npix);
+  if (!job_live(live, job, npix, out)) return;
+  gather_window(strips, n_rows, rows, job, kBcRows, ids, blocks);
+  // Texel (r, l) of the decoded window: row r % 4, column l % 4 of block
+  // l / 4 in block row r / 4.
+  eval_window(
+      [&](int r, int l) {
+        return bc3_texel(&blocks[(r >> 2) * kLanes + (l & ~3)], r & 3, l & 3);
+      },
+      kBcTexelRows, job, x_hat, yf, live, out, npix);
 }
 
 }  // namespace
 
 // Launches the evaluator on `stream`; returns cudaGetLastError() (0 =
-// launched). strips: (n_rows, 128) u32; rows: (jobs, wrows) i32; x_hat, yf:
-// (jobs, npix) f32; out: (jobs, npix, 4) f32. All contiguous, on device.
+// launched). strips: (n_rows, 128) u32, 16-byte aligned; rows: (jobs,
+// wrows) i32; x_hat, yf: (jobs, npix) f32; live: (jobs, npix) u8 or null
+// (every pixel live); out: (jobs, npix, 4) f32. All contiguous, on device.
 extern "C" int br_tex_block_eval(const uint32_t* strips, long long n_rows,
                                  const int* rows, const float* x_hat,
-                                 const float* yf, float* out, int jobs,
-                                 int wrows, int npix, void* stream) {
+                                 const float* yf, const uint8_t* live,
+                                 float* out, int jobs, int wrows, int npix,
+                                 void* stream) {
+  if (wrows < 1 || wrows > kMaxWrows) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)wrows * kLanes * sizeof(uint32_t);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   tex_block_kernel<<<jobs, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      strips, n_rows, rows, x_hat, yf, reinterpret_cast<float4*>(out), wrows,
-      npix);
+      strips, n_rows, rows, x_hat, yf, live, reinterpret_cast<float4*>(out),
+      wrows, npix);
   return (int)cudaGetLastError();
 }
 
@@ -206,11 +264,13 @@ extern "C" int br_tex_block_eval(const uint32_t* strips, long long n_rows,
 // the rest as br_tex_block_eval. Returns cudaGetLastError().
 extern "C" int br_tex_block_eval_bc3(const uint32_t* strips, long long n_rows,
                                      const int* rows, const float* x_hat,
-                                     const float* yf, float* out, int jobs,
-                                     int wrows, int npix, void* stream) {
+                                     const float* yf, const uint8_t* live,
+                                     float* out, int jobs, int wrows,
+                                     int npix, void* stream) {
   if (wrows != kBcRows) return (int)cudaErrorInvalidValue;
   tex_block_bc3_kernel<<<jobs, kThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
-      strips, n_rows, rows, x_hat, yf, reinterpret_cast<float4*>(out), npix);
+      strips, n_rows, rows, x_hat, yf, live, reinterpret_cast<float4*>(out),
+      npix);
   return (int)cudaGetLastError();
 }

@@ -37,9 +37,9 @@ On the card the plain, seeded and peel modes cut each tile's walk into
 spans (`span_queue` is the plain version of that work queue) that a
 persistent grid shares out, and keep the winner of each pixel as a 64-bit
 (depth, walk order) key (csrc/raster.cu). Accum mode's sums keep walk
-order, so a tile is cut by pixels instead: K2 one pixel a thread, the
-rows' common work (tests, payload decode) once a block; K1 a block per
-tile slice at 4 pixels a thread.
+order, so a tile is cut by pixels instead: one pixel a thread, the
+rows' common work (tests, payload decode) once a block, by K1's producer
+warp while the pixel warps sum the previous stage.
 
 Plane evaluation is the one numerical contract shared with the JAX
 reference: every plane is fma(a, px, b*py) + c, each step rounded to f32
@@ -544,7 +544,8 @@ def raster_tiles_cuda(pairs: BinnedPairs, config: FrameConfig,
     `init` when given, else in the mode of `peel` / `accum`, with the
     tangent channel under config.enable_vertex_tangents (as
     `raster_tiles`). The plain, seeded and peel modes launch four kernels
-    (work queue, key plane start, pass 1, resolve), accum mode one.
+    (work queue, key plane start, pass 1, resolve), accum mode one (a
+    block per 256-pixel slice of a tile, plus a producer warp).
     `raster_tiles_cuda.launches` counts the calls of every mode,
     MODE_LAUNCHES each mode's."""
     pd, offs, big = pairs.pair_data, pairs.tile_offsets, pairs.big_count

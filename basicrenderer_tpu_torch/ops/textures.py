@@ -25,8 +25,11 @@ lanes and two rows where it is nonzero: x weights max(0, 1-|l-x|) +
 max(0, 1-|l-x+128|) (the second term is the lane-127 -> 0 wrap) rounded
 to bf16, y weights in f32, byte channels as exact small integers, and
 the same two-term f32 sums, so the result is the TPU kernel's to the ulp.
-In BC3 mode the kernel decodes its window in shared memory; the plain
-version runs `bc3_decode_rows` first, as the reference does.
+In BC3 mode the kernel decodes each tap's texel from the window's block
+words in shared memory; the plain version runs `bc3_decode_rows` first,
+as the reference does. An optional `live` mask (JN, P) makes the result
+0 at dead pixels (the sampler passes its job masks, so that the kernel
+skips the jobs a frame masks away; it zeroes those pixels anyway).
 
 Not ported: the per-pixel `sample_pyramid` reference and `wanted_mips`
 (texture streaming).
@@ -421,7 +424,8 @@ def sample_pyramid_blocked_planes(strips: torch.Tensor, tex_flags: torch.Tensor,
     J = K + 1
     out = tex_block_eval(strips, rows_k.reshape(J * nb, WR_G).contiguous(),
                          x_hat.reshape(J * nb, P).contiguous(),
-                         yf.reshape(J * nb, P).contiguous(), fmt=fmt)
+                         yf.reshape(J * nb, P).contiguous(), fmt=fmt,
+                         live=jmask.reshape(J * nb, P).contiguous())
     out = out.reshape(J, nb, P, 4) / 255.0
 
     srgb = (fl_j & 1) > 0
@@ -501,7 +505,7 @@ def apply_normal_map_sampled(normal: torch.Tensor, world_pos: torch.Tensor,
 # The window evaluator: K4
 # ---------------------------------------------------------------------------
 
-def _check_inputs(strips, rows, x_hat, yf, fmt="rgba8"):
+def _check_inputs(strips, rows, x_hat, yf, fmt="rgba8", live=None):
     if strips.dtype != torch.int32 or strips.dim() != 2 or strips.shape[1] != 128:
         raise ValueError(f"strips must be (NR, 128) i32, got "
                          f"{tuple(strips.shape)} {strips.dtype}")
@@ -519,8 +523,15 @@ def _check_inputs(strips, rows, x_hat, yf, fmt="rgba8"):
                              f"{tuple(x.shape)} {x.dtype}")
     if x_hat.shape != yf.shape:
         raise ValueError("x_hat and yf differ in shape")
-    for name, x in (("strips", strips), ("rows", rows), ("x_hat", x_hat),
-                    ("yf", yf)):
+    named = [("strips", strips), ("rows", rows), ("x_hat", x_hat),
+             ("yf", yf)]
+    if live is not None:
+        if live.dtype not in (torch.bool, torch.uint8) \
+                or live.shape != x_hat.shape:
+            raise ValueError(f"live must be {tuple(x_hat.shape)} bool or "
+                             f"uint8, got {tuple(live.shape)} {live.dtype}")
+        named.append(("live", live))
+    for name, x in named:
         if x.device != strips.device:
             raise ValueError(f"{name} is on {x.device}, strips on "
                              f"{strips.device}")
@@ -530,22 +541,24 @@ def _check_inputs(strips, rows, x_hat, yf, fmt="rgba8"):
 
 def tex_block_eval(strips: torch.Tensor, rows: torch.Tensor,
                    x_hat: torch.Tensor, yf: torch.Tensor,
-                   fmt: str = "rgba8") -> torch.Tensor:
+                   fmt: str = "rgba8", live: torch.Tensor = None
+                   ) -> torch.Tensor:
     """Evaluate sampling jobs: strips (NR, 128) i32 atlas words, rows
     (JN, WR) i32 atlas rows of each job's window (24 RGBA8 texel rows, or
     7 BC3 block rows with fmt="bc3", decoded to 28 texel rows), x_hat / yf
-    (JN, P) f32 fractional tap centres in window lanes / texel rows.
-    Returns (JN, P, 4) f32 RGBA in [0, 255]. CUDA tensors launch the
+    (JN, P) f32 fractional tap centres in window lanes / texel rows,
+    `live` (JN, P) bool or uint8 (None: every pixel live). Returns (JN, P,
+    4) f32 RGBA in [0, 255], 0 where live is 0. CUDA tensors launch the
     kernel of the atlas format; CPU tensors run the plain version."""
-    _check_inputs(strips, rows, x_hat, yf, fmt)
+    _check_inputs(strips, rows, x_hat, yf, fmt, live)
     dev = strips.device
     bc = fmt == "bc3"
     if dev.type == "cuda":
         return (tex_block_eval_bc3_cuda if bc else tex_block_eval_cuda)(
-            strips, rows, x_hat, yf)
+            strips, rows, x_hat, yf, live)
     if dev.type == "cpu":
         return (tex_block_eval_bc3_plain if bc else tex_block_eval_plain)(
-            strips, rows, x_hat, yf)
+            strips, rows, x_hat, yf, live)
     raise ValueError(f"no texture sampler for device {dev}")
 
 
@@ -589,22 +602,32 @@ def _eval_window(win: torch.Tensor, x_hat: torch.Tensor,
     return out
 
 
+def _masked(out: torch.Tensor, live) -> torch.Tensor:
+    """`out` where `live` (None: everywhere), else 0."""
+    if live is None:
+        return out
+    return torch.where(live.bool()[..., None], out, 0.0)
+
+
 def tex_block_eval_plain(strips: torch.Tensor, rows: torch.Tensor,
-                         x_hat: torch.Tensor, yf: torch.Tensor) -> torch.Tensor:
+                         x_hat: torch.Tensor, yf: torch.Tensor,
+                         live: torch.Tensor = None) -> torch.Tensor:
     """Plain PyTorch version of the RGBA8 kernel (same taps, same
-    roundings)."""
-    _check_inputs(strips, rows, x_hat, yf)
-    return _eval_window(_gather_window(strips, rows), x_hat, yf)
+    roundings; 0 where `live` is 0)."""
+    _check_inputs(strips, rows, x_hat, yf, live=live)
+    return _masked(_eval_window(_gather_window(strips, rows), x_hat, yf),
+                   live)
 
 
 def tex_block_eval_bc3_plain(strips: torch.Tensor, rows: torch.Tensor,
-                             x_hat: torch.Tensor, yf: torch.Tensor
-                             ) -> torch.Tensor:
+                             x_hat: torch.Tensor, yf: torch.Tensor,
+                             live: torch.Tensor = None) -> torch.Tensor:
     """Plain PyTorch version of the BC3 kernel: the reference's separate
-    `bc3_decode_rows`, then the RGBA8 evaluation over 28 texel rows."""
-    _check_inputs(strips, rows, x_hat, yf, "bc3")
-    return _eval_window(bc3_decode_rows(_gather_window(strips, rows)),
-                        x_hat, yf)
+    `bc3_decode_rows`, then the RGBA8 evaluation over 28 texel rows (0
+    where `live` is 0)."""
+    _check_inputs(strips, rows, x_hat, yf, "bc3", live)
+    return _masked(_eval_window(bc3_decode_rows(_gather_window(strips, rows)),
+                                x_hat, yf), live)
 
 
 _tex_fns = {}
@@ -614,16 +637,18 @@ def _kernel_fn(name: str):
     if name not in _tex_fns:
         fn = getattr(cuda_build.load(SOURCE).lib, name)
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, ctypes.c_longlong, p, p, p, p, i, i, i, p]
+        fn.argtypes = [p, ctypes.c_longlong, p, p, p, p, p, i, i, i, p]
         fn.restype = ctypes.c_int
         _tex_fns[name] = fn
     return _tex_fns[name]
 
 
-def _launch(entry: str, strips, rows, x_hat, yf) -> torch.Tensor:
+def _launch(entry: str, strips, rows, x_hat, yf, live) -> torch.Tensor:
     dev = strips.device
     if dev.type != "cuda":
         raise ValueError(f"the texture kernel needs CUDA tensors, got {dev}")
+    if strips.data_ptr() % 16:
+        raise ValueError("strips must be 16-byte aligned")
     JN, WR = rows.shape
     P = x_hat.shape[1]
     out = torch.empty((JN, P, 4), dtype=torch.float32, device=dev)
@@ -633,32 +658,34 @@ def _launch(entry: str, strips, rows, x_hat, yf) -> torch.Tensor:
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(strips.data_ptr(), strips.shape[0], rows.data_ptr(),
-                 x_hat.data_ptr(), yf.data_ptr(), out.data_ptr(), JN, WR, P,
-                 stream)
+                 x_hat.data_ptr(), yf.data_ptr(),
+                 live.data_ptr() if live is not None else None,
+                 out.data_ptr(), JN, WR, P, stream)
     if err != 0:
         raise RuntimeError(f"texture kernel launch failed: CUDA error {err}")
     return out
 
 
 def tex_block_eval_cuda(strips: torch.Tensor, rows: torch.Tensor,
-                        x_hat: torch.Tensor, yf: torch.Tensor) -> torch.Tensor:
+                        x_hat: torch.Tensor, yf: torch.Tensor,
+                        live: torch.Tensor = None) -> torch.Tensor:
     """Launch the RGBA8 kernel on the current stream (no synchronisation).
     `tex_block_eval_cuda.launches` counts its launches."""
-    _check_inputs(strips, rows, x_hat, yf)
-    out = _launch("br_tex_block_eval", strips, rows, x_hat, yf)
+    _check_inputs(strips, rows, x_hat, yf, live=live)
+    out = _launch("br_tex_block_eval", strips, rows, x_hat, yf, live)
     if rows.shape[0]:
         tex_block_eval_cuda.launches += 1
     return out
 
 
 def tex_block_eval_bc3_cuda(strips: torch.Tensor, rows: torch.Tensor,
-                            x_hat: torch.Tensor, yf: torch.Tensor
-                            ) -> torch.Tensor:
-    """Launch the BC3 kernel (window gather, block decode in shared memory,
-    then the RGBA8 evaluation) on the current stream.
+                            x_hat: torch.Tensor, yf: torch.Tensor,
+                            live: torch.Tensor = None) -> torch.Tensor:
+    """Launch the BC3 kernel (window gather, each tap's texel decoded from
+    the block words in shared memory) on the current stream.
     `tex_block_eval_bc3_cuda.launches` counts its launches."""
-    _check_inputs(strips, rows, x_hat, yf, "bc3")
-    out = _launch("br_tex_block_eval_bc3", strips, rows, x_hat, yf)
+    _check_inputs(strips, rows, x_hat, yf, "bc3", live)
+    out = _launch("br_tex_block_eval_bc3", strips, rows, x_hat, yf, live)
     if rows.shape[0]:
         tex_block_eval_bc3_cuda.launches += 1
     return out

@@ -18,8 +18,10 @@ Run from the root of a checkout. Phases, one line each:
     within their tolerances (K3 on the rig's frame and on a 1024x500 case
     with tiles at 64 and 0 lights, point and spot, warps with no valid
     pixel and warps with some: its largest ulp distance, and +0.0 at every
-    invalid pixel), K4's BC3 mode on random BC3 windows and on
-    the windows of a BC3-textured 512x512 frame, K5 (the TAA history
+    invalid pixel), K4 and its BC3 mode on random windows with no live
+    mask, all pixels live, all dead and jobs partly dead (exact: 0 at the
+    dead pixels), K4's BC3 mode on the windows of a BC3-textured 512x512
+    frame, K5 (the TAA history
     warp) exact on random history at 64x256 and 1088x1920 with shifts
     past the clip limits, K1's and K2's peel and accum modes and K6 (the
     attribute resolve) exact on random 512x512 scenes with a random seed
@@ -27,8 +29,9 @@ Run from the root of a checkout. Phases, one line each:
     instances of K1's and K2's plain, seeded and peel modes and K6's
     tangent mode exact on a random 512x512 scene with a random tangent
     angle per triangle; K2's accum mode on a skewed scene (one tile's walk
-    ~6,000 rows over half the tile) at group_rows 8 and 32, its banded
-    launch also timed alone, and on the tie case;
+    ~6,000 rows over half the tile) at group_rows 8 and 32 and K1's on the
+    same scene binned per triangle, each banded launch also timed alone,
+    and both on the tie case;
  4. the 128x128 golden scene against tests/goldens/basic_deferred.png and
     against the port on the CPU; the flagship frame of
     __graft_entry__.entry() (256x128) against the port on the CPU; the
@@ -51,7 +54,9 @@ Run from the root of a checkout. Phases, one line each:
     config1_minimal (two-phase HZB occlusion, clustered lights, alpha-MASK
     pass) over the dense LOD courtyard with 1000 point lights, timed with
     per-stage CUDA events; K2, K3 and K4 timed alone against their plain
-    versions on the frame's own inputs; K3's lights per tile, the share of
+    versions on the frame's own inputs (K4 with its live jobs and pixels
+    and its bound counted with and without the live mask); K3's lights
+    per tile, the share of
     warp-light iterations its warp skip saves, its light loop's SASS
     instructions (cuobjdump) and the issue-rate floor they give;
  8. slice 3 at full size: bench.py's config4_post (GTAO, bloom, TAA,
@@ -67,9 +72,10 @@ Run from the root of a checkout. Phases, one line each:
     tex_format="bc3" after the RGBA8 buffers are freed) over the same
     courtyard with the same orbit, so VSM pages go dirty; timed with
     per-stage CUDA events; VSM pages rendered per frame and the raster
-    launches they make; K4 per format and K2's VSM page launches checked
-    and timed alone against their bounds and plain versions on a frame's
-    own inputs; atlas bytes per format; the RMSE of full_bc3 against full;
+    launches they make; K4 per format (each launch's live jobs and
+    pixels) and K2's VSM page launches checked and timed alone against
+    their bounds and plain versions on a frame's own inputs; atlas bytes
+    per format; the RMSE of full_bc3 against full;
     each format's peak memory; then `full` with a held camera until the
     VSM cache converges;
 10. slice 4 at full size: bench.py's `full_oit` (full + OIT, two layers,
@@ -492,22 +498,28 @@ def ptxas_summary(log):
     spill bytes; "cached" for a library built earlier."""
     import re
     out, name = [], None
-    # (span_tiles_kernel<16,0>, accum_groups_kernel<4>, ...: pixels per
-    # thread, mode; resolve_kernel<16,tangent>: the tangent channel.)
+    # (span_tiles_kernel<16,0>: pixels per thread, mode;
+    # resolve_kernel<16,tangent>: the tangent channel.)
     for ln in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for)"
                       r" '?(\w+)", ln)
         if m:
             mang = m.group(1)
             # The kernel's own name follows the source's namespace tag
-            # (..._raster_cu_<hash><length>span_tiles_kernel...).
-            k = re.search(r"([a-z][a-z_]*_kernel)", mang.split("_cu_")[-1])
+            # (..._raster_cu_<hash><length>span_tiles_kernel...): the
+            # first <length><name> whose name ends in _kernel.
+            tail = mang.split("_cu_")[-1]
+            k = next((tail[g.end():g.end() + int(g.group()[i:])]
+                      for g in re.finditer(r"\d+", tail)
+                      for i in range(len(g.group()))
+                      if tail[g.end():g.end() + int(g.group()[i:])]
+                      .endswith("_kernel")), None)
             # Integer template arguments as numbers, the tangent flag
             # (a bool argument) as "tangent" when set.
             args = [v if t == "i" else "tangent"
                     for t, v in re.findall(r"L([ib])(\d+)E", mang)
                     if t == "i" or v == "1"]
-            name = (k.group(1) if k else mang) + (
+            name = (k or mang) + (
                 f"<{','.join(args)}>" if args else "")
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       ln)
@@ -840,11 +852,12 @@ def rows_per_tile(torch, raster, pairs, cfg):
     return offs[1:] - offs[:-1]
 
 
-def skew_case(torch, np, dev, cfg, seed):
+def skew_case(torch, np, dev, cfg, seed, per_triangle=False):
     """Phase 3's skewed accum scene: 6144 small front-facing triangles
     inside the left half of the first 32x128 tile, then 1024 random ones
     below it, set up by the port with random payload bytes and
-    group-binned at cfg.group_rows."""
+    group-binned at cfg.group_rows (K2), or binned per triangle with
+    `per_triangle` (K1)."""
     from basicrenderer_tpu_torch.ops import raster_setup
     rng = np.random.default_rng(seed)
     busy, rest = 6144, 1024
@@ -869,6 +882,8 @@ def skew_case(torch, np, dev, cfg, seed):
         clip, idx, torch.ones(n, dtype=torch.bool, device=dev), cfg,
         None, None)
     lanes = random_payload(torch, np, lanes, seed + 1)
+    if per_triangle:
+        return raster_setup.bin_pairs(lanes, bbox, valid, cfg)
     return raster_setup.bin_groups(lanes, bbox, valid, cfg)
 
 
@@ -880,6 +895,16 @@ def skew_launch(torch, np, dev, group_rows):
     cfg512 = FrameConfig(**CFG512)
     scfg = dataclasses.replace(cfg512, group_rows=group_rows)
     return (skew_case(torch, np, dev, scfg, 24 + group_rows), scfg,
+            random_band(torch, np, 15, cfg512, dev))
+
+
+def k1_skew_launch(torch, np, dev):
+    """Phase 3's skewed K1 accum launch: (pairs, cfg, peel band), the
+    scene of skew_launch binned per triangle, the band of phase 3's random
+    512x512 scenes."""
+    from basicrenderer_tpu_torch.graph.framedata import FrameConfig
+    cfg512 = FrameConfig(**CFG512)
+    return (skew_case(torch, np, dev, cfg512, 22, per_triangle=True), cfg512,
             random_band(torch, np, 15, cfg512, dev))
 
 
@@ -895,6 +920,41 @@ def k4_check(torch, args, label, bc3=False):
     check(err <= TEX_ATOL, f"{label}: texture kernel vs plain max abs err "
           f"{err} > {TEX_ATOL}")
     return err
+
+
+def random_rgba8_windows(torch, np, seed, dev, jobs=600, npix=256,
+                         nrows=200):
+    """Random RGBA8 jobs on `dev`: random texel words, window rows (some
+    outside the atlas: the kernel clamps them) and tap centres over every
+    lane and window row, some on texel centres."""
+    from basicrenderer_tpu_torch.ops import textures
+    rng = np.random.default_rng(seed)
+    strips = rng.integers(0, 2 ** 32, (nrows, 128), dtype=np.uint64) \
+        .astype(np.uint32)
+    rows = rng.integers(-2, nrows + 2, (jobs, textures.WROWS)) \
+        .astype(np.int32)
+    x_hat = (rng.integers(0, 128, (jobs, npix))
+             + rng.uniform(0, 1, (jobs, npix))).astype(np.float32)
+    x_hat[:, :16] = np.floor(x_hat[:, :16])
+    yf = (rng.integers(0, textures.WROWS - 1, (jobs, npix))
+          + rng.uniform(0, 1, (jobs, npix))).astype(np.float32)
+    return tuple(torch.as_tensor(a, device=dev) for a in
+                 (strips.view(np.int32), rows, x_hat, yf))
+
+
+def live_masks(torch, np, seed, shape, dev):
+    """K4's `live` masks of phase 3: none given, all live, all dead, and
+    a mask with a third of the jobs dead, a third live and a third live
+    at random pixels (about half)."""
+    rng = np.random.default_rng(seed)
+    jobs = shape[0]
+    part = rng.uniform(size=shape) < 0.5
+    part[:jobs // 3] = False
+    part[jobs // 3:2 * jobs // 3] = True
+    return (("no mask", None),
+            ("all live", torch.ones(shape, dtype=torch.bool, device=dev)),
+            ("all dead", torch.zeros(shape, dtype=torch.bool, device=dev)),
+            ("partly dead", torch.as_tensor(part, device=dev)))
 
 
 def random_bc3_windows(torch, np, seed, dev, jobs=600, npix=256, nrows=200):
@@ -920,11 +980,11 @@ def random_bc3_windows(torch, np, seed, dev, jobs=600, npix=256, nrows=200):
                  (strips.view(np.int32), rows, x_hat, yf))
 
 
-def bc3_tapped(torch, x_hat, yf):
+def bc3_tapped(torch, x_hat, yf, live=None):
     """(distinct blocks, distinct texels) of the BC3 windows that the
-    pixels' taps read: two lanes (floor(x_hat) and the next, wrapping at
-    128) on two texel rows (floor(yf) and the next, inside the window's
-    BC_TEXEL_ROWS), per job."""
+    pixels' taps read (only the live pixels' with a `live` mask): two lanes
+    (floor(x_hat) and the next, wrapping at 128) on two texel rows
+    (floor(yf) and the next, inside the window's BC_TEXEL_ROWS), per job."""
     from basicrenderer_tpu_torch.ops import textures
     WR = textures.BC_TEXEL_ROWS
     jobs, pix = x_hat.shape
@@ -934,6 +994,8 @@ def bc3_tapped(torch, x_hat, yf):
     blocks, texels = [], []
     for r in (r0, r0 + 1):
         ok = (r >= 0) & (r < WR)
+        if live is not None:
+            ok = ok & live.bool()
         for lane in (l0, (l0 + 1) & 127):
             texels.append(((jid * WR + r) * 128 + lane)[ok])
             blocks.append(((jid * (WR // 4) + r // 4) * 32 + lane // 4)[ok])
@@ -942,20 +1004,45 @@ def bc3_tapped(torch, x_hat, yf):
 
 
 def k4_bound(torch, args, bc3):
-    """(bound ms, by) of one K4 launch on `args`: each distinct window row
-    read once, the per-pixel tap centres read and RGBA written; the
-    operations of the pixel evaluation and, for BC3, of decoding what the
-    taps read: the palette of each distinct block they touch and each
-    distinct texel (at most 4 a pixel)."""
+    """(bound ms, by) of one K4 launch on `args` (strips, rows, x_hat, yf
+    and the `live` mask, when given), counting what the function with the
+    mask must do: the distinct window rows and the row ids of the jobs
+    with a live pixel, the live pixels' tap centres, the mask, and every
+    RGBA written; the operations of the live pixels' evaluation and, for BC3,
+    of decoding what the live taps read: the palette of each distinct
+    block they touch and each distinct texel (at most 4 a pixel)."""
     _strips, rows, x_hat, yf = args[:4]
+    live = args[4] if len(args) > 4 else None
     jobs, pix = x_hat.shape
-    flops = jobs * pix * TEX_FLOPS_PER_PIXEL
+    if live is None:
+        live_jobs = torch.ones(jobs, dtype=torch.bool, device=rows.device)
+        live_px, mask_bytes = jobs * pix, 0
+    else:
+        live_jobs = live.bool().any(dim=1)
+        live_px, mask_bytes = int(live.bool().sum()), jobs * pix
+    njobs = int(live_jobs.sum())
+    flops = live_px * TEX_FLOPS_PER_PIXEL
     if bc3:
-        nblocks, ntexels = bc3_tapped(torch, x_hat, yf)
+        nblocks, ntexels = bc3_tapped(torch, x_hat, yf, live)
         flops += nblocks * BC3_FLOPS_PER_BLOCK + ntexels * BC3_OPS_PER_TEXEL
-    uniq = int(torch.unique(rows).numel())
-    return bound(flops, uniq * 512 + rows.numel() * 4 + x_hat.numel() * 8
-                 + jobs * pix * 16)
+    uniq = int(torch.unique(rows[live_jobs]).numel())
+    return bound(flops, uniq * 512 + njobs * rows.shape[1] * 4
+                 + live_px * 8 + mask_bytes + jobs * pix * 16)
+
+
+def k4_live_line(torch, args, bc3):
+    """A K4 launch's live jobs and pixels, its bound as k4_bound counts it
+    and as it was counted before the live mask (every job's rows and tap
+    centres, every pixel's operations)."""
+    live = args[4] if len(args) > 4 else None
+    jobs, pix = args[2].shape
+    b_ms, b_by = k4_bound(torch, args, bc3)
+    o_ms, o_by = k4_bound(torch, args[:4], bc3)
+    nj = int(live.bool().any(dim=1).sum()) if live is not None else jobs
+    npx = int(live.bool().sum()) if live is not None else jobs * pix
+    return (f"live jobs {nj} of {jobs}, live pixels {npx} of {jobs * pix}; "
+            f"bound {b_ms:.4f} {b_by} (counted over every pixel, without "
+            f"the mask: {o_ms:.4f} {o_by})")
 
 
 def k2_bound(raster, pairs, cfg, row0, init):
@@ -1123,8 +1210,9 @@ def main():
                                                 tile_h=32, tile_w=128))
     say(f"phase 2 build: {len(libs)} libraries in {time.perf_counter() - t0:.2f}"
         f" s | ptxas: {' || '.join(reports)} | raster instances launched "
-        f"(pass 1 of the split design; accum: K2 one pixel a thread, K1 the "
-        f"tile walk): " + ", ".join(occupancy) + f" | K3 tiled_shade_kernel "
+        f"(pass 1 of the split design; accum: one pixel a thread, K1 with "
+        f"a producer warp): " + ", ".join(occupancy)
+        + f" | K3 tiled_shade_kernel "
         f"1 px/thread {k3_occ} blocks/SM at 64 light slots")
 
     # -- 3. kernels vs plain on the card -----------------------------------
@@ -1183,9 +1271,14 @@ def main():
                f"{k3_skip} of {k3_all} warp-light iterations skipped; every "
                f"valid == 0 pixel +0.0)")
     res.append(("K4 rig", k4_check(torch, tc.calls[0][1], "K4 rig")))
-    res.append(("K4-BC3 random", k4_check(
-        torch, random_bc3_windows(torch, np, 11, dev), "K4-BC3 random",
-        bc3=True)))
+    for kname, windows in (("K4", random_rgba8_windows),
+                           ("K4-BC3", random_bc3_windows)):
+        wargs = windows(torch, np, 11, dev)
+        for mname, live in live_masks(torch, np, 12, tuple(wargs[2].shape),
+                                      dev):
+            label = f"{kname} random, {mname}"
+            res.append((label, k4_check(torch, wargs + (live,), label,
+                                        bc3=kname == "K4-BC3")))
     bsc, bbridge = g512_scene(np, fmt="bc3", maps=True)
     bcfg = FrameConfig(width=512, height=512, tile_h=32, tile_w=128,
                        max_pairs=1 << 15, enable_clod=True,
@@ -1242,11 +1335,34 @@ def main():
             spairs, scfg, 0, None, band, True), 20)
         s_b, s_by, s_walked, s_ops, s_bytes = mode_bound(
             torch, raster, spairs, scfg, True, s_out)
-        skews.append(f"group_rows {gr}: busiest tile {int(walk[0])} rows, "
-                     f"next {int(walk[1:].max())}, rows walked {s_walked}, "
-                     f"fragments {int(s_out[2][7].sum())}, banded launch "
-                     f"{s_ms:.4f} ms (bound {s_b:.4f} {s_by}: operations "
-                     f"{s_ops:.4f}, bytes {s_bytes:.4f})")
+        skews.append(f"K2 group_rows {gr}: busiest tile {int(walk[0])} "
+                     f"rows, next {int(walk[1:].max())}, rows walked "
+                     f"{s_walked}, fragments {int(s_out[2][7].sum())}, "
+                     f"banded launch {s_ms:.4f} ms (bound {s_b:.4f} {s_by}:"
+                     f" operations {s_ops:.4f}, bytes {s_bytes:.4f})")
+    # K1's accum mode on the same scene binned per triangle: the busiest
+    # tile walks ~6,000 own rows, then the big rows.
+    k1s_pairs, k1s_cfg, _ = k1_skew_launch(torch, np, dev)
+    offs = k1s_pairs.tile_offsets.long()
+    walk = offs[1:] - offs[:-1]
+    check(int(walk[0]) >= 5000 and int(walk[0]) > 4 * int(walk[1:].max()),
+          f"K1 skew case: own rows per tile {walk.tolist()}")
+    for mname, kw in (("accum", dict(peel=band, accum=True)),
+                      ("accum unbanded", dict(peel=None, accum=True))):
+        label = f"K1-{mname} skew512"
+        res.append((label, raster_mode_check(torch, k1s_pairs, k1s_cfg,
+                                             label, **kw)))
+    s_out = raster.raster_tiles_cuda(k1s_pairs, k1s_cfg, 0, None, band, True)
+    s_ms = cuda_ms(torch, lambda: raster.raster_tiles_cuda(
+        k1s_pairs, k1s_cfg, 0, None, band, True), 20)
+    s_b, s_by, s_walked, s_ops, s_bytes = mode_bound(
+        torch, raster, k1s_pairs, k1s_cfg, True, s_out)
+    skews.append(f"K1: busiest tile {int(walk[0])} own rows + "
+                 f"{int(k1s_pairs.big_count)} big rows, next "
+                 f"{int(walk[1:].max())} own, rows walked {s_walked}, "
+                 f"fragments {int(s_out[2][7].sum())}, banded launch "
+                 f"{s_ms:.4f} ms (bound {s_b:.4f} {s_by}: operations "
+                 f"{s_ops:.4f}, bytes {s_bytes:.4f})")
     # K1 seeded, and the tangent instances of the plain, seeded and peel
     # modes of both kernels, on the same scene with a random tangent angle
     # per triangle in lane 27 and a seed with random channels 5-7; then K6
@@ -1300,8 +1416,9 @@ def main():
                                                   for k, e in res)
         + f" (K1/K2 every mode: vis, depth and channels exact; K3 rtol "
         f"{SHADE_RTOL} atol {SHADE_ATOL}; K4 and K4-BC3 atol {TEX_ATOL} on "
-        f"0-255; K5 atol {WARP_ATOL}; K6 every output exact) | K1/K2 split "
-        f"design tie case: {ties} | K2-accum skew case: {'; '.join(skews)} "
+        f"0-255, random windows with each live mask; K5 atol {WARP_ATOL}; "
+        f"K6 every output exact) | K1/K2 split "
+        f"design tie case: {ties} | accum skew cases: {'; '.join(skews)} "
         f"| {k3_line} | CUDA launches per raster call (torch.profiler): "
         f"{per_call}")
 
@@ -1676,8 +1793,8 @@ def slice2(np, torch, dev, kernels, smi, yard, profile=False):
     k4_ms = cuda_ms(torch, lambda: textures.tex_block_eval_cuda(*a4), reps)
     _, k4_plain = host_ms(torch, lambda: textures.tex_block_eval_plain(*a4))
     k4_err = k4_check(torch, a4, "K4 1080p")
-    jobs = a4[1].shape[0]
     b4_ms, b4_by = k4_bound(torch, a4, bc3=False)
+    k4_live = k4_live_line(torch, a4, bc3=False)
     recs["K4"] = {
         "name": "tex_block_eval (K4, RGBA8)", "route": "cuda",
         "source": "basicrenderer_tpu_torch/csrc/tex_block.cu",
@@ -1700,8 +1817,7 @@ def slice2(np, torch, dev, kernels, smi, yard, profile=False):
         + f" | K2 {k2_ms:.3f} ms per frame = " + "; ".join(k2_parts)
         + f" | K3 {k3_ms:.3f} ms (bound {b3_ms:.3f} {b3_by}, plain "
         f"{k3_plain:.1f}, {pix_lights // npix} tile-lights; {k3_extra}) | "
-        f"K4 {k4_ms:.3f} ms "
-        f"(bound {b4_ms:.4f} {b4_by}, plain {k4_plain:.1f}, {jobs} jobs) | "
+        f"K4 {k4_ms:.4f} ms (plain {k4_plain:.1f}; {k4_live}) | "
         f"launches K1 {launches[0]} K2 {launches[1]} K3 {launches[2]} K4 "
         f"{launches[3]} in {n} frames | visible clusters {live[0]}, phase-2 "
         f"clusters {live[1]}, mask clusters {live[2]} | overflow bin "
@@ -2117,13 +2233,14 @@ def full_run(np, torch, dev, kernels, built, bridge, buf, fmt, orbit, recs,
         k4_ms, k4_plain, k4_bound_ms = k4_ms + ms, k4_plain + p_ms, \
             k4_bound_ms + b_ms
         k4_err = max(k4_err, err)
-        k4_parts.append(f"{part} {ms:.4f} ms (bound {b_ms:.4f} {b_by}, "
-                        f"plain {p_ms:.2f}, {a4[1].shape[0]} jobs)")
+        k4_parts.append(f"{part} {ms:.4f} ms (plain {p_ms:.2f}; "
+                        f"{k4_live_line(torch, a4, bc3)})")
     del tc
     if bc3:
         recs["K4-BC3"] = {
-            "name": "tex_block_eval_bc3 (K4, BC3 mode: window decode "
-                    "fused; per frame: mask pass + texture channels)",
+            "name": "tex_block_eval_bc3 (K4, BC3 mode: each tap's texel "
+                    "decoded from the block words; per frame: mask pass + "
+                    "texture channels)",
             "route": "cuda",
             "source": "basicrenderer_tpu_torch/csrc/tex_block.cu",
             "replaces": "basicrenderer_tpu/ops/textures.py:508 (with "

@@ -1,17 +1,22 @@
-"""K2's accum mode (the OIT tail) on a skewed scene: one tile walks more
-than 2,000 rows, all of them over the left half of the tile, so that half
-of that tile is uncovered and its other tiles are light.
+"""The accum mode (the OIT tail) of K2 and K1 on a skewed scene: one tile
+walks more than 2,000 rows, all of them over the left half of the tile,
+so that half of that tile is uncovered and its other tiles are light.
 
 On the card the accum mode cuts each tile by pixels (one pixel a thread,
 16 blocks a 32x128 tile), never by walk, because each pixel's 8 sums are
 fused multiply-adds in walk order (csrc/raster.cu). A long walk over
 deeply overlapping fragments is where a change of that order would show:
-here about 20 fragments a pixel of the busy half, up to ~60. `raster_groups_plain(accum=True)`
-must equal the JAX package's Pallas group kernel (interpret mode) and its
-jitted reference twin exactly (vis, depth and all 8 channels), with and
-without a peel band, at group_rows 8 and 16. The CUDA kernel against the
-plain version on the same scenes is marked `cuda` and skips without a
-card.
+here about 20 fragments a pixel of the busy half, up to ~60.
+- K2: `raster_groups_plain(accum=True)` must equal the JAX package's
+  Pallas group kernel (interpret mode) and its jitted reference twin
+  exactly (vis, depth and all 8 channels), with and without a peel band,
+  at group_rows 8 and 16.
+- K1: the same triangles binned per triangle; `raster_tiles_plain(accum=
+  True)` must equal the jitted reference twin `raster_tiles_ref` exactly
+  (the Pallas K1 walks from its 128-row slab and counts some rows twice:
+  tests/test_torch_raster.py), with and without a peel band.
+The CUDA kernels against the plain versions on the same scenes are marked
+`cuda` and skip without a card.
 """
 
 import numpy as np
@@ -118,6 +123,50 @@ def test_skewed_accum_matches_jax(cases, group_rows, banded):
     assert (count[16:] > 0).any()
 
 
+def skewed_k1_case():
+    """(JAX config, port config, JAX BinnedPairs with the accum payload,
+    port BinnedPairs, peel band as numpy): the skewed triangles binned
+    per triangle."""
+    rng = np.random.default_rng(40)
+    jc = JConfig(**KW)
+    setup = setup_from_clip(skewed_clip(rng), jc)
+    jpairs = jrs.bin_triangles(setup, jc)
+    jpairs = jpairs._replace(pair_data=jnp.asarray(
+        with_payload(rng, jpairs.pair_data)))
+    pc = PConfig(**KW)
+    ppairs = interop.binned_pairs(
+        {f: np.asarray(getattr(jpairs, f)) for f in jpairs._fields},
+        device="cpu")
+    band = peel_band(rng, pc.padded_height, pc.padded_width)
+    return jc, pc, jpairs, ppairs, band
+
+
+@pytest.fixture(scope="module")
+def k1_case():
+    return skewed_k1_case()
+
+
+@pytest.mark.parametrize("banded", [True, False], ids=["banded", "unbanded"])
+def test_skewed_k1_accum_matches_jax_reference(k1_case, banded):
+    jc, pc, jpairs, ppairs, band = k1_case
+    offs = ppairs.tile_offsets.long()
+    rows = (offs[1:] - offs[:-1]).tolist()
+    assert rows[0] >= MIN_WALK and max(rows[1:]) < MIN_WALK // 4, rows
+    jband = tuple(jnp.asarray(b) for b in band) if banded else None
+    rd, rch = (np.asarray(x) for x in jax.jit(
+        lambda p, b: raster_tiles_ref(p, jc, peel=b, accum=True))(
+            jpairs, jband))
+    pband = tuple(torch.as_tensor(b) for b in band) if banded else None
+    pd, pv, pch = (x.numpy() for x in praster.raster_tiles_plain(
+        ppairs, pc, peel=pband, accum=True))
+    assert not pv.any()
+    np.testing.assert_array_equal(pd, rd)
+    np.testing.assert_array_equal(pch, rch)
+    count = pch[7]
+    assert count[:16, :64].mean() > 15 and count[:16, 64:].max() == 0
+    assert (count[16:] > 0).any()
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -143,5 +192,24 @@ def test_cuda_skewed_accum_matches_plain(cuda_device, cases, group_rows,
     torch.cuda.synchronize()
     assert count.launches == before + 1
     want = praster.raster_groups_plain(pairs, pc, peel=peel, accum=True)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("banded", [True, False], ids=["banded", "unbanded"])
+def test_cuda_skewed_k1_accum_matches_plain(cuda_device, k1_case, banded):
+    """K1's accum kernel on the skewed scene vs the plain version: vis,
+    depth and all 8 channels exact, one launch."""
+    _, pc, _, ppairs, band = k1_case
+    pairs = type(ppairs)(*(x.to(cuda_device) for x in ppairs))
+    peel = (tuple(torch.as_tensor(b, device=cuda_device) for b in band)
+            if banded else None)
+    count = praster.MODE_LAUNCHES[("K1", "accum")]
+    before = count.launches
+    got = praster.raster_tiles(pairs, pc, peel=peel, accum=True)
+    torch.cuda.synchronize()
+    assert count.launches == before + 1
+    want = praster.raster_tiles_plain(pairs, pc, peel=peel, accum=True)
     for g, w in zip(got, want):
         assert torch.equal(g, w)

@@ -15,8 +15,13 @@ the JAX package on the CPU.
   2e-2 on [0, 1] (that path rounds the x-reduced window to bf16, the
   tolerance of tests/test_textures_bc.py);
 - _ddx / _ddy equal; apply_normal_map_sampled (derivative frame and
-  explicit frame) <= 1e-5.
-The CUDA kernel's BC3 comparison with its plain version is marked `cuda`.
+  explicit frame) <= 1e-5;
+- the BC3 kernel's per-tap decode: each tap's texel decoded alone from its
+  block's four words (the kernel's addressing and texel decode, emulated)
+  equals bc3_decode_rows(window)[row, lane], for every tap of random tap
+  centres; K4's BC3 plain version with a `live` mask equals the unmasked
+  result where live and 0 where not.
+The CUDA kernel's BC3 comparisons with its plain version are marked `cuda`.
 """
 
 import numpy as np
@@ -173,6 +178,86 @@ def test_bc3_window_eval_plain_matches_pallas_interpret():
     assert p.max() > 200
 
 
+def bc3_texel(words, yy, sx):
+    """One texel of a BC3 block from its four words (u32 values in i64,
+    (..., 4)), row yy and column sx (0-3), spelled as csrc/tex_block.cu's
+    bc3_texel: the 565 expand, the 4-colour palette weight and the 8-step
+    alpha palette, each lerp in f32 rounded half to even to a byte."""
+    f32 = torch.float32
+    a_lo, a_hi, c_end, c_idx = words.unbind(-1)
+    t = 4 * yy + sx
+    q0, q1 = c_end & 0xFFFF, c_end >> 16
+    k31 = torch.tensor(255.0 / 31.0, dtype=f32)
+    k63 = torch.tensor(255.0 / 63.0, dtype=f32)
+    ci = (c_idx >> (2 * t)) & 3
+    w0 = torch.tensor([1.0, 0.0, 2.0 / 3.0, 1.0 / 3.0], dtype=f32)[ci]
+
+    def q8(x):
+        return torch.clamp(torch.round(x), 0, 255).to(torch.int64)
+
+    def lerp8(c0, c1):
+        return q8(c0 * w0 + c1 * (1.0 - w0))
+
+    def expand(q, shift, mask, k):
+        return ((q >> shift) & mask).to(f32) * k
+
+    rr = lerp8(expand(q0, 11, 31, k31), expand(q1, 11, 31, k31))
+    gg = lerp8(expand(q0, 5, 63, k63), expand(q1, 5, 63, k63))
+    bb = lerp8(expand(q0, 0, 31, k31), expand(q1, 0, 31, k31))
+    low = (a_lo >> 16) | ((a_hi & 0xFFFF) << 16)
+    hi16 = a_hi >> 16
+    bp = 3 * t
+    ai = torch.where(
+        bp <= 29, (low >> torch.clamp(bp, max=29)) & 7,
+        torch.where(bp == 30, ((low >> 30) & 3) | ((hi16 & 1) << 2),
+                    (hi16 >> torch.clamp(bp - 32, min=0)) & 7))
+    a0, a1 = (a_lo & 0xFF).to(f32), ((a_lo >> 8) & 0xFF).to(f32)
+    af = ai.to(f32)
+    a = torch.where(ai == 0, a0, torch.where(
+        ai == 1, a1, (a0 * (8.0 - af) + a1 * (af - 1.0))
+        * torch.tensor(1.0 / 7.0, dtype=f32)))
+    return rr | (gg << 8) | (bb << 16) | (q8(a) << 24)
+
+
+def test_bc3_per_tap_decode_reads_the_decoded_window_texel():
+    strips, rows, x_hat, yf = _bc3_windows(3, jobs=40)
+    win = torch.as_tensor(strips.view(np.int32))[torch.as_tensor(rows).long()]
+    texels = pt.bc3_decode_rows(win).long() & 0xFFFFFFFF   # (J, 28, 128)
+    words = win.long() & 0xFFFFFFFF                         # (J, 7, 128)
+    J, P = x_hat.shape
+    jid = torch.arange(J)[:, None].expand(J, P)
+    l0 = torch.floor(torch.as_tensor(x_hat)).long() & 127
+    r0 = torch.floor(torch.as_tensor(yf)).long()
+    taps = 0
+    for r in (r0, r0 + 1):
+        ok = r < pt.BC_TEXEL_ROWS
+        for lane in (l0, (l0 + 1) & 127):
+            j, rr, ll = jid[ok], r[ok], lane[ok]
+            # The kernel's address: block row r / 4, the block's four words
+            # from lane & ~3; the texel's row and column inside the block.
+            base = (ll & ~3)[:, None] + torch.arange(4)
+            blk = words[j[:, None], (rr // 4)[:, None], base]
+            got = bc3_texel(blk, rr % 4, ll % 4)
+            assert torch.equal(got, texels[j, rr, ll])
+            taps += int(ok.sum())
+    assert taps > 3 * J * P
+
+
+def test_bc3_window_eval_live_mask_zeroes_dead_pixels():
+    args = _torch_args(*_bc3_windows(4))
+    rng = np.random.default_rng(6)
+    live = rng.uniform(size=tuple(args[2].shape)) < 0.5
+    live[:8] = False
+    live[8:16] = True
+    live = torch.as_tensor(live)
+    full = pt.tex_block_eval(*args, fmt="bc3")
+    got = pt.tex_block_eval(*args, fmt="bc3", live=live)
+    assert torch.equal(got, torch.where(live[..., None], full, 0.0))
+    assert torch.equal(pt.tex_block_eval(*args, fmt="bc3",
+                                         live=live.to(torch.uint8)), got)
+    assert (got[~live] == 0).all() and (got[live] > 0).any()
+
+
 def _planes(seed, h=40, w=56, K=2, scale=1.0):
     """Smooth UV planes and layer ids with holes and a layer boundary
     (tests/test_torch_textures.py's generator, scaled)."""
@@ -295,3 +380,20 @@ def test_cuda_bc3_window_eval_matches_plain(cuda_device):
     assert pt.tex_block_eval_bc3_cuda.launches == before + 1
     torch.testing.assert_close(k, pt.tex_block_eval_bc3_plain(*args), rtol=0,
                                atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_cuda_bc3_window_eval_with_live_matches_plain(cuda_device):
+    """The BC3 kernel with a live mask (jobs all live, all dead, partly
+    dead) vs the plain version: exact, one launch."""
+    args = _torch_args(*_bc3_windows(5, jobs=300), device=cuda_device)
+    rng = np.random.default_rng(7)
+    live = rng.uniform(size=tuple(args[2].shape)) < 0.5
+    live[:100] = False
+    live[100:200] = True
+    live = torch.as_tensor(live, device=cuda_device)
+    before = pt.tex_block_eval_bc3_cuda.launches
+    k = pt.tex_block_eval(*args, fmt="bc3", live=live)
+    torch.cuda.synchronize()
+    assert pt.tex_block_eval_bc3_cuda.launches == before + 1
+    assert torch.equal(k, pt.tex_block_eval_bc3_plain(*args, live=live))

@@ -9,8 +9,11 @@ sampler, its window evaluator (K4) and the bilinear upsample.
   its frame takes on the CPU): rtol = atol = 2e-2 on [0, 1], the
   tolerance of tests/test_textures_bc.py (that path rounds the x-reduced
   window to bf16);
-- resize_bilinear vs jax.image.resize(..., "bilinear"): atol 1e-6.
-The CUDA kernel's comparison with the plain version is marked `cuda`.
+- resize_bilinear vs jax.image.resize(..., "bilinear"): atol 1e-6;
+- K4's `live` mask: the plain version with a mask equals the unmasked
+  result where live and 0 where not, with jobs all live, all dead and
+  partly dead (bool and uint8 masks alike).
+The CUDA kernel's comparisons with the plain version are marked `cuda`.
 """
 
 import numpy as np
@@ -86,6 +89,31 @@ def test_window_eval_plain_matches_pallas_interpret(seed):
     assert p.shape == (jobs, P, 4)
     np.testing.assert_allclose(p, j, rtol=0, atol=1e-3)
     assert p.max() > 200
+
+
+def live_mask(seed, jobs, P):
+    """(jobs, P) bool: the first third of the jobs dead, the second live,
+    the rest live at random pixels (about half)."""
+    rng = np.random.default_rng(seed)
+    m = rng.uniform(size=(jobs, P)) < 0.5
+    m[:jobs // 3] = False
+    m[jobs // 3:2 * jobs // 3] = True
+    return m
+
+
+def test_window_eval_live_mask_zeroes_dead_pixels():
+    args = _torch_args(*_windows(2))
+    live = torch.as_tensor(live_mask(3, *args[2].shape))
+    full = pt.tex_block_eval(*args)
+    got = pt.tex_block_eval(*args, live=live)
+    assert torch.equal(got, torch.where(live[..., None], full, 0.0))
+    assert torch.equal(pt.tex_block_eval(*args, live=live.to(torch.uint8)),
+                       got)
+    assert torch.equal(pt.tex_block_eval(*args, live=torch.ones_like(live)),
+                       full)
+    assert (got[~live] == 0).all() and (got[live] > 0).any()
+    with pytest.raises(ValueError, match="live"):
+        pt.tex_block_eval(*args, live=live[:, :10].contiguous())
 
 
 def _planes(seed, h=40, w=56, K=2):
@@ -176,3 +204,16 @@ def test_cuda_window_eval_matches_plain(cuda_device):
     assert pt.tex_block_eval_cuda.launches == before + 1
     torch.testing.assert_close(k, pt.tex_block_eval_plain(*args), rtol=0,
                                atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_cuda_window_eval_with_live_matches_plain(cuda_device):
+    """The kernel with a live mask (jobs all live, all dead, partly dead)
+    vs the plain version: exact, one launch."""
+    args = _torch_args(*_windows(4, jobs=300), device=cuda_device)
+    live = torch.as_tensor(live_mask(5, *args[2].shape), device=cuda_device)
+    before = pt.tex_block_eval_cuda.launches
+    k = pt.tex_block_eval(*args, live=live)
+    torch.cuda.synchronize()
+    assert pt.tex_block_eval_cuda.launches == before + 1
+    assert torch.equal(k, pt.tex_block_eval_plain(*args, live=live))

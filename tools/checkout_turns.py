@@ -15,19 +15,25 @@ _build/ at first use, and times WORKLOAD:
   enable_occlusion, the low camera orbiting);
 - `kernels`: first, in a process of its own, this script's checkout
   captures the inputs into DIR (default: a new temporary directory,
-  outside any checkout): the arguments of K3 in chip_smoke.py's phase-7
-  frame (config1_minimal over the dense LOD courtyard, after its warm and
-  timed frames), the K2 accum launch of its phase-10 frame (full_oit over
-  the courtyard with a glass and an alpha-MASK material, along phase 10's
-  orbit) and phase 3's skewed K2 accum launch (one tile walking ~6,000
-  rows over half the tile, group_rows 32, banded), with their plain
-  versions' outputs. Each ROOT's K3 and K2-accum wrappers are then timed
-  on them by CUDA events and held to the plain outputs (K3 within
-  chip_smoke.py's SHADE_RTOL / SHADE_ATOL, with its largest ulp distance;
-  K2 accum exactly), and ROOT's config1_minimal (phase 7) and full_oit
-  (phase 10) frames are timed.
+  outside any checkout): K4's launches of one `full` and one `full_bc3`
+  frame (chip_smoke.py's phase 9: the dense LOD courtyard, the RGBA8
+  bridge, then a second bridge with tex_format="bc3", each after
+  SLICE3B_FRAMES frames along the orbit from the courtyard's camera; a
+  frame launches K4 for the alpha-MASK pass and for the texture
+  channels), the K1 accum launch of a full_oit frame with
+  group_binning=False and no occlusion (phase 10's K1 variant, after its
+  frames), phase 3's skewed K1 accum launch (one tile walking ~6,000 rows
+  over half the tile, banded) and phase 3's skewed K2 accum launch
+  (group_rows 32, banded), with their plain versions' outputs. Each
+  ROOT's K4 wrappers are then timed on the K4 launches (by ROOT's
+  chip_smoke.py `cuda_ms`: CUDA events around back-to-back launches) and
+  held to the plain outputs at the live pixels (a wrapper that takes the
+  `live` mask gets it; an older one evaluates every pixel), its K1 and K2
+  accum wrappers on theirs and held to them exactly, and ROOT's `full`,
+  `full_bc3` and full_oit (K1 variant) frames are timed.
 
-Frames are timed with chip_smoke.py's warm and timed frame counts: the
+Frames are timed with chip_smoke.py's warm and timed frame counts (the
+full_oit K1 variant with OIT_K1_FRAMES): the
 host clock around each frame, which ends in a synchronise, and the stage
 medians by CUDA events. The script prints the card's name and power limit,
 one JSON line per ROOT and then `compare`'s lines for the first two ROOTs:
@@ -47,8 +53,9 @@ import sys
 import tempfile
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-K3_REPS, ACCUM_REPS = 20, 20
+KERNEL_REPS = 20
 SKEW_GROUP_ROWS = 32
+OIT_K1_FRAMES = (1, 4)     # full_oit with group_binning=False: warm, timed
 
 
 def _import_root(root):
@@ -61,64 +68,128 @@ def _cpu(xs):
     return [x.detach().cpu() for x in xs]
 
 
+def _full_buffers(np, torch, dev, cs, yard, fmt):
+    """The courtyard's buffers with the procedural environment for
+    bench.py's `full` (fmt "rgba8": the courtyard's own bridge; "bc3": a
+    second bridge with tex_format="bc3"): (bridge, buffers)."""
+    from basicrenderer_tpu_torch.models.environment import Environment
+    from basicrenderer_tpu_torch.scene.bridge import SceneRenderBridge
+    built, bridge = yard[0], yard[1]
+    env = Environment.procedural(device=dev, use_cache=False)
+    if fmt == "rgba8":
+        buf = dataclasses.replace(
+            yard[2], env_sh=torch.as_tensor(env.sh, device=dev),
+            env_specular=torch.as_tensor(env.spec_mips, device=dev))
+        return bridge, buf
+    bridge_bc = SceneRenderBridge(built.scene, built.meshes, built.materials,
+                                  bridge.caps, textures=bridge.textures,
+                                  tex_format="bc3")
+    return bridge_bc, bridge_bc.build_scene_buffers(
+        env_sh=env.sh, env_specular=env.spec_mips, device=dev)
+
+
+def _frames(np, torch, dev, cs, yard, capture_k4=False):
+    """ROOT's `full`, `full_bc3` and full_oit (K1 variant) frames over the
+    courtyard `yard`: {name: (frame ms, stage ms medians)}, and with
+    `capture_k4` the K4 launches (name, args, kwargs, output) of one more
+    frame of each format after its timed ones."""
+    from basicrenderer_tpu_torch.graph.frame import build_frame_fn
+    from basicrenderer_tpu_torch.graph.framedata import FrameConfig
+    from basicrenderer_tpu_torch.graph.temporal import TemporalState
+    from basicrenderer_tpu_torch.ops import textures
+    built = yard[0]
+    orbit = (built.scene.camera_matrices(aspect=16 / 9)[2].copy(),
+             np.asarray(built.scene._camera_target, np.float64), 16 / 9)
+    out, calls = {}, {}
+    for fmt, name in (("rgba8", "full"), ("bc3", "full_bc3")):
+        bridge, buf = _full_buffers(np, torch, dev, cs, yard, fmt)
+        if fmt == "rgba8":
+            yard[2] = None
+        cfg = FrameConfig(**cs.CONFIG1_MINIMAL, **cs.FULL, tex_format=fmt)
+        fr = build_frame_fn(cfg)
+        temporal = TemporalState(cfg, device=dev)
+        warm, timed = cs.SLICE3B_FRAMES
+        _o, ms, _i, stages = cs.timed_frames(
+            torch, np, fr, buf, built.scene, bridge, temporal, warm, timed,
+            orbit)
+        out[name] = (ms, stages)
+        del _o
+        if capture_k4:
+            entry = ("tex_block_eval_bc3_cuda" if fmt == "bc3"
+                     else "tex_block_eval_cuda")
+            with cs.Capture(textures, [entry]) as tc:
+                cs.timed_frames(torch, np, fr, buf, built.scene, bridge,
+                                temporal, 1, 0, orbit, first=warm + timed)
+            torch.cuda.synchronize()
+            if len(tc.calls) != 2:
+                raise RuntimeError(f"{name}: captured {len(tc.calls)} K4 "
+                                   "launches, not 2")
+            calls[name] = tc.calls
+        del buf, fr, temporal
+        torch.cuda.empty_cache()
+    bridge_oit, buf_oit, _ = cs.oit_courtyard(np, torch, dev, yard)
+    ocfg = dataclasses.replace(
+        FrameConfig(**cs.CONFIG1_MINIMAL, **cs.FULL, **cs.FULL_OIT),
+        group_binning=False, enable_occlusion=False, max_pairs=1 << 22)
+    res = cs.oit_frames(np, torch, dev, (), built, bridge_oit, buf_oit,
+                        ocfg, orbit, OIT_K1_FRAMES, "raster_tiles_cuda")
+    out["full_oit_k1"] = (res[1], res[3])
+    calls["full_oit_k1"] = res[7]
+    return out, calls
+
+
 def capture(scratch):
-    """Phase 7's K3 arguments, phase 10's K2 accum launch and phase 3's
-    skewed accum launch, by this checkout, with their plain outputs, into
-    scratch/inputs.pt."""
+    """K4's launches of a `full` and a `full_bc3` frame, the K1 accum
+    launch of a full_oit frame with group_binning=False, phase 3's skewed
+    K1 and K2 accum launches, by this checkout, with their plain outputs,
+    into scratch/inputs.pt."""
     import numpy as np
     import torch
     cs = _import_root(REPO)
-    from basicrenderer_tpu_torch.graph.frame import build_frame_fn
-    from basicrenderer_tpu_torch.graph.framedata import (FrameConfig,
-                                                         FrameParams, make_view)
-    from basicrenderer_tpu_torch.graph.temporal import TemporalState
-    from basicrenderer_tpu_torch.ops import lighting, raster
+    from basicrenderer_tpu_torch.ops import raster, raster_setup, textures
     dev = torch.device("cuda", 0)
     yard = list(cs.courtyard(np, torch, dev))
-    built, bridge, buf = yard[0], yard[1], yard[2]
-    cfg = FrameConfig(**cs.CONFIG1_MINIMAL)
-    fr = build_frame_fn(cfg)
-    out, *_ = cs.timed_frames(torch, np, fr, buf, built.scene, bridge,
-                              TemporalState(cfg, device=dev),
-                              *cs.SLICE2_FRAMES)
-    view = make_view(*built.scene.camera_matrices(aspect=16 / 9), device=dev)
-    with cs.Capture(lighting, ["tiled_shade_cuda"]) as lc:
-        fr(buf, view, FrameParams.default(dev),
-           prev_depth=out["depth_padded"])
-    torch.cuda.synchronize()
-    k3_args = lc.calls[0][1]
-    k3_plain = lighting.tiled_shade_plain(*k3_args)
-    del out, fr, buf
-    orbit = (built.scene.camera_matrices(aspect=16 / 9)[2].copy(),
-             np.asarray(built.scene._camera_target, np.float64), 16 / 9)
-    bridge_oit, buf_oit, _ = cs.oit_courtyard(np, torch, dev, yard)
-    ocfg = FrameConfig(**cs.CONFIG1_MINIMAL, **cs.FULL, **cs.FULL_OIT)
-    calls = cs.oit_frames(np, torch, dev, (), built, bridge_oit, buf_oit,
-                          ocfg, orbit, cs.SLICE4_FRAMES,
-                          "raster_groups_cuda")[7]
-    acc = [c for c in calls if c[1][-2] is not None and bool(c[1][-1])]
+    _times, calls = _frames(np, torch, dev, cs, yard, capture_k4=True)
+    k4 = []
+    for name in ("full", "full_bc3"):
+        bc3 = name == "full_bc3"
+        plain = (textures.tex_block_eval_bc3_plain if bc3
+                 else textures.tex_block_eval_plain)
+        for part, (_n, a, _kw, _o) in zip(("mask", "channels"), calls[name]):
+            k4.append({"label": f"{name} {part}", "bc3": bc3,
+                       "args": _cpu(a), "plain": plain(*a).cpu()})
+    acc = [c for c in calls["full_oit_k1"]
+           if c[1][-2] is not None and bool(c[1][-1])]
     if len(acc) != 1:
-        raise RuntimeError(f"captured {len(acc)} K2 accum launches, not 1")
+        raise RuntimeError(f"captured {len(acc)} K1 accum launches, not 1")
     pairs, acfg, row0, _init, peel, _ = acc[0][1]
-    spairs, scfg, band = cs.skew_launch(torch, np, dev, SKEW_GROUP_ROWS)
+    k1s_pairs, k1s_cfg, k1s_band = cs.k1_skew_launch(torch, np, dev)
+    k2s_pairs, k2s_cfg, k2s_band = cs.skew_launch(torch, np, dev,
+                                                  SKEW_GROUP_ROWS)
 
-    def launch(p, c, r0, b):
+    def launch(p, c, r0, b, plain_fn):
+        if isinstance(p, raster_setup.BinnedPairs):
+            # The rows a launch can read: the big list and the tiles'
+            # ranges (the capacity's tail is never read).
+            keep = max(int(p.tile_offsets.max()), int(p.big_count), 1)
+            p = p._replace(pair_data=p.pair_data[:keep].contiguous())
         return {"pairs": _cpu(p), "cfg": dataclasses.asdict(c),
                 "tile_row0": int(r0), "peel": _cpu(b),
-                "plain": _cpu(raster.raster_groups_plain(p, c, r0, None, b,
-                                                         True))}
+                "plain": _cpu(plain_fn(p, c, r0, None, b, True))}
 
     torch.save({
-        "k3": {"args": _cpu(k3_args[:4]),
-               "cfg": dataclasses.asdict(k3_args[4]),
-               "plain": k3_plain.cpu()},
-        "accum": launch(pairs, acfg, row0, peel),
-        "accum_skew": launch(spairs, scfg, 0, band),
+        "k4": k4,
+        "k1_accum": launch(pairs, acfg, row0, peel, raster.raster_tiles_plain),
+        "k1_accum_skew": launch(k1s_pairs, k1s_cfg, 0, k1s_band,
+                                raster.raster_tiles_plain),
+        "k2_accum_skew": launch(k2s_pairs, k2s_cfg, 0, k2s_band,
+                                raster.raster_groups_plain),
     }, os.path.join(scratch, "inputs.pt"))
     return {"captured": os.path.join(scratch, "inputs.pt"),
-            "tile_lights": int(k3_args[2].long().sum()),
-            "accum_pairs": int(pairs.num_pairs),
-            "skew_pairs": int(spairs.num_pairs)}
+            "k4_jobs": {d["label"]: int(d["args"][1].shape[0]) for d in k4},
+            "k1_accum_pairs": int(pairs.num_pairs),
+            "k1_skew_pairs": int(k1s_pairs.num_pairs),
+            "k2_skew_pairs": int(k2s_pairs.num_pairs)}
 
 
 def one_soup(cs, root, _scratch):
@@ -153,67 +224,59 @@ def one_soup(cs, root, _scratch):
 
 
 def one_kernels(cs, root, scratch):
-    """Root's K3 and K2-accum on the saved inputs and root's config1 and
-    full_oit frames; returns the JSON record."""
+    """Root's K4, K1 accum and K2 accum wrappers on the saved inputs and
+    root's `full`, `full_bc3` and full_oit (K1 variant) frames; returns the
+    JSON record."""
+    import inspect
     import numpy as np
     import torch
-    from basicrenderer_tpu_torch.graph.frame import build_frame_fn
     from basicrenderer_tpu_torch.graph.framedata import FrameConfig
-    from basicrenderer_tpu_torch.graph.temporal import TemporalState
-    from basicrenderer_tpu_torch.ops import lighting, raster, raster_setup
+    from basicrenderer_tpu_torch.ops import raster, raster_setup, textures
     from basicrenderer_tpu_torch.utils import cuda_build
     dev = torch.device("cuda", 0)
-    cuda_build.build_all([lighting.SOURCE, raster.SOURCE])
+    cuda_build.build_all([raster.SOURCE, textures.SOURCE])
     saved = torch.load(os.path.join(scratch, "inputs.pt"), weights_only=False)
     rec = {"root": root}
 
-    k3 = saved["k3"]
-    a3 = tuple(x.to(dev) for x in k3["args"]) + (FrameConfig(**k3["cfg"]),)
-    got = lighting.tiled_shade_cuda(*a3)
-    want = k3["plain"].to(dev)
-    torch.testing.assert_close(got, want, rtol=cs.SHADE_RTOL,
-                               atol=cs.SHADE_ATOL)
-    rec["k3_ms"] = cs.cuda_ms(torch, lambda: lighting.tiled_shade_cuda(*a3),
-                              K3_REPS)
-    rec["k3_max_abs_err"] = float((got - want).abs().max())
-    rec["k3_max_ulp"] = cs.max_ulp(torch, got, want) \
-        if hasattr(cs, "max_ulp") else None
+    for d in saved["k4"]:
+        fn = (textures.tex_block_eval_bc3_cuda if d["bc3"]
+              else textures.tex_block_eval_cuda)
+        args = tuple(x.to(dev) for x in d["args"])
+        live = args[4].bool()
+        if "live" not in inspect.signature(fn).parameters:
+            args = args[:4]
+        got = fn(*args)
+        want = d["plain"].to(dev)
+        if not torch.equal(got[live], want[live]):
+            raise RuntimeError(f"{root}: K4 {d['label']} differs from plain "
+                               "at live pixels")
+        rec[f"k4 {d['label']} ms"] = cs.cuda_ms(torch, lambda: fn(*args),
+                                               KERNEL_REPS)
 
-    for key in ("accum", "accum_skew"):
+    for key, kind in (("k1_accum", "K1"), ("k1_accum_skew", "K1"),
+                      ("k2_accum_skew", "K2")):
         acc = saved[key]
-        pairs = raster_setup.GroupBinnedPairs(*(x.to(dev)
-                                                for x in acc["pairs"]))
+        pt = (raster_setup.BinnedPairs if kind == "K1"
+              else raster_setup.GroupBinnedPairs)
+        fn = (raster.raster_tiles_cuda if kind == "K1"
+              else raster.raster_groups_cuda)
+        pairs = pt(*(x.to(dev) for x in acc["pairs"]))
         acfg = FrameConfig(**acc["cfg"])
         peel = tuple(x.to(dev) for x in acc["peel"])
 
         def run():
-            return raster.raster_groups_cuda(pairs, acfg, acc["tile_row0"],
-                                             None, peel, True)
+            return fn(pairs, acfg, acc["tile_row0"], None, peel, True)
         for g, w in zip(run(), acc["plain"]):
             if not torch.equal(g, w.to(dev)):
-                raise RuntimeError(f"{root}: K2 {key} differs from plain")
-        rec[f"k2_{key}_ms"] = cs.cuda_ms(torch, run, ACCUM_REPS)
+                raise RuntimeError(f"{root}: {kind} {key} differs from plain")
+        rec[f"{key}_ms"] = cs.cuda_ms(torch, run, KERNEL_REPS)
+    del saved
 
     yard = list(cs.courtyard(np, torch, dev))
-    built, bridge, buf = yard[0], yard[1], yard[2]
-    cfg = FrameConfig(**cs.CONFIG1_MINIMAL)
-    _o, ms, _i, stages = cs.timed_frames(
-        torch, np, build_frame_fn(cfg), buf, built.scene, bridge,
-        TemporalState(cfg, device=dev), *cs.SLICE2_FRAMES)
-    rec["config1"] = {"median_ms": statistics.median(ms), "frame_ms": ms,
-                      "tiled_shade_ms": stages.get("tiled_shade")}
-    del _o, buf
-    yard[2] = None
-    orbit = (built.scene.camera_matrices(aspect=16 / 9)[2].copy(),
-             np.asarray(built.scene._camera_target, np.float64), 16 / 9)
-    bridge_oit, buf_oit, _ = cs.oit_courtyard(np, torch, dev, yard)
-    ocfg = FrameConfig(**cs.CONFIG1_MINIMAL, **cs.FULL, **cs.FULL_OIT)
-    res = cs.oit_frames(np, torch, dev, (), built, bridge_oit, buf_oit, ocfg,
-                        orbit, cs.SLICE4_FRAMES, "raster_groups_cuda")
-    ms, stages = res[1], res[3]
-    rec["full_oit"] = {"median_ms": statistics.median(ms), "frame_ms": ms,
-                       "tiled_shade_ms": stages.get("tiled_shade"),
-                       "oit_accum_ms": stages.get("oit_accum")}
+    times, _ = _frames(np, torch, dev, cs, yard)
+    for name, (ms, stages) in times.items():
+        rec[name] = {"median_ms": statistics.median(ms), "frame_ms": ms,
+                     "stage_ms": stages}
     return rec
 
 
@@ -230,16 +293,23 @@ WORKLOADS = {
     "soup": (one_soup, None, (
         ("soup ms/frame", _get("soup", "median_ms")),
         ("soup_occlusion ms/frame", _get("soup_occlusion", "median_ms")))),
-    "kernels": (one_kernels, capture, (
-        ("K3 ms", _get("k3_ms")),
-        ("K2-accum ms (phase 10 launch)", _get("k2_accum_ms")),
-        ("K2-accum ms (phase 3 skew launch)", _get("k2_accum_skew_ms")),
-        ("config1 ms/frame", _get("config1", "median_ms")),
-        ("config1 tiled_shade stage ms", _get("config1", "tiled_shade_ms")),
-        ("full_oit ms/frame", _get("full_oit", "median_ms")),
-        ("full_oit tiled_shade stage ms", _get("full_oit",
-                                               "tiled_shade_ms")),
-        ("full_oit oit_accum stage ms", _get("full_oit", "oit_accum_ms")))),
+    "kernels": (one_kernels, capture, tuple(
+        (f"K4 {fmt} {part} ms", _get(f"k4 {fmt} {part} ms"))
+        for fmt in ("full", "full_bc3") for part in ("mask", "channels"))
+        + (("K1-accum ms (phase 10 K1-variant launch)", _get("k1_accum_ms")),
+           ("K1-accum ms (phase 3 skew launch)", _get("k1_accum_skew_ms")),
+           ("K2-accum ms (phase 3 skew launch)", _get("k2_accum_skew_ms")),
+           ("full ms/frame", _get("full", "median_ms")),
+           ("full textures stage ms", _get("full", "stage_ms", "textures")),
+           ("full mask stage ms", _get("full", "stage_ms", "mask")),
+           ("full_bc3 ms/frame", _get("full_bc3", "median_ms")),
+           ("full_bc3 textures stage ms", _get("full_bc3", "stage_ms",
+                                               "textures")),
+           ("full_bc3 mask stage ms", _get("full_bc3", "stage_ms", "mask")),
+           ("full_oit (K1) ms/frame", _get("full_oit_k1", "median_ms")),
+           ("full_oit (K1) oit_accum stage ms", _get("full_oit_k1",
+                                                     "stage_ms",
+                                                     "oit_accum")))),
 }
 
 
