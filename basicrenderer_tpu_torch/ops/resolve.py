@@ -35,6 +35,7 @@ from .raster import (NUM_CHANNELS, ModeLaunches, _to_image, _to_tiles,
 from .raster_setup import SETUP_LANES, BinnedPairs, GroupBinnedPairs
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "resolve.cu"
+MAX_TILES = 12287   # csrc/resolve.cu kMaxTiles: 48 KB of staged offsets
 # K6's launches in tangent mode (the wrapper's own `launches` counts all).
 TANGENT_LAUNCHES = ModeLaunches("K6-tangent")
 
@@ -111,18 +112,35 @@ def resolve_attributes_plain(pairs: Union[BinnedPairs, GroupBinnedPairs],
     return _to_image(chans, config)
 
 
-_fn = []
+_fns = {}
+# The library's kernels, in br_resolve_blocks_per_sm's numbering.
+KERNELS = ("id_table_kernel", "last_match_kernel", "attr_pixels_kernel",
+           "attr_pixels_kernel<tangent>")
 
 
-def _kernel_fn():
-    """The library's entry point with its ctypes signature."""
-    if not _fn:
-        fn = cuda_build.load(SOURCE).lib.br_resolve
+def _kernel_fn(name: str):
+    """An entry point of the built library with its ctypes signature."""
+    if name not in _fns:
+        fn = getattr(cuda_build.load(SOURCE).lib, name)
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, p, ll, p, p, i, i, i, i, i, i, p]
-        fn.restype = ctypes.c_int
-        _fn.append(fn)
-    return _fn[0]
+        if name == "br_resolve":
+            fn.argtypes = [p, p, p, ll, p, p, p, i, i, i, i, i, i, p]
+            fn.restype = ctypes.c_int
+        elif name == "br_resolve_scratch":
+            fn.argtypes = [i, i, i, i]
+            fn.restype = ll
+        else:
+            fn.argtypes = [i, i]
+            fn.restype = ctypes.c_int
+        _fns[name] = fn
+    return _fns[name]
+
+
+def blocks_per_sm(config: FrameConfig) -> dict:
+    """Resident blocks an SM of each of K6's kernels (KERNELS) on
+    `config`'s tile grid."""
+    fn = _kernel_fn("br_resolve_blocks_per_sm")
+    return {k: fn(i, config.num_tiles) for i, k in enumerate(KERNELS)}
 
 
 def build_kernel() -> cuda_build.CudaLibrary:
@@ -133,9 +151,12 @@ def build_kernel() -> cuda_build.CudaLibrary:
 def resolve_attributes_cuda(pairs: BinnedPairs, vis: torch.Tensor,
                             config: FrameConfig,
                             tile_row0: int = 0) -> torch.Tensor:
-    """Launch K6 on the current stream (no synchronisation), with the
-    tangent channel under config.enable_vertex_tangents.
-    `resolve_attributes_cuda.launches` counts the launches,
+    """Launch K6 on the current stream (no synchronisation; three CUDA
+    kernels: the per-tile id tables, the last match of each id, the
+    pixels), with the tangent channel under
+    config.enable_vertex_tangents. Equals resolve_attributes_plain for
+    any vis whose positive ids are below 2^31 - 1.
+    `resolve_attributes_cuda.launches` counts the calls,
     TANGENT_LAUNCHES those in tangent mode."""
     pd, offs, big = pairs.pair_data, pairs.tile_offsets, pairs.big_count
     dev = pd.device
@@ -150,6 +171,9 @@ def resolve_attributes_cuda(pairs: BinnedPairs, vis: torch.Tensor,
                          f"i32, got {tuple(offs.shape)} {offs.dtype}")
     if big.dtype != torch.int32 or big.numel() != 1:
         raise ValueError(f"big_count must be one i32, got {big.dtype}")
+    if config.num_tiles > MAX_TILES:
+        raise ValueError(f"K6 stages at most {MAX_TILES} tile offsets, got "
+                         f"{config.num_tiles} tiles")
     Hp, Wp = config.padded_height, config.padded_width
     if vis.dtype != torch.int32 or tuple(vis.shape) != (Hp, Wp):
         raise ValueError(f"vis must be ({Hp}, {Wp}) i32, got "
@@ -162,13 +186,17 @@ def resolve_attributes_cuda(pairs: BinnedPairs, vis: torch.Tensor,
             raise ValueError(f"{name} must be contiguous")
     channels = torch.empty((NUM_CHANNELS, Hp, Wp), dtype=torch.float32,
                            device=dev)
+    dims = (config.tiles_x, config.tiles_y, config.tile_h, config.tile_w)
+    # The id hash tables, their keys and the per-pixel slots; written by
+    # the kernels before they are read, so not initialised here.
+    scratch = torch.empty((_kernel_fn("br_resolve_scratch")(*dims),),
+                          dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _kernel_fn()(offs.data_ptr(), big.data_ptr(), pd.data_ptr(),
-                           pd.shape[0], vis.data_ptr(), channels.data_ptr(),
-                           config.tiles_x, config.tiles_y, config.tile_h,
-                           config.tile_w, int(tile_row0),
-                           int(config.enable_vertex_tangents), stream)
+        err = _kernel_fn("br_resolve")(
+            offs.data_ptr(), big.data_ptr(), pd.data_ptr(), pd.shape[0],
+            vis.data_ptr(), channels.data_ptr(), scratch.data_ptr(), *dims,
+            int(tile_row0), int(config.enable_vertex_tangents), stream)
     if err != 0:
         raise RuntimeError(f"resolve kernel launch failed: CUDA error {err}")
     resolve_attributes_cuda.launches += 1

@@ -111,18 +111,25 @@ def warp_history_plain(history: torch.Tensor, tile_dy: torch.Tensor,
     return top * gx + bot * fxp
 
 
-_warp_fn = None
+_fns = {}
 
 
-def _kernel_fn():
-    global _warp_fn
-    if _warp_fn is None:
-        fn = cuda_build.load(SOURCE).lib.br_taa_warp
+def _kernel_fn(name: str = "br_taa_warp"):
+    """An entry point of the built library with its ctypes signature."""
+    if name not in _fns:
+        fn = getattr(cuda_build.load(SOURCE).lib, name)
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, p]
+        fn.argtypes = ([p, p, p, p, i, i, i, i, i, p]
+                       if name == "br_taa_warp" else [i, i, i])
         fn.restype = ctypes.c_int
-        _warp_fn = fn
-    return _warp_fn
+        _fns[name] = fn
+    return _fns[name]
+
+
+def blocks_per_sm(channels: int, tile_h: int, tile_w: int) -> int:
+    """Resident blocks an SM of the kernel on (tile_h, tile_w) tiles of a
+    `channels`-channel history."""
+    return _kernel_fn("br_taa_warp_blocks_per_sm")(channels, tile_h, tile_w)
 
 
 def warp_history_tiles(history: torch.Tensor, tile_dy: torch.Tensor,

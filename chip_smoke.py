@@ -11,8 +11,8 @@ NVIDIA GPU (written for an H100).
 Run from the root of a checkout. Phases, one line each:
  1. the card and toolchain;
  2. one build of every kernel (one nvcc per source, all started together),
-    each instance's registers, and the blocks an SM that each K1/K2 mode
-    and K3 launch;
+    each instance's registers, and the blocks an SM that each K1/K2 mode,
+    K3, K5 and each of K6's three kernels launch;
  3. every kernel against its plain PyTorch version on the card, on small
     inputs: K1 and K2 (plain and seeded) exact on vis and depth, K3 and K4
     within their tolerances (K3 on the rig's frame and on a 1024x500 case
@@ -22,13 +22,14 @@ Run from the root of a checkout. Phases, one line each:
     mask, all pixels live, all dead and jobs partly dead (exact: 0 at the
     dead pixels), K4's BC3 mode on the windows of a BC3-textured 512x512
     frame, K5 (the TAA history
-    warp) exact on random history at 64x256 and 1088x1920 with shifts
-    past the clip limits, K1's and K2's peel and accum modes and K6 (the
+    warp) exact on random history at 64x256 and 1088x1920 (and with 4
+    channels at 64x256) with shifts past the clip limits, K1's and K2's peel and accum modes and K6 (the
     attribute resolve) exact on random 512x512 scenes with a random seed
-    depth, peel bound and accum payload; K1's seeded mode, the tangent
-    instances of K1's and K2's plain, seeded and peel modes and K6's
-    tangent mode exact on a random 512x512 scene with a random tangent
-    angle per triangle; K2's accum mode on a skewed scene (one tile's walk
+    depth, peel bound and accum payload, K6 also on a random vis drawn
+    from every row's id and with 64x128 tiles; K1's seeded mode, the
+    tangent instances of K1's and K2's plain, seeded and peel modes and
+    K6's tangent mode exact on a random 512x512 scene with a random
+    tangent angle per triangle (K6 also on a random vis); K2's accum mode on a skewed scene (one tile's walk
     ~6,000 rows over half the tile) at group_rows 8 and 32 and K1's on the
     same scene binned per triangle, each banded launch also timed alone,
     and both on the tie case;
@@ -110,6 +111,11 @@ Run from the root of a checkout. Phases, one line each:
     on the captured phase-1 layer against K1's fused channels); then the
     cluster path of config1_minimal with group_binning=False and
     occlusion for 3 frames (K1 seeded on clustered rows).
+Each kernel timed alone is timed twice: by CUDA events around
+back-to-back launches (cuda_ms, the kernels line's `ms`) and by the device
+time of its launches in a torch.profiler trace (device_ms, the kernels
+line's `device_ms`); a launch shorter than its wrapper's host time reads
+the host's pace on the first.
 Kernel launch counts (per raster mode: ops/raster.py's MODE_LAUNCHES; K6's
 tangent mode: ops/resolve.py's TANGENT_LAUNCHES) are reset just before each
 full-size path is driven and read just after. Any failed check raises and the exit code is non-zero.
@@ -130,7 +136,6 @@ GOLDEN_RMSE_MAX = 6.0        # tests/test_goldens.py
 SHADE_RTOL, SHADE_ATOL = 1e-3, 1e-4   # K3 vs plain (tests/test_lighting.py)
 TEX_ATOL = 1e-3              # K4 vs plain, on the [0, 255] scale (RGBA8
 #                              and BC3: the same f32 operations, 0 expected)
-WARP_ATOL = 1e-5             # K5 vs plain (the same f32 operations: 0 expected)
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -216,6 +221,54 @@ def cuda_ms(torch, fn, reps):
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def device_parts(torch, fn, reps):
+    """{kernel name: mean device ms a call} of `fn()` over `reps` calls
+    after a warm call, from a torch.profiler trace of the calls' CUDA
+    kernels (and copies), as profile_frames reads them: each kernel's mean
+    event duration times its launches a call. Late in a long process the
+    trace loses a few device events (8 or 9 of a kernel's 10); a kernel's
+    launches a call are its event count over `reps`, rounded, and a trace
+    that lost half a call's worth of some kernel is taken again."""
+    import re
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    counts = None
+    for _ in range(5):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                events.setdefault(e.name, []).append(
+                    e.time_range.elapsed_us() / 1e3)
+        counts = {k: len(v) for k, v in events.items()}
+        per_call = {k: round(c / reps) for k, c in counts.items()}
+        if events and all(n >= 1 and abs(counts[k] - n * reps) <= reps // 2
+                          for k, n in per_call.items()):
+            parts = {}
+            for name, durations in events.items():
+                m = re.search(r"::(\w+(?:<[^>(]*>)?)\(", name)
+                key = m.group(1) if m else name[:60]
+                parts[key] = parts.get(key, 0.0) + (
+                    statistics.mean(durations) * per_call[name])
+            return parts
+    raise CheckFailed(f"torch.profiler lost device events in 5 traces "
+                      f"of {reps} calls: {counts}")
+
+
+def device_ms(torch, fn, reps):
+    """Mean device ms of one `fn()` over `reps` calls: the device time of
+    every kernel (and copy) a call launches, summed (device_parts). A
+    launch shorter than its wrapper's host time reads the host's pace on
+    cuda_ms, not here; cuda_ms stays the kernels line's `ms`."""
+    return sum(device_parts(torch, fn, reps).values())
 
 
 def host_ms(torch, fn):
@@ -499,7 +552,7 @@ def ptxas_summary(log):
     import re
     out, name = [], None
     # (span_tiles_kernel<16,0>: pixels per thread, mode;
-    # resolve_kernel<16,tangent>: the tangent channel.)
+    # attr_pixels_kernel<tangent>: the tangent channel.)
     for ln in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for)"
                       r" '?(\w+)", ln)
@@ -507,13 +560,15 @@ def ptxas_summary(log):
             mang = m.group(1)
             # The kernel's own name follows the source's namespace tag
             # (..._raster_cu_<hash><length>span_tiles_kernel...): the
-            # first <length><name> whose name ends in _kernel.
+            # shortest <length><name> whose name ends in _kernel (digits
+            # of the hash can read as a longer length that also ends
+            # there).
             tail = mang.split("_cu_")[-1]
-            k = next((tail[g.end():g.end() + int(g.group()[i:])]
-                      for g in re.finditer(r"\d+", tail)
-                      for i in range(len(g.group()))
-                      if tail[g.end():g.end() + int(g.group()[i:])]
-                      .endswith("_kernel")), None)
+            k = min((tail[g.end():g.end() + int(g.group()[i:])]
+                     for g in re.finditer(r"\d+", tail)
+                     for i in range(len(g.group()))
+                     if tail[g.end():g.end() + int(g.group()[i:])]
+                     .endswith("_kernel")), key=len, default=None)
             # Integer template arguments as numbers, the tangent flag
             # (a bool argument) as "tangent" when set.
             args = [v if t == "i" else "tangent"
@@ -701,6 +756,17 @@ def raster_mode_check(torch, pairs, cfg, label, peel=None, accum=False,
         k = raster.raster_tiles_cuda(pairs, cfg, 0, init, peel, accum)
         p = raster.raster_tiles_plain(pairs, cfg, 0, init, peel, accum)
     return mode_check(torch, k, p, label)
+
+
+def random_vis(torch, np, pairs, shape, seed):
+    """A vis buffer of `shape` on the pairs' device whose pixels show the
+    id of any walked row (any tile's or a big row), 0 or -1."""
+    rng = np.random.default_rng(seed)
+    live = int(pairs.tile_offsets[-1])
+    pool = np.concatenate([pairs.pair_data[:live, 9].cpu().numpy()
+                           .astype(np.int32), [0, -1]])
+    return torch.as_tensor(rng.choice(pool, tuple(shape)), dtype=torch.int32,
+                           device=pairs.pair_data.device)
 
 
 def k6_check(torch, pairs, vis, cfg, label):
@@ -1057,10 +1123,10 @@ def k2_bound(raster, pairs, cfg, row0, init):
     return b_ms, b_by, walked
 
 
-def random_warp(torch, np, seed, shape, dev, tile=(32, 128)):
-    """Random history (H, W, 3) and per-tile shifts on `dev`: uniform over
-    +-80 rows / +-220 columns (past the clip limits), the first tiles
-    exactly on the limits and on negative fractions."""
+def random_warp(torch, np, seed, shape, dev, tile=(32, 128), channels=3):
+    """Random history (H, W, channels) and per-tile shifts on `dev`:
+    uniform over +-80 rows / +-220 columns (past the clip limits), the
+    first tiles exactly on the limits and on negative fractions."""
     rng = np.random.default_rng(seed)
     H, W = shape
     T = (H // tile[0]) * (W // tile[1])
@@ -1068,19 +1134,20 @@ def random_warp(torch, np, seed, shape, dev, tile=(32, 128)):
     dx = rng.uniform(-220, 220, T).astype(np.float32)
     dy[:4] = (70.0, -70.0, -0.25, -69.5)
     dx[:4] = (190.0, -190.0, -0.75, -189.25)
-    hist = rng.random((H, W, 3)).astype(np.float32)
+    hist = rng.random((H, W, channels)).astype(np.float32)
     return (torch.as_tensor(hist, device=dev), torch.as_tensor(dy, device=dev),
             torch.as_tensor(dx, device=dev)) + tile
 
 
 def k5_check(torch, args, label):
+    """K5 vs its plain version: every value equal (the same f32
+    operations). Returns the max abs error (0)."""
     from basicrenderer_tpu_torch.ops import taa_warp
     k = taa_warp.warp_history_tiles(*args)
     p = taa_warp.warp_history_plain(*args)
-    err = float((k - p).abs().max())
-    check(err <= WARP_ATOL, f"{label}: history warp kernel vs plain max abs "
-          f"err {err} > {WARP_ATOL}")
-    return err
+    check(torch.equal(k, p), f"{label}: history warp kernel differs from "
+          f"plain on {int((k != p).sum())} values")
+    return float((k - p).abs().max())
 
 
 def entity_at(np, sc, position):
@@ -1206,14 +1273,19 @@ def main():
                 n_sm, ppt = raster.blocks_per_sm(kname, mname, gcfg_)
                 occupancy.append(f"{kname}-{mname} {glabel} {ppt} px/thread "
                                  f"{n_sm} blocks/SM")
-    k3_occ = lighting.blocks_per_sm(FrameConfig(width=1920, height=1080,
-                                                tile_h=32, tile_w=128))
+    cfg1080 = FrameConfig(width=1920, height=1080, tile_h=32, tile_w=128)
+    k3_occ = lighting.blocks_per_sm(cfg1080)
+    k6_occ = ", ".join(f"{k} {n_} blocks/SM"
+                       for k, n_ in resolve.blocks_per_sm(cfg1080).items())
+    k5_occ = taa_warp.blocks_per_sm(3, 32, 128)
     say(f"phase 2 build: {len(libs)} libraries in {time.perf_counter() - t0:.2f}"
         f" s | ptxas: {' || '.join(reports)} | raster instances launched "
         f"(pass 1 of the split design; accum: one pixel a thread, K1 with "
         f"a producer warp): " + ", ".join(occupancy)
         + f" | K3 tiled_shade_kernel "
-        f"1 px/thread {k3_occ} blocks/SM at 64 light slots")
+        f"1 px/thread {k3_occ} blocks/SM at 64 light slots | K5 "
+        f"taa_warp_kernel<3> {k5_occ} blocks/SM on 32x128 tiles | K6 at "
+        f"1080p: {k6_occ}")
 
     # -- 3. kernels vs plain on the card -----------------------------------
     res = []
@@ -1294,10 +1366,11 @@ def main():
     for label, call in zip(("mask", "channels"), bc.calls):
         res.append((f"K4-BC3 rig {label}", k4_check(
             torch, call[1], f"K4-BC3 rig {label}", bc3=True)))
-    for seed, shape in ((12, (64, 256)), (13, (1088, 1920))):
-        label = f"K5 random {shape[0]}x{shape[1]}"
-        res.append((label, k5_check(torch, random_warp(torch, np, seed, shape,
-                                                       dev), label)))
+    for seed, shape, c in ((12, (64, 256), 3), (13, (1088, 1920), 3),
+                           (14, (64, 256), 4)):
+        label = f"K5 random {shape[0]}x{shape[1]}x{c}"
+        res.append((label, k5_check(torch, random_warp(
+            torch, np, seed, shape, dev, channels=c), label)))
     # The peel and accum modes on random 512x512 scenes with a random seed
     # depth, peel bound and payload (both big lists in use), then K6 on
     # K1's own vis.
@@ -1315,6 +1388,16 @@ def main():
     _, k1_vis, _ = raster.raster_tiles_cuda(mpairs, cfg512)
     res.append(("K6 random512", k6_check(torch, mpairs, k1_vis, cfg512,
                                          "K6 random512")))
+    # K6 on any vis (not a raster's: ids of every row, other tiles' too),
+    # and on 64x128 tiles (two id tables a tile).
+    res.append(("K6 random512 random vis", k6_check(
+        torch, mpairs, random_vis(torch, np, mpairs, k1_vis.shape, 25),
+        cfg512, "K6 random512 random vis")))
+    cfg64 = FrameConfig(**{**CFG512, "tile_h": 64})
+    pairs64 = raster_setup.bin_pairs(planes, bbox, valid, cfg64)
+    res.append(("K6 random512 tile 64x128 random vis", k6_check(
+        torch, pairs64, random_vis(torch, np, pairs64, k1_vis.shape, 26),
+        cfg64, "K6 random512 tile 64x128")))
     # K2's accum mode on a skewed scene: one tile's walk thousands of rows
     # long over half the tile, at group_rows 8 and the frames' 32; the
     # banded launch also timed alone (the tile's walk under load, where the
@@ -1384,6 +1467,9 @@ def main():
     _, k1_tvis, k1_tch = raster.raster_tiles_cuda(tpairs, tcfg)
     res.append(("K6-tangent random512", k6_check(
         torch, tpairs, k1_tvis, tcfg, "K6-tangent random512")))
+    res.append(("K6-tangent random512 random vis", k6_check(
+        torch, tpairs, random_vis(torch, np, tpairs, k1_tvis.shape, 27), tcfg,
+        "K6-tangent random512 random vis")))
     check(bool((k1_tch[5] != 0).any()), "random512: no tangent written")
     # The split design's tie case: equal-z rows of one tile in different
     # spans, from a seed.
@@ -1416,8 +1502,8 @@ def main():
                                                   for k, e in res)
         + f" (K1/K2 every mode: vis, depth and channels exact; K3 rtol "
         f"{SHADE_RTOL} atol {SHADE_ATOL}; K4 and K4-BC3 atol {TEX_ATOL} on "
-        f"0-255, random windows with each live mask; K5 atol {WARP_ATOL}; "
-        f"K6 every output exact) | K1/K2 split "
+        f"0-255, random windows with each live mask; K5 and K6 every output "
+        f"exact) | K1/K2 split "
         f"design tie case: {ties} | accum skew cases: {'; '.join(skews)} "
         f"| {k3_line} | CUDA launches per raster call (torch.profiler): "
         f"{per_call}")
@@ -1607,6 +1693,7 @@ def slice1(np, torch, dev, kernels, soup):
 
     pairs = geometry_pass(buf, view, cfg)[-1]
     k1_ms = cuda_ms(torch, lambda: raster.raster_tiles_cuda(pairs, cfg), 10)
+    k1_dev = device_ms(torch, lambda: raster.raster_tiles_cuda(pairs, cfg), 5)
     plain, plain_ms = host_ms(torch, lambda: raster.raster_tiles_plain(pairs, cfg))
     err = compare_raster(torch, raster.raster_tiles_cuda(pairs, cfg), plain,
                          "K1 1080p frame")
@@ -1622,7 +1709,8 @@ def slice1(np, torch, dev, kernels, soup):
         f"ms/frame over {timed} (min {min(frame_ms):.3f}, max {max(frame_ms):.3f})"
         f" | stage ms (CUDA events, median): "
         + " ".join(f"{k} {v:.3f}" for k, v in stages.items())
-        + f" | K1 {k1_ms:.3f} ms (bound {b_ms:.3f} ms, {b_by}) vs plain "
+        + f" | K1 {k1_ms:.3f} ms (device {k1_dev:.3f}; bound {b_ms:.3f} ms, "
+        f"{b_by}) vs plain "
         f"{plain_ms:.1f} ms, max_abs_err {err:.3g} | K1 launches {launches[0]}"
         f" | pairs {counters['num_pairs']}, (row, tile) walked {rows_walked} |"
         f" coverage {coverage:.4f} | peak {peak_gib:.2f} GiB")
@@ -1632,7 +1720,7 @@ def slice1(np, torch, dev, kernels, soup):
         "source": "basicrenderer_tpu_torch/csrc/raster.cu",
         "replaces": "basicrenderer_tpu/ops/raster_pallas.py:135",
         "launches": launches[0], "max_abs_err": err, "ms": k1_ms,
-        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "device_ms": k1_dev, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None}}
 
 
@@ -1722,7 +1810,7 @@ def slice2(np, torch, dev, kernels, smi, yard, profile=False):
           "captured frame launched an unexpected kernel mix")
     reps = 10
     recs = {}
-    k2_ms = k2_plain = k2_bsum = 0.0
+    k2_ms = k2_dev = k2_plain = k2_bsum = 0.0
     k2_err = k2_big = 0.0
     k2_by = "operations"
     k2_parts = []
@@ -1731,6 +1819,9 @@ def slice2(np, torch, dev, kernels, smi, yard, profile=False):
         p_, c_, r0_, init = a[0], a[1], a[2], a[3] if len(a) > 3 else None
         ms = cuda_ms(torch, lambda: raster.raster_groups_cuda(p_, c_, r0_, init),
                      reps)
+        dev_ms = device_ms(torch, lambda: raster.raster_groups_cuda(
+            p_, c_, r0_, init), reps)
+        k2_dev += dev_ms
         pd, pmsd = host_ms(torch, lambda: raster.raster_groups_plain(
             p_, c_, r0_, init))
         err = compare_raster(torch, kout, pd, f"K2 {label} 1080p")
@@ -1739,7 +1830,8 @@ def slice2(np, torch, dev, kernels, smi, yard, profile=False):
             k2_big, k2_by = b_ms, b_by
         k2_ms, k2_plain, k2_bsum = k2_ms + ms, k2_plain + pmsd, k2_bsum + b_ms
         k2_err = max(k2_err, err)
-        k2_parts.append(f"{label} {ms:.3f} ms (bound {b_ms:.3f}, plain "
+        k2_parts.append(f"{label} {ms:.3f} ms (device {dev_ms:.3f}; bound "
+                        f"{b_ms:.3f}, plain "
                         f"{pmsd:.0f}, rows walked {walked}, pairs "
                         f"{int(p_.num_pairs)})")
     recs["K2"] = {
@@ -1748,11 +1840,12 @@ def slice2(np, torch, dev, kernels, smi, yard, profile=False):
         "source": "basicrenderer_tpu_torch/csrc/raster.cu",
         "replaces": "basicrenderer_tpu/ops/raster_pallas.py:252",
         "launches": launches[1], "max_abs_err": k2_err, "ms": k2_ms,
-        "plain_ms": k2_plain, "bound_ms": k2_bsum, "bound_by": k2_by,
+        "device_ms": k2_dev, "plain_ms": k2_plain, "bound_ms": k2_bsum, "bound_by": k2_by,
         "library_ms": None}
 
     a3 = lc.calls[0][1]
     k3_ms = cuda_ms(torch, lambda: lighting.tiled_shade_cuda(*a3), reps)
+    k3_dev = device_ms(torch, lambda: lighting.tiled_shade_cuda(*a3), reps)
     _, k3_plain = host_ms(torch, lambda: lighting.tiled_shade_plain(*a3))
     k3_err, k3_ulp = k3_check(torch, a3, "K3 1080p")
     shade_in, payload, counts = a3[0], a3[1], a3[2]
@@ -1786,11 +1879,12 @@ def slice2(np, torch, dev, kernels, smi, yard, profile=False):
         "source": "basicrenderer_tpu_torch/csrc/tiled_shade.cu",
         "replaces": "basicrenderer_tpu/ops/lighting.py:133",
         "launches": launches[2], "max_abs_err": k3_err, "ms": k3_ms,
-        "plain_ms": k3_plain, "bound_ms": b3_ms, "bound_by": b3_by,
+        "device_ms": k3_dev, "plain_ms": k3_plain, "bound_ms": b3_ms, "bound_by": b3_by,
         "library_ms": None}
 
     a4 = tc.calls[0][1]
     k4_ms = cuda_ms(torch, lambda: textures.tex_block_eval_cuda(*a4), reps)
+    k4_dev = device_ms(torch, lambda: textures.tex_block_eval_cuda(*a4), reps)
     _, k4_plain = host_ms(torch, lambda: textures.tex_block_eval_plain(*a4))
     k4_err = k4_check(torch, a4, "K4 1080p")
     b4_ms, b4_by = k4_bound(torch, a4, bc3=False)
@@ -1800,7 +1894,7 @@ def slice2(np, torch, dev, kernels, smi, yard, profile=False):
         "source": "basicrenderer_tpu_torch/csrc/tex_block.cu",
         "replaces": "basicrenderer_tpu/ops/textures.py:508",
         "launches": launches[3], "max_abs_err": k4_err, "ms": k4_ms,
-        "plain_ms": k4_plain, "bound_ms": b4_ms, "bound_by": b4_by,
+        "device_ms": k4_dev, "plain_ms": k4_plain, "bound_ms": b4_ms, "bound_by": b4_by,
         "library_ms": None}
 
     order = ["cut", "hzb", "setup", "bin", "raster", "hzb2", "cut2", "setup2",
@@ -1815,9 +1909,11 @@ def slice2(np, torch, dev, kernels, smi, yard, profile=False):
         f"events, median): " + " ".join(f"{k} {stages[k]:.3f}" for k in order
                                         if k in stages)
         + f" | K2 {k2_ms:.3f} ms per frame = " + "; ".join(k2_parts)
-        + f" | K3 {k3_ms:.3f} ms (bound {b3_ms:.3f} {b3_by}, plain "
+        + f" | K3 {k3_ms:.3f} ms (device {k3_dev:.3f}; bound {b3_ms:.3f} "
+        f"{b3_by}, plain "
         f"{k3_plain:.1f}, {pix_lights // npix} tile-lights; {k3_extra}) | "
-        f"K4 {k4_ms:.4f} ms (plain {k4_plain:.1f}; {k4_live}) | "
+        f"K4 {k4_ms:.4f} ms (device {k4_dev:.4f}; plain {k4_plain:.1f}; "
+        f"{k4_live}) | "
         f"launches K1 {launches[0]} K2 {launches[1]} K3 {launches[2]} K4 "
         f"{launches[3]} in {n} frames | visible clusters {live[0]}, phase-2 "
         f"clusters {live[1]}, mask clusters {live[2]} | overflow bin "
@@ -2038,13 +2134,16 @@ def slice3(np, torch, dev, kernels, smi, yard, profile=False):
         check(shift > 0.01, f"{label}: tile motion {shift} px: the orbit "
               "did not move the tiles")
         k5_ms = cuda_ms(torch, lambda: taa_warp.warp_history_tiles(*a5), 20)
+        k5_dev = device_ms(torch, lambda: taa_warp.warp_history_tiles(*a5),
+                           20)
         plain, k5_plain = host_ms(torch, lambda: taa_warp.warp_history_plain(
             *a5))
         k5_err = float((k5_out - plain).abs().max())
-        check(k5_err <= WARP_ATOL, f"{label}: K5 vs plain on the frame's "
-              f"inputs: max abs err {k5_err}")
-        lib_ms, lib_err = grid_sample_warp(torch, hist, tdy, tdx, th, tw,
-                                           plain)
+        check(torch.equal(k5_out, plain), f"{label}: K5 differs from plain "
+              f"on the frame's inputs on {int((k5_out != plain).sum())} "
+              f"values (max abs err {k5_err})")
+        lib_ms, lib_err, lib_dev = grid_sample_warp(torch, hist, tdy, tdx, th,
+                                                    tw, plain)
         Hp, Wp, C = hist.shape
         b5_ms, b5_by = bound(Hp * Wp * C * WARP_FLOPS_PER_VALUE,
                              2 * hist.numel() * 4 + 2 * tdy.numel() * 4)
@@ -2064,7 +2163,7 @@ def slice3(np, torch, dev, kernels, smi, yard, profile=False):
                 "source": "basicrenderer_tpu_torch/csrc/taa_warp.cu",
                 "replaces": "basicrenderer_tpu/ops/taa_warp.py:44",
                 "launches": launches[4], "max_abs_err": k5_err, "ms": k5_ms,
-                "plain_ms": k5_plain, "bound_ms": b5_ms, "bound_by": b5_by,
+                "device_ms": k5_dev, "plain_ms": k5_plain, "bound_ms": b5_ms, "bound_by": b5_by,
                 "library_ms": lib_ms}}
         lines.append(
             f"{label}: median {statistics.median(frame_ms):.3f} ms/frame over "
@@ -2076,9 +2175,10 @@ def slice3(np, torch, dev, kernels, smi, yard, profile=False):
             + f" | launches per frame K1 {launches[0] / n:.2f} K2 "
             f"{launches[1] / n:.2f} K3 {launches[2] / n:.2f} K4 "
             f"{launches[3] / n:.2f} K5 {launches[4] / n:.2f} ({launches} in "
-            f"{n} frames) | K5 {k5_ms:.4f} ms (bound {b5_ms:.4f} ms "
-            f"{b5_by}) vs plain {k5_plain:.3f} ms vs grid_sample {lib_ms:.4f}"
-            f" ms (max diff {lib_err:.2g}), max_abs_err {k5_err:.3g}, max "
+            f"{n} frames) | K5 {k5_ms:.4f} ms (device {k5_dev:.4f}; bound "
+            f"{b5_ms:.4f} ms {b5_by}) vs plain {k5_plain:.3f} ms vs "
+            f"grid_sample {lib_ms:.4f} ms (device {lib_dev:.4f}; max diff "
+            f"{lib_err:.2g}), max_abs_err {k5_err:.3g}, max "
             f"tile shift {shift:.3f} px | overflow {counters} | coverage "
             f"{coverage:.4f} | peak {peak_gib:.2f} GiB")
     say("phase 8 slice 3: config4_post 1920x1080 over the phase-7 courtyard, "
@@ -2219,10 +2319,12 @@ def full_run(np, torch, dev, kernels, built, bridge, buf, fmt, orbit, recs,
     del last
     check(len(tc.calls) == 2, f"{label}: captured frame launched K4 "
           f"{len(tc.calls)} times")
-    k4_ms = k4_plain = k4_bound_ms = k4_big = 0.0
+    k4_ms = k4_dev = k4_plain = k4_bound_ms = k4_big = 0.0
     k4_err, k4_by, k4_parts = 0.0, "bytes", []
     for part, (_n, a4, _kw, k4_out) in zip(("mask", "channels"), tc.calls):
         ms = cuda_ms(torch, lambda: getattr(textures, entry)(*a4), 10)
+        dev_ms = device_ms(torch, lambda: getattr(textures, entry)(*a4), 10)
+        k4_dev += dev_ms
         p_out, p_ms = host_ms(torch, lambda: plain(*a4))
         err = float((k4_out - p_out).abs().max())
         check(err <= TEX_ATOL, f"{label} K4 {part} vs plain on the "
@@ -2233,7 +2335,8 @@ def full_run(np, torch, dev, kernels, built, bridge, buf, fmt, orbit, recs,
         k4_ms, k4_plain, k4_bound_ms = k4_ms + ms, k4_plain + p_ms, \
             k4_bound_ms + b_ms
         k4_err = max(k4_err, err)
-        k4_parts.append(f"{part} {ms:.4f} ms (plain {p_ms:.2f}; "
+        k4_parts.append(f"{part} {ms:.4f} ms (device {dev_ms:.4f}; plain "
+                        f"{p_ms:.2f}; "
                         f"{k4_live_line(torch, a4, bc3)})")
     del tc
     if bc3:
@@ -2246,7 +2349,8 @@ def full_run(np, torch, dev, kernels, built, bridge, buf, fmt, orbit, recs,
             "replaces": "basicrenderer_tpu/ops/textures.py:508 (with "
                         "bc3_decode_rows, :606)",
             "launches": launches[5], "max_abs_err": k4_err,
-            "ms": k4_ms, "plain_ms": k4_plain, "bound_ms": k4_bound_ms,
+            "ms": k4_ms, "device_ms": k4_dev, "plain_ms": k4_plain,
+            "bound_ms": k4_bound_ms,
             "bound_by": k4_by, "library_ms": None}
 
     # K2's VSM page launches of the captured frame (the 128x128 depth-only
@@ -2258,13 +2362,16 @@ def full_run(np, torch, dev, kernels, built, bridge, buf, fmt, orbit, recs,
         f"times, {len(page_calls)} on pages, with {captured_pages} pages")
     if not bc3:
         check(captured_pages > 0, "captured frame rendered no VSM page")
-        p_ms_sum = p_plain = p_bound = p_big = 0.0
+        p_ms_sum = p_dev = p_plain = p_bound = p_big = 0.0
         p_err, p_by, p_parts = 0.0, "operations", []
         for k, (_n, a, _kw, kout) in enumerate(page_calls):
             pp, pc, pr0 = a[0], a[1], a[2]
             pinit = a[3] if len(a) > 3 else None
             ms = cuda_ms(torch, lambda: raster.raster_groups_cuda(
                 pp, pc, pr0, pinit), 10)
+            dev_ms = device_ms(torch, lambda: raster.raster_groups_cuda(
+                pp, pc, pr0, pinit), 10)
+            p_dev += dev_ms
             pd, pl_ms = host_ms(torch, lambda: raster.raster_groups_plain(
                 pp, pc, pr0, pinit))
             err = compare_raster(torch, kout, pd, f"K2 VSM page {k}")
@@ -2274,7 +2381,8 @@ def full_run(np, torch, dev, kernels, built, bridge, buf, fmt, orbit, recs,
             p_ms_sum, p_plain, p_bound = p_ms_sum + ms, p_plain + pl_ms, \
                 p_bound + b_ms
             p_err = max(p_err, err)
-            p_parts.append(f"{ms:.4f} ms (bound {b_ms:.4f} {b_by}, plain "
+            p_parts.append(f"{ms:.4f} ms (device {dev_ms:.4f}; bound "
+                           f"{b_ms:.4f} {b_by}, plain "
                            f"{pl_ms:.0f}, rows walked {walked}, pairs "
                            f"{int(pp.num_pairs)})")
         recs["K2-VSM"] = {
@@ -2284,10 +2392,11 @@ def full_run(np, torch, dev, kernels, built, bridge, buf, fmt, orbit, recs,
             "source": "basicrenderer_tpu_torch/csrc/raster.cu",
             "replaces": "basicrenderer_tpu/ops/raster_pallas.py:252",
             "launches": sum(pages), "max_abs_err": p_err, "ms": p_ms_sum,
-            "plain_ms": p_plain, "bound_ms": p_bound, "bound_by": p_by,
+            "device_ms": p_dev, "plain_ms": p_plain, "bound_ms": p_bound, "bound_by": p_by,
             "library_ms": None}
         page_line = (f" | K2 on the captured frame's {len(page_calls)} VSM "
-                     f"pages {p_ms_sum:.4f} ms (bound {p_bound:.4f} ms "
+                     f"pages {p_ms_sum:.4f} ms (device {p_dev:.4f}; bound "
+                     f"{p_bound:.4f} ms "
                      f"{p_by}, plain {p_plain:.0f} ms, max_abs_err "
                      f"{p_err:.3g}; vis and depth exact) = "
                      + "; ".join(p_parts))
@@ -2318,7 +2427,8 @@ def full_run(np, torch, dev, kernels, built, bridge, buf, fmt, orbit, recs,
         f"per frame K1 {launches[0] / n:.2f} K2 {launches[1] / n:.2f} K3 "
         f"{launches[2] / n:.2f} K4 {launches[3] / n:.2f} K4-BC3 "
         f"{launches[5] / n:.2f} K5 {launches[4] / n:.2f} | K4 "
-        f"({fmt}) per frame {k4_ms:.4f} ms (bound {k4_bound_ms:.4f} ms "
+        f"({fmt}) per frame {k4_ms:.4f} ms (device {k4_dev:.4f}; bound "
+        f"{k4_bound_ms:.4f} ms "
         f"{k4_by}, plain {k4_plain:.2f} ms, max_abs_err {k4_err:.3g}) = "
         + "; ".join(k4_parts) + page_line
         + f" | atlas {atlas} bytes | overflow {counters} | coverage "
@@ -2416,6 +2526,50 @@ def k1_walked(torch, pairs, cfg):
     return own + int((nx * ny).sum())
 
 
+def k6_bound(torch, pairs, vis, cfg):
+    """(bound ms, by, old bound ms, old by, detail text) of one K6 launch
+    from this run's inputs. The bound counts what the function needs: a
+    32-byte sector of each walked row's id (own rows once, big rows once,
+    not once a tile), 128 bytes a (tile, id) that wins a pixel, the vis
+    read and 8 channels written a pixel, and the planes of each covered
+    pixel. The old count, kept for comparison, charged every walked
+    (row, tile) 128 bytes and a compare a pixel of its tile."""
+    N, th, tw = cfg.num_tiles, cfg.tile_h, cfg.tile_w
+    pd, dev = pairs.pair_data, pairs.pair_data.device
+    n_rows = pd.shape[0]
+    offc = pairs.tile_offsets.long().clamp(max=n_rows)
+    counts = offc[1:] - offc[:-1]
+    own = int(counts.sum())
+    nbig = min(int(pairs.big_count), n_rows)
+    tiles = torch.arange(N, device=dev)
+    own_ids = pd[int(offc[0]):int(offc[0]) + own, 9].to(torch.int32).long()
+    own_keys = torch.repeat_interleave(tiles, counts) * 2 ** 32 + own_ids
+    big_ids = pd[:nbig, 9].to(torch.int32).long()
+    big_keys = (tiles[:, None] * 2 ** 32 + big_ids[None, :]).flatten()
+    row_keys = torch.cat([own_keys[own_ids > 0],
+                          big_keys[(big_ids > 0).repeat(N)]]).unique()
+    vis_t = vis.reshape(cfg.tiles_y, th, cfg.tiles_x, tw).permute(
+        0, 2, 1, 3).reshape(N, th * tw).long()
+    pix_keys = tiles[:, None] * 2 ** 32 + vis_t
+    covered = (vis_t > 0) & torch.isin(pix_keys, row_keys)
+    n_cov = int(covered.sum())
+    winners = int(pix_keys[covered].unique().numel())
+    hw = cfg.padded_height * cfg.padded_width
+    b_ms, b_by = bound(n_cov * RESOLVE_FLOPS_PER_MATCH,
+                       (own + nbig) * 32 + winners * 128 + hw * (4 + 32))
+    walked = int((pairs.tile_offsets[1:] - pairs.tile_offsets[:-1]).long()
+                 .sum()) + int(pairs.big_count) * N
+    old_ms, old_by = bound(
+        walked * th * tw * RESOLVE_OPS_PER_ROW_PIXEL
+        + int((vis > 0).sum()) * RESOLVE_FLOPS_PER_MATCH,
+        walked * 128 + hw * (4 + 32))
+    return (b_ms, b_by, old_ms, old_by,
+            f"bound {b_ms:.4f} {b_by}: rows read {own + nbig} ({nbig} big), "
+            f"winning (tile, id) {winners}, covered pixels {n_cov}; the old "
+            f"count's bound {old_ms:.4f} {old_by}: (row, tile) walked "
+            f"{walked} x {th * tw} px")
+
+
 def mode_bound(torch, raster, pairs, cfg, accum, out):
     """(bound ms, by, rows walked, operations ms, bytes ms) of one peel /
     accum launch: every walked (row, tile) tested on its tile's pixels,
@@ -2440,14 +2594,17 @@ def mode_bound(torch, raster, pairs, cfg, accum, out):
 
 def time_mode_launches(torch, raster, calls, plain_fn, label):
     """Each captured launch (name, args, kwargs, output) of a raster mode
-    timed alone by CUDA events, run by its plain version and compared
-    exactly. Returns (ms, plain ms, bound ms, bound_by of the largest,
-    max abs err, parts text) summed over the launches."""
-    ms_sum = plain_sum = b_sum = b_big = err = 0.0
+    timed alone by CUDA events and by device time, run by its plain
+    version and compared exactly. Returns (ms, plain ms, bound ms,
+    bound_by of the largest, max abs err, parts text, device ms) summed
+    over the launches."""
+    ms_sum = dev_sum = plain_sum = b_sum = b_big = err = 0.0
     by, parts = "operations", []
     for k, (_n, a, kw, kout) in enumerate(calls):
         fn = getattr(raster, _n)
         ms = cuda_ms(torch, lambda: fn(*a, **kw), 5)
+        dev_ms = device_ms(torch, lambda: fn(*a, **kw), 5)
+        dev_sum += dev_ms
         pout, p_ms = host_ms(torch, lambda: plain_fn(*a, **kw))
         err = max(err, mode_check(torch, kout, pout, f"{label} launch {k}"))
         accum = bool(a[-1])
@@ -2456,13 +2613,14 @@ def time_mode_launches(torch, raster, calls, plain_fn, label):
         if b_ms > b_big:
             b_big, by = b_ms, b_by
         ms_sum, plain_sum, b_sum = ms_sum + ms, plain_sum + p_ms, b_sum + b_ms
-        parts.append(f"{ms:.4f} ms (bound {b_ms:.4f} {b_by}: operations "
-                     f"{ops_ms:.4f}, bytes {bytes_ms:.4f}; plain "
+        parts.append(f"{ms:.4f} ms (device {dev_ms:.4f}; bound {b_ms:.4f} "
+                     f"{b_by}: operations {ops_ms:.4f}, bytes "
+                     f"{bytes_ms:.4f}; plain "
                      f"{p_ms:.0f}, rows walked {walked}, pairs "
                      f"{int(a[0].num_pairs)}"
                      + (f", fragments {int(kout[2][7].sum())}" if accum
                         else "") + ")")
-    return ms_sum, plain_sum, b_sum, by, err, "; ".join(parts)
+    return ms_sum, plain_sum, b_sum, by, err, "; ".join(parts), dev_sum
 
 
 def oit_frames(np, torch, dev, kernels, built, bridge, buf, cfg, orbit,
@@ -2577,7 +2735,7 @@ def slice4(np, torch, dev, kernels, smi, yard, profile=False):
                 f"{walk.numel()}, busiest tile's share "
                 f"{float(walk.max()) / max(tot, 1.0):.4f}")
         for m in ("peel", "accum"):
-            ms, p_ms, b_ms, b_by, err, txt = time_mode_launches(
+            ms, p_ms, b_ms, b_by, err, txt, dev_ms = time_mode_launches(
                 torch, raster, mode_calls[m], plain_fn,
                 f"{variant}-{m} 1080p")
             idx = {"peel": peel_i, "accum": accum_i}[m]
@@ -2591,10 +2749,11 @@ def slice4(np, torch, dev, kernels, smi, yard, profile=False):
                 "replaces": "basicrenderer_tpu/ops/raster_pallas.py:"
                             + ("252" if variant == "K2" else "135"),
                 "launches": launches[idx], "max_abs_err": err, "ms": ms,
-                "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "device_ms": dev_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": None}
-            parts.append(f"{variant}-{m} {ms:.4f} ms per frame (bound "
-                         f"{b_ms:.4f} {b_by}, plain {p_ms:.0f} ms, "
+            parts.append(f"{variant}-{m} {ms:.4f} ms per frame (device "
+                         f"{dev_ms:.4f}; bound {b_ms:.4f} {b_by}, plain "
+                         f"{p_ms:.0f} ms, "
                          f"max_abs_err {err:.3g}) = {txt}")
         k6_line = ""
         if variant == "K1":
@@ -2610,19 +2769,16 @@ def slice4(np, torch, dev, kernels, smi, yard, profile=False):
             fused_diff = float((k6_out[:5] - kch[:5]).abs().max())
             k6_ms = cuda_ms(torch, lambda: resolve.resolve_attributes_cuda(
                 pairs1, kvis, vcfg), 10)
+            k6_parts = device_parts(
+                torch, lambda: resolve.resolve_attributes_cuda(pairs1, kvis,
+                                                               vcfg), 10)
+            k6_dev = sum(k6_parts.values())
             k6_plain, k6_pms = host_ms(
                 torch, lambda: resolve.resolve_attributes_plain(pairs1, kvis,
                                                                 vcfg))
             k6_err = mode_check(torch, (k6_out,), (k6_plain,), "K6 1080p")
-            offs = pairs1.tile_offsets.long()
-            rows = int((offs[1:] - offs[:-1]).sum()) + int(
-                pairs1.big_count) * vcfg.num_tiles
-            matched = int((kvis > 0).sum())
-            hw = vcfg.padded_height * vcfg.padded_width
-            b6_ms, b6_by = bound(
-                rows * vcfg.tile_h * vcfg.tile_w * RESOLVE_OPS_PER_ROW_PIXEL
-                + matched * RESOLVE_FLOPS_PER_MATCH,
-                rows * 128 + hw * (4 + 32))
+            b6_ms, b6_by, _old_ms, _old_by, b6_txt = k6_bound(
+                torch, pairs1, kvis, vcfg)
             recs["K6"] = {
                 "name": "resolve_attributes (K6; no frame path calls it: "
                         "driven once on phase 10's first OIT layer, "
@@ -2630,12 +2786,13 @@ def slice4(np, torch, dev, kernels, smi, yard, profile=False):
                 "source": "basicrenderer_tpu_torch/csrc/resolve.cu",
                 "replaces": "basicrenderer_tpu/ops/resolve_pallas.py:39",
                 "launches": k6_launches, "max_abs_err": k6_err, "ms": k6_ms,
-                "plain_ms": k6_pms, "bound_ms": b6_ms, "bound_by": b6_by,
+                "device_ms": k6_dev, "plain_ms": k6_pms, "bound_ms": b6_ms, "bound_by": b6_by,
                 "library_ms": None}
-            k6_line = (f" | K6 on the first layer {k6_ms:.4f} ms (bound "
-                       f"{b6_ms:.4f} {b6_by}, plain {k6_pms:.0f} ms, "
-                       f"max_abs_err {k6_err:.3g}, rows walked {rows}, "
-                       f"covered pixels {matched}); channels 0-4 vs K1's "
+            k6_line = (f" | K6 on the first layer {k6_ms:.4f} ms (device "
+                       f"{k6_dev:.4f} = " + " + ".join(
+                           f"{k} {v:.4f}" for k, v in k6_parts.items())
+                       + f"; {b6_txt}; plain {k6_pms:.0f} ms, "
+                       f"max_abs_err {k6_err:.3g}); channels 0-4 vs K1's "
                        f"fused: max abs diff {fused_diff:.3g}")
         if profile and variant == "K2":
             fr_p = build_frame_fn(vcfg)
@@ -2685,35 +2842,38 @@ def registers(pattern):
 
 
 def mode_record(name, source_line, launches, err, ms, plain_ms, b_ms, b_by,
-                source="basicrenderer_tpu_torch/csrc/raster.cu"):
+                dev_ms, source="basicrenderer_tpu_torch/csrc/raster.cu"):
     """A kernels-line record of a raster (or resolve) mode."""
     pallas = ("basicrenderer_tpu/ops/resolve_pallas.py" if "resolve" in
               source else "basicrenderer_tpu/ops/raster_pallas.py")
     return {"name": name, "route": "cuda", "source": source,
             "replaces": f"{pallas}:{source_line}", "launches": launches,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
 def time_launches(torch, calls, cuda_fn, plain_fn, bound_fn, label):
     """Each captured launch (name, args, kwargs, output) timed alone by
-    CUDA events, run by its plain version and compared exactly; returns
-    (ms, plain ms, bound ms, bound_by of the largest, max abs err, parts)
-    summed over the launches. `bound_fn(args, output)` gives (bound ms,
-    by, rows walked)."""
-    ms_sum = plain_sum = b_sum = b_big = err = 0.0
+    CUDA events and by device time, run by its plain version and compared
+    exactly; returns (ms, plain ms, bound ms, bound_by of the largest, max
+    abs err, parts, device ms) summed over the launches. `bound_fn(args,
+    output)` gives (bound ms, by, rows walked)."""
+    ms_sum = dev_sum = plain_sum = b_sum = b_big = err = 0.0
     by, parts = "operations", []
     for k, (_n, a, kw, kout) in enumerate(calls):
         ms = cuda_ms(torch, lambda: cuda_fn(*a, **kw), 5)
+        dev_ms = device_ms(torch, lambda: cuda_fn(*a, **kw), 5)
+        dev_sum += dev_ms
         pout, p_ms = host_ms(torch, lambda: plain_fn(*a, **kw))
         err = max(err, mode_check(torch, kout, pout, f"{label} launch {k}"))
         b_ms, b_by, walked = bound_fn(a, kout)
         if b_ms > b_big:
             b_big, by = b_ms, b_by
         ms_sum, plain_sum, b_sum = ms_sum + ms, plain_sum + p_ms, b_sum + b_ms
-        parts.append(f"{ms:.4f} ms (bound {b_ms:.4f} {b_by}, plain "
-                     f"{p_ms:.0f}, rows walked {walked})")
-    return ms_sum, plain_sum, b_sum, by, err, parts
+        parts.append(f"{ms:.4f} ms (device {dev_ms:.4f}; bound {b_ms:.4f} "
+                     f"{b_by}, plain {p_ms:.0f}, rows walked {walked})")
+    return ms_sum, plain_sum, b_sum, by, err, parts, dev_sum
 
 
 def k1_bound(torch, a, _out=None):
@@ -2803,7 +2963,7 @@ def slice5_tangents(np, torch, dev, kernels, smi, yard):
           f"phase 11 captured frame: {len(rc.calls)} K2 launches")
     labels = ["phase 1", "phase 2", "mask"] + [
         f"page {k}" for k in range(len(rc.calls) - 3)]
-    k2_ms, k2_plain, k2_b, k2_by, k2_err, k2_parts = time_launches(
+    k2_ms, k2_plain, k2_b, k2_by, k2_err, k2_parts, k2_dev = time_launches(
         torch, rc.calls, raster.raster_groups_cuda, raster.raster_groups_plain,
         lambda a, _o: k2_bound(raster, a[0], a[1], a[2], a[3]),
         "K2-tangent 1080p")
@@ -2839,7 +2999,7 @@ def slice5_tangents(np, torch, dev, kernels, smi, yard):
         torch.cuda.synchronize()
         check(count.launches == 1, f"{kname} peel+tangent launched "
               f"{count.launches} times")
-        ms, p_ms, b_ms, b_by, err, _parts = time_launches(
+        ms, p_ms, b_ms, b_by, err, _parts, dev_ms = time_launches(
             torch, [("", (prs_, rcfg, 0, None, band, False), {}, kout)],
             cuda_fn, plain_fn,
             lambda a, o: mode_bound(torch, raster, a[0], a[1], False, o)[:3],
@@ -2848,15 +3008,17 @@ def slice5_tangents(np, torch, dev, kernels, smi, yard):
             f"{'raster_tiles' if kname == 'K1' else 'raster_groups'} "
             f"({kname}, peel mode with the tangent channel; driven once on "
             "random rows at 1920x1088, no frame path of this run takes it)",
-            "135" if kname == "K1" else "252", 1, err, ms, p_ms, b_ms, b_by)
-        peel_parts.append(f"{kname}-peel+tangent {ms:.4f} ms (bound "
-                          f"{b_ms:.4f} {b_by}, plain {p_ms:.0f} ms, "
+            "135" if kname == "K1" else "252", 1, err, ms, p_ms, b_ms, b_by,
+            dev_ms)
+        peel_parts.append(f"{kname}-peel+tangent {ms:.4f} ms (device "
+                          f"{dev_ms:.4f}; bound {b_ms:.4f} {b_by}, plain "
+                          f"{p_ms:.0f} ms, "
                           f"max_abs_err {err:.3g})")
     recs["K2-tangent"] = mode_record(
         "raster_groups (K2, tangent channel in plain and seeded modes; per "
         "frame of `full` + vertex tangents: phase 1, phase 2 seeded, mask "
         "pass, VSM pages)", "252", t_launches, k2_err, k2_ms, k2_plain, k2_b,
-        k2_by)
+        k2_by, k2_dev)
     del buf
     gc.collect()
     torch.cuda.empty_cache()
@@ -2870,7 +3032,8 @@ def slice5_tangents(np, torch, dev, kernels, smi, yard):
                      + f", VSM pages {pg}" for lb, ms_, st, pg in runs)
         + f" | RMSE full+tangents vs full (same camera, frame {n}) "
         f"{err_on_off:.4f} | K2 tangent launches {t_launches} in {n} frames "
-        f"| K2 tangent per captured frame {k2_ms:.4f} ms (bound {k2_b:.4f} "
+        f"| K2 tangent per captured frame {k2_ms:.4f} ms (device "
+        f"{k2_dev:.4f}; bound {k2_b:.4f} "
         f"{k2_by}, plain {k2_plain:.0f} ms, max_abs_err {k2_err:.3g}; every "
         "output exact) = " + "; ".join(f"{lb} {p}" for lb, p in
                                        zip(labels, k2_parts))
@@ -2954,7 +3117,7 @@ def slice5_occlusion(np, torch, dev, kernels, smi, soup, yard):
           f"captured frame: {len(rc.calls)} K1 launches")
     p1_ms = cuda_ms(torch, lambda: raster.raster_tiles_cuda(*rc.calls[0][1]),
                     5)
-    s_ms, s_plain, s_b, s_by, s_err, s_parts = time_launches(
+    s_ms, s_plain, s_b, s_by, s_err, s_parts, s_dev = time_launches(
         torch, rc.calls[1:], raster.raster_tiles_cuda,
         raster.raster_tiles_plain, lambda a, _o: k1_bound(torch, a),
         "K1-seeded 1080p")
@@ -3004,7 +3167,7 @@ def slice5_occlusion(np, torch, dev, kernels, smi, soup, yard):
     torch.cuda.synchronize()
     check(len(trc.calls) == 2, f"captured tangent frame: {len(trc.calls)} "
           "K1 launches")
-    t_ms_k, t_plain, t_b, t_by, t_err, t_parts = time_launches(
+    t_ms_k, t_plain, t_b, t_by, t_err, t_parts, t_dev = time_launches(
         torch, trc.calls, raster.raster_tiles_cuda, raster.raster_tiles_plain,
         lambda a, _o: k1_bound(torch, a), "K1-tangent 1080p")
     # K6 in tangent mode on the phase-1 layer: its pairs and vis; its
@@ -3019,17 +3182,14 @@ def slice5_occlusion(np, torch, dev, kernels, smi, soup, yard):
     fused_diff = float((k6_out[:6] - kch[:6]).abs().max())
     k6_ms = cuda_ms(torch, lambda: resolve.resolve_attributes_cuda(
         pairs1, kvis, tcfg), 10)
+    k6_parts = device_parts(torch, lambda: resolve.resolve_attributes_cuda(
+        pairs1, kvis, tcfg), 10)
+    k6_dev = sum(k6_parts.values())
     k6_plain, k6_pms = host_ms(torch, lambda: resolve.resolve_attributes_plain(
         pairs1, kvis, tcfg))
     k6_err = mode_check(torch, (k6_out,), (k6_plain,), "K6-tangent 1080p")
-    offs = pairs1.tile_offsets.long()
-    rows = int((offs[1:] - offs[:-1]).sum()) + int(
-        pairs1.big_count) * tcfg.num_tiles
-    matched = int((kvis > 0).sum())
-    hw = tcfg.padded_height * tcfg.padded_width
-    b6_ms, b6_by = bound(
-        rows * tcfg.tile_h * tcfg.tile_w * RESOLVE_OPS_PER_ROW_PIXEL
-        + matched * RESOLVE_FLOPS_PER_MATCH, rows * 128 + hw * (4 + 32))
+    b6_ms, b6_by, _old_ms, _old_by, b6_txt = k6_bound(torch, pairs1, kvis,
+                                                      tcfg)
     del k6_out, k6_plain, pairs1, kvis, kch
 
     # config1_minimal's cluster path binned per triangle, with occlusion.
@@ -3058,7 +3218,7 @@ def slice5_occlusion(np, torch, dev, kernels, smi, soup, yard):
     seeded = [c for c in crc.calls if c[1][3] is not None]
     check(len(seeded) == 1, f"cluster captured frame: {len(seeded)} seeded "
           "K1 launches")
-    c_sms, c_splain, c_sb, c_sby, c_serr, _p = time_launches(
+    c_sms, c_splain, c_sb, c_sby, c_serr, _p, c_sdev = time_launches(
         torch, seeded, raster.raster_tiles_cuda, raster.raster_tiles_plain,
         lambda a, _o: k1_bound(torch, a), "K1-seeded cluster 1080p")
     del crc, seeded, cbuf
@@ -3069,16 +3229,16 @@ def slice5_occlusion(np, torch, dev, kernels, smi, soup, yard):
         "K1-seeded": mode_record(
             "raster_tiles (K1, seeded mode: phase 2 of the soup frame's "
             "two-phase occlusion; per frame)", "135", la[14], s_err, s_ms,
-            s_plain, s_b, s_by),
+            s_plain, s_b, s_by, s_dev),
         "K1-tangent": mode_record(
             "raster_tiles (K1, tangent channel in plain and seeded modes; "
             "per frame of the soup frame with occlusion and vertex tangents: "
             "phase 1, phase 2 seeded)", "135", tl[15] + tl[16], t_err,
-            t_ms_k, t_plain, t_b, t_by),
+            t_ms_k, t_plain, t_b, t_by, t_dev),
         "K6-tangent": mode_record(
             "resolve_attributes (K6, tangent mode; no frame path calls it: "
             "driven once on phase 12's phase-1 layer with tangents)", "39",
-            k6_launches, k6_err, k6_ms, k6_pms, b6_ms, b6_by,
+            k6_launches, k6_err, k6_ms, k6_pms, b6_ms, b6_by, k6_dev,
             source="basicrenderer_tpu_torch/csrc/resolve.cu"),
     }
     say("phase 12 soup occlusion: phase-6 courtyard "
@@ -3091,7 +3251,8 @@ def slice5_occlusion(np, torch, dev, kernels, smi, soup, yard):
         + " | per frame (phase-1 objects, candidates, phase-2 survivors): "
         + str(verdicts) + f" | launches per frame K1 {la[0] / n:.2f} (plain "
         f"{la[11] / n:.2f}, seeded {la[14] / n:.2f}) | phase 1 {p1_ms:.3f} ms"
-        f" | K1 seeded on the captured frame {s_ms:.4f} ms (bound {s_b:.4f} "
+        f" | K1 seeded on the captured frame {s_ms:.4f} ms (device "
+        f"{s_dev:.4f}; bound {s_b:.4f} "
         f"{s_by}, plain {s_plain:.0f} ms, max_abs_err {s_err:.3g}; phase-2 "
         f"pairs {s_pairs}, pixels won {s_won}) = {'; '.join(s_parts)} | K1 "
         f"seeded random 1080p max_abs_err {r_err:.3g} | pairs "
@@ -3102,31 +3263,34 @@ def slice5_occlusion(np, torch, dev, kernels, smi, soup, yard):
         + f", launches K1 plain+tangent {tl[15]} seeded+tangent {tl[16]} in "
         f"{nt} frames, vis and image equal to the frame without the tangent "
         f"channel at one camera: {t_same}; K1 tangent per captured frame "
-        f"{t_ms_k:.4f} ms "
-        f"(bound {t_b:.4f} {t_by}, plain {t_plain:.0f} ms, max_abs_err "
+        f"{t_ms_k:.4f} ms (device {t_dev:.4f}; "
+        f"bound {t_b:.4f} {t_by}, plain {t_plain:.0f} ms, max_abs_err "
         f"{t_err:.3g}) = phase 1 {t_parts[0]}; phase 2 {t_parts[1]}; K6 "
-        f"tangent on the phase-1 layer {k6_ms:.4f} ms (bound {b6_ms:.4f} "
-        f"{b6_by}, plain {k6_pms:.0f} ms, max_abs_err {k6_err:.3g}, rows "
-        f"walked {rows}, covered pixels {matched}); channels 0-5 vs K1's "
-        f"fused: max abs diff {fused_diff:.3g} || cluster path "
+        f"tangent on the phase-1 layer {k6_ms:.4f} ms (device {k6_dev:.4f} "
+        "= " + " + ".join(f"{k} {v:.4f}" for k, v in k6_parts.items())
+        + f"; {b6_txt}; plain {k6_pms:.0f} ms, max_abs_err {k6_err:.3g}); "
+        f"channels 0-5 vs K1's fused: max abs diff {fused_diff:.3g} || "
+        "cluster path "
         "(config1_minimal, group_binning=False, occlusion): median "
         f"{statistics.median(c_ms):.3f} ms/frame over {ct}, stage ms "
         + " ".join(f"{k} {c_stages[k]:.3f}" for k in
                    ("setup", "bin", "raster", "setup2", "bin2", "raster2",
                     "mask") if k in c_stages)
         + f", launches K1 plain {cl[11]} seeded {cl[14]} in {ncl} frames, "
-        f"overflow {c_ovf}; K1 seeded on clustered rows {c_sms:.4f} ms (bound "
+        f"overflow {c_ovf}; K1 seeded on clustered rows {c_sms:.4f} ms (device"
+        f" {c_sdev:.4f}; bound "
         f"{c_sb:.4f} {c_sby}, plain {c_splain:.0f} ms, max_abs_err "
         f"{c_serr:.3g}) | registers: "
-        + registers(r"span_tiles|resolve_tiles|resolve_kernel<16,tangent>")
+        + registers(r"span_tiles|resolve_tiles|id_table|last_match|"
+                    r"attr_pixels")
         + f" | {smi}")
     return recs
 
 
 def grid_sample_warp(torch, hist, tdy, tdx, th, tw, ref):
-    """(ms, max abs diff vs `ref`) of one torch grid_sample (bilinear,
-    border padding) warping (1, C, H, W) history by the same clipped
-    per-tile shifts; the grid and layout are made outside the timing. A
+    """(ms, max abs diff vs `ref`, device ms) of one torch grid_sample
+    (bilinear, border padding) warping (1, C, H, W) history by the same
+    clipped per-tile shifts; the grid and layout are made outside the timing. A
     yardstick only: the port never calls it. Its normalised f32 grid
     places samples to ~1e-4 px, so at HDR edges it differs from K5 by up
     to ~1e-3 of the history's range."""
@@ -3150,11 +3314,12 @@ def grid_sample_warp(torch, hist, tdy, tdx, th, tw, ref):
             align_corners=False)
 
     ms = cuda_ms(torch, run, 20)
+    dev_ms = device_ms(torch, run, 20)
     err = float((run()[0].permute(1, 2, 0) - ref).abs().max())
     scale = float(hist.abs().max())
     check(err <= 1e-2 * scale, f"grid_sample yardstick differs from K5 by "
           f"{err} (history range {scale})")
-    return ms, err
+    return ms, err, dev_ms
 
 
 def profile_frames(torch, step, wall_ms, label, n=5):

@@ -142,7 +142,8 @@ def cuda_device():
 @pytest.mark.parametrize("tangent", [False, True])
 def test_cuda_resolve_matches_plain(cuda_device, tangent):
     """K6 on the card vs the plain version, on a raster's own vis with
-    the big list in use: every channel exact."""
+    the big list in use, then on a random vis drawn from every row's id
+    (other tiles' too), zero and -1: every channel exact."""
     rng = np.random.default_rng(23)
     n = 400
     clip = torch.as_tensor(random_clip_triangles(rng, n).reshape(-1, 4),
@@ -166,3 +167,12 @@ def test_cuda_resolve_matches_plain(cuda_device, tangent):
     assert presolve.resolve_attributes_cuda.launches == before + 1
     assert torch.equal(got, presolve.resolve_attributes_plain(pairs, vis, cfg))
     assert torch.equal(got, fused)
+    live = int(pairs.tile_offsets[-1])
+    pool = np.concatenate([pairs.pair_data[:live, 9].cpu().numpy()
+                           .astype(np.int32), [0, -1]])
+    rvis = torch.as_tensor(rng.choice(pool, tuple(vis.shape)),
+                           dtype=torch.int32, device=cuda_device)
+    got = presolve.resolve_attributes(pairs, rvis, cfg)
+    assert torch.equal(got, presolve.resolve_attributes_plain(pairs, rvis,
+                                                              cfg))
+    assert bool((got[4] != 0).any())
