@@ -49,8 +49,10 @@ reflections (enable_ssr), GTAO (enable_gtao), the IBL ambient composite
 prefiltered environment; without IBL the reflection is added with the
 Fresnel-at-normal tint and AO darkens the lit frame), TAA (enable_taa:
 with `prev_viewproj` the motion-vector resolve, whose per-tile history
-warp is K5, else the static resolve), bloom (enable_bloom), auto-exposure
-(enable_auto_exposure) -> ACES -> sRGB. Order-independent transparency
+warp is K5, else the static resolve; with output_width / output_height,
+TAAU: the frame is resized bilinearly to the output size first, and the
+history, K5's warp and the rest of the post stack run there), bloom
+(enable_bloom), auto-exposure (enable_auto_exposure) -> ACES -> sRGB. Order-independent transparency
 (enable_oit, with enable_clod: ops/oit.py, K1/K2 peel and accum modes,
 the OpenPBR transmission split with enable_transmission) composites onto
 the lit frame after the IBL composite and before TAA. graph/temporal.py
@@ -89,8 +91,7 @@ _UNPORTED_TOGGLES = (
     ("enable_skinning", False),
     ("enable_reyes", False), ("enable_voxel_rt", False),
     ("enable_voxel_fallback", False), ("enable_rt_reflect", False),
-    ("enable_streaming", False),
-    ("output_width", 0), ("output_height", 0), ("debug_view", "none"),
+    ("enable_streaming", False), ("debug_view", "none"),
     ("wireframe", False), ("enable_coat", False), ("enable_fuzz", False),
     ("enable_energy_comp", False), ("enable_sss", False),
     ("enable_aniso", False), ("cut_windows", 0),
@@ -100,12 +101,31 @@ _TEX_LANE = {"base": 0, "normal": 1, "mr": 2, "emissive": 3}
 
 def check_config(config: FrameConfig) -> None:
     """Raise NotImplementedError for any structural choice outside the
-    ported frames."""
+    ported frames, and ValueError for upscaling without TAA."""
     for name, off in _UNPORTED_TOGGLES:
         if getattr(config, name) != off:
             raise NotImplementedError(
                 f"FrameConfig.{name}={getattr(config, name)!r} is not ported "
                 f"to basicrenderer_tpu_torch yet (supported: {off!r})")
+    if _upscaling(config):
+        if not config.enable_taa:
+            raise ValueError("upscaling (FrameConfig.output_width / "
+                             "output_height) requires enable_taa")
+        if config.output_width < config.width \
+                or config.output_height < config.height:
+            raise NotImplementedError(
+                f"FrameConfig.output_width/output_height "
+                f"{config.output_width}x{config.output_height} below the "
+                f"render size {config.width}x{config.height}: only upscaling "
+                f"is ported to basicrenderer_tpu_torch")
+
+
+def _upscaling(config: FrameConfig) -> bool:
+    """TAAU: the frame renders at (height, width) and presents at
+    (output_height, output_width)."""
+    return config.output_width > 0 and (
+        config.output_width, config.output_height) != (config.width,
+                                                       config.height)
 
 
 def object_mask_to_tris(object_visible: torch.Tensor,
@@ -456,6 +476,13 @@ def _render_body(scene: SceneBuffers, view: ViewData, params: FrameParams,
         hdr, oit_overflow = oit_ops.composite_oit(
             scene, view, config, params, depth_p, hdr, num_lights, stage)
 
+    if _upscaling(config):
+        # TAAU: the jittered render-size frame is resized to the output
+        # size, where the history accumulates (the sub-pixel jitter
+        # sequence recovers detail past the render size).
+        stage("upscale")
+        hdr = tex_ops.resize_bilinear(hdr, config.output_height,
+                                      config.output_width)
     if config.enable_taa and taa_history is not None:
         if prev_viewproj is not None:
             # Motion-vector reprojection: per-pixel motion from depth and
@@ -471,6 +498,20 @@ def _render_body(scene: SceneBuffers, view: ViewData, params: FrameParams,
                 depth_p, channels[4], view, prev_viewproj, moving_rel,
                 moving_ids, config, full_h=H, full_w=config.width)
             tdy, tdx, resid = motion.tile_motion(du, dv, mvalid, config, mds)
+            oh, ow = hdr.shape[:2]
+            if (oh, ow) != (H, W):
+                # TAAU: motion at the render size; the tile maps are
+                # resized (nearest) to the output's tile grid and scaled
+                # to output pixels.
+                sy_s, sx_s = oh / H, ow / W
+                oty, otx = -(-oh // config.tile_h), -(-ow // config.tile_w)
+                tdy = post.resize_nearest(
+                    tdy.reshape(config.tiles_y, config.tiles_x) * sy_s,
+                    oty, otx).reshape(-1)
+                tdx = post.resize_nearest(
+                    tdx.reshape(config.tiles_y, config.tiles_x) * sx_s,
+                    oty, otx).reshape(-1)
+                resid = resid * max(sy_s, sx_s)
             stage("taa")
             hdr = post.taa_resolve_mv(hdr, taa_history, params.taa_blend,
                                       tdy, tdx, resid, config.tile_h,
@@ -740,8 +781,15 @@ def build_frame_fn(config: FrameConfig) -> Callable[..., Dict[str, torch.Tensor]
     "light_cull" and "tiled_shade" (clustered), "shade", then the post
     stages "ssr", "gtao", "ibl" of the enabled passes, OIT's "oit_cut",
     "oit_setup", "oit_bin", "oit_peel0", ... (one per layer rastered),
-    "oit_accum", "oit_shade", "oit_composite", then "motion", "taa",
-    "bloom", "exposure", and "end"."""
+    "oit_accum", "oit_shade", "oit_composite", then "upscale" (TAAU),
+    "motion", "taa", "bloom", "exposure", and "end".
+
+    With FrameConfig.output_width / output_height (TAAU, enable_taa
+    required) the frame renders at (height, width), resizes the HDR frame
+    bilinearly to the output size after the OIT composite, and resolves
+    TAA, bloom, exposure and the tonemap there: "image", "hdr" and
+    "taa_out" (the next frame's `taa_history`) are output-size, the
+    buffers ("depth", "vis", ...) render-size."""
     check_config(config)
 
     def frame(scene: SceneBuffers, view: ViewData, params: FrameParams,

@@ -6,12 +6,13 @@ Counterpart of the TAA and VSM parts of basicrenderer_tpu/renderer.py
 ported yet. Per frame, `TemporalState.inputs` gives:
 
 - the ViewData with the Halton sub-pixel jitter in the projection (with
-  enable_taa);
+  enable_taa; in render pixels, also under TAAU);
 - the FrameParams with this frame's `frame_index` (GTAO rotates its slices
   with it);
 - the frame function's keyword arguments: `prev_depth` (with occlusion or
   TAA; zeros before the first frame), `taa_history` (the previous frame's
-  "taa_out"; None first), and, once a previous frame exists,
+  "taa_out", at the output size under TAAU; None first or when its shape
+  is not this config's), and, once a previous frame exists,
   `prev_viewproj` (its UN-jittered view-projection: the jitter is a
   supersampling offset, not motion) with `moving_rel` / `moving_ids`, the
   objects whose model matrix changed since, each with prev_viewproj @
@@ -91,8 +92,9 @@ class TemporalState:
             kwargs["prev_depth"] = self.prev_depth
         if cfg.enable_taa:
             hist = self.taa_history
-            if hist is not None and tuple(hist.shape) != (cfg.height,
-                                                          cfg.width, 3):
+            out_h = cfg.output_height or cfg.height
+            out_w = cfg.output_width or cfg.width
+            if hist is not None and tuple(hist.shape) != (out_h, out_w, 3):
                 hist = None
             kwargs["taa_history"] = hist
             cur_mats = objects[0]

@@ -1,8 +1,9 @@
 """Environment (image-based lighting) precompute and caching.
 
-Port of basicrenderer_tpu/models/environment.py for cubemap inputs (the
-Radiance .hdr equirect loader waits for the HDR decoder). An environment
-is its 9 SH radiance coefficients and its GGX-prefiltered radiance mips,
+Port of basicrenderer_tpu/models/environment.py. The input is a (6, R, R,
+3) radiance cubemap or an (H, W, 3) equirect panorama (resampled to a
+cubemap first; `Environment.from_hdr` reads one from a Radiance .hdr
+file). An environment is its 9 SH radiance coefficients and its GGX-prefiltered radiance mips,
 every mip resampled to SPEC_RES so that the runtime mip pick is a lerp.
 Results are cached as .npz under basicrenderer_tpu_torch/_build/env/
 (gitignored), keyed on the input's bytes.
@@ -67,17 +68,19 @@ class Environment:
         self.name = name
 
     @staticmethod
-    def precompute(cubemap: np.ndarray, name: str = "",
-                   use_cache: bool = True, device="cuda") -> "Environment":
+    def precompute(equirect_or_cubemap: np.ndarray, name: str = "",
+                   cubemap_res: int = 128, use_cache: bool = True,
+                   device="cuda") -> "Environment":
         """SH projection and GGX prefilter of a (6, R, R, 3) radiance
-        cubemap, computed on `device` (the card unless the caller names
-        another device). An equirect (H, W, 3) input raises: its loader is
-        not ported yet."""
-        arr = np.asarray(cubemap, np.float32)
-        if arr.ndim != 4 or arr.shape[0] != 6 or arr.shape[3] != 3:
-            raise NotImplementedError(
-                "Environment.precompute takes a (6, R, R, 3) cubemap; the "
-                "equirect path (equirect_to_cubemap) is not ported yet")
+        cubemap, or of an (H, W, 3) equirect resampled to a
+        `cubemap_res` cubemap, computed on `device` (the card unless the
+        caller names another device)."""
+        arr = np.asarray(equirect_or_cubemap, np.float32)
+        if arr.shape[-1] != 3 or arr.ndim not in (3, 4) \
+                or (arr.ndim == 4 and arr.shape[0] != 6):
+            raise ValueError(f"Environment.precompute takes an (H, W, 3) "
+                             f"equirect or a (6, R, R, 3) cubemap, not "
+                             f"{arr.shape}")
         path = None
         if use_cache:
             key = hashlib.sha1(arr.tobytes()).hexdigest()[:16]
@@ -86,6 +89,8 @@ class Environment:
                 z = np.load(path)
                 return Environment(z["sh"], z["spec"], name)
         cube = torch.tensor(arr, device=device)
+        if arr.ndim == 3:                      # equirect (H, W, 3)
+            cube = ibl.equirect_to_cubemap(cube, cubemap_res)
         sh = ibl.project_sh(cube).cpu().numpy()
         mips = ibl.prefilter_specular(cube, mips=SPEC_MIPS)
         spec = np.stack([
@@ -98,6 +103,17 @@ class Environment:
             os.replace(tmp, path)
         return Environment(sh.astype(np.float32), spec.astype(np.float32),
                            name)
+
+    @staticmethod
+    def from_hdr(path: str, cubemap_res: int = 128, use_cache: bool = True,
+                 device="cuda") -> "Environment":
+        """Load a Radiance .hdr equirect panorama and precompute it."""
+        from .texprocess import load_hdr
+        with open(path, "rb") as f:
+            img = load_hdr(f.read())
+        return Environment.precompute(img, name=os.path.basename(path),
+                                      cubemap_res=cubemap_res,
+                                      use_cache=use_cache, device=device)
 
     @staticmethod
     def procedural(intensity: float = 1.0, sun_dir=(-0.45, -1.0, -0.3),

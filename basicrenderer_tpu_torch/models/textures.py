@@ -14,9 +14,10 @@ one strip row is 32 BC3 blocks, a 128-texel x window by 4 texel rows
 (ops/textures.strip_layout_bc), encoded by models/texprocess.py and
 decoded by the sampler.
 
-Not ported: MASK alpha-coverage mips (`alpha_cutoff >= 0`), which need
-the rest of the texture processing module; they raise
-NotImplementedError.
+A layer added with `alpha_cutoff >= 0` (an alpha-MASK material's base
+colour) gets coverage-preserving mips: each half-resolution level's alpha
+is scaled so that the share of texels above the cutoff stays that of
+level 0 (models/texprocess.alpha_coverage_scale), in both formats.
 """
 
 from __future__ import annotations
@@ -26,26 +27,28 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from ..ops.textures import mip_layout, strip_layout, strip_layout_bc
-from .texprocess import bc3_encode
+from .texprocess import alpha_coverage_scale, bc3_encode
 
 FLAG_SRGB = 1
 
 
 class TextureRegistry:
-    def __init__(self, resolution: int = 256):
+    def __init__(self, resolution: int = 256, processed_cache=None):
         self.resolution = resolution
         self.images: List[np.ndarray] = []   # (R, R, 4) f32 LINEAR
         self.srgb: List[bool] = []           # stored-encoding flag per layer
+        self.alpha_cutoffs: List[float] = []  # >=0: MASK coverage-fix mips
+        # Optional texprocess.ProcessedTextureCache the importers route
+        # image bytes through (decode+resize+BC skip on hit).
+        self.processed_cache = processed_cache
 
     def add(self, image: np.ndarray, srgb: bool = True,
             alpha_cutoff: float = -1.0) -> int:
         """Register an (H, W, 3|4) uint8/float image; returns texture id.
         `srgb=True` marks color data (decoded to linear here, re-encoded
-        sRGB8 in the atlas); False marks data textures (normals, ORM)."""
-        if alpha_cutoff >= 0.0:
-            raise NotImplementedError(
-                "alpha-coverage mips (TextureRegistry.add(alpha_cutoff>=0)) "
-                "are not ported to basicrenderer_tpu_torch yet")
+        sRGB8 in the atlas); False marks data textures (normals, ORM).
+        `alpha_cutoff >= 0` marks an alpha-MASK layer whose mip chain gets
+        coverage-preserving alpha scaling (texprocess)."""
         img = np.asarray(image)
         if img.dtype == np.uint8:
             img = img.astype(np.float32) / 255.0
@@ -59,7 +62,21 @@ class TextureRegistry:
             img = np.concatenate([img, np.ones_like(img[..., :1])], -1)
         self.images.append(_resize(img, self.resolution))
         self.srgb.append(bool(srgb))
+        self.alpha_cutoffs.append(float(alpha_cutoff))
         return len(self.images) - 1
+
+    def _downsample(self, level: np.ndarray, sz: int, layer: int
+                    ) -> np.ndarray:
+        """Half-res box filter (linear space) + alpha-coverage fix for MASK
+        layers."""
+        out = level.reshape(sz // 2, 2, sz // 2, 2, 4).mean((1, 3))
+        cutoff = self.alpha_cutoffs[layer]
+        if cutoff >= 0.0:
+            ref = float(np.mean(self.images[layer][..., 3] > cutoff))
+            s = alpha_coverage_scale(out[..., 3], cutoff, ref)
+            out = out.copy()
+            out[..., 3] = np.minimum(out[..., 3] * s, 1.0)
+        return out
 
     def checkerboard(self, a=(0.9, 0.9, 0.9), b=(0.2, 0.2, 0.2),
                      squares: int = 8) -> int:
@@ -102,8 +119,8 @@ class TextureRegistry:
                     for ph in range(sz // 64 - 1):
                         out[base + ph * sz: base + (ph + 1) * sz] = \
                             packed[:, ph * 64: ph * 64 + 128]
-                if sz > sizes[-1]:             # box-filter down (linear)
-                    level = level.reshape(sz // 2, 2, sz // 2, 2, 4).mean((1, 3))
+                if sz > sizes[-1]:
+                    level = self._downsample(level, sz, i)
             flags[i] = FLAG_SRGB if self.srgb[i] else 0
         return strips, flags
 
@@ -140,8 +157,8 @@ class TextureRegistry:
                     for ph in range(sz // 64 - 1):
                         out[base + ph * nbr: base + (ph + 1) * nbr] = \
                             band_rows(img8[:, ph * 64: ph * 64 + 128])
-                if sz > sizes[-1]:             # box-filter down (linear)
-                    level = level.reshape(sz // 2, 2, sz // 2, 2, 4).mean((1, 3))
+                if sz > sizes[-1]:
+                    level = self._downsample(level, sz, i)
             flags[i] = FLAG_SRGB if self.srgb[i] else 0
         return strips, flags
 

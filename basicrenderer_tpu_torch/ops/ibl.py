@@ -1,10 +1,10 @@
 """Image-based lighting: environment precompute + runtime ambient terms.
 
-Port of basicrenderer_tpu/ops/ibl.py (cubemap inputs; the equirect loader
-`equirect_to_cubemap` / `sample_equirect` waits for the HDR decoder).
+Port of basicrenderer_tpu/ops/ibl.py.
 
-- Precompute, once per environment and off the frame path: cubemap face
-  directions, 9-coefficient SH radiance projection with solid-angle
+- Precompute, once per environment and off the frame path: an equirect
+  panorama resampled to a cubemap (bilinear, wrapping in longitude),
+  cubemap face directions, 9-coefficient SH radiance projection with solid-angle
   weights, GGX importance-sampled prefiltered radiance mips.
 - Runtime diffuse: SH irradiance evaluated per pixel (closed form).
 - Runtime specular: the Karis analytic fit of the split-sum environment
@@ -42,6 +42,35 @@ def face_directions(res: int, device="cpu") -> torch.Tensor:
     ]
     d = torch.stack(faces)
     return d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
+
+
+def sample_equirect(equirect: torch.Tensor, dirs: torch.Tensor
+                    ) -> torch.Tensor:
+    """Bilinear sample of an equirect (H, W, 3) image along (..., 3) dirs
+    (precompute): longitude wraps, latitude clamps."""
+    H, W = equirect.shape[:2]
+    x, y, z = dirs[..., 0], dirs[..., 1], dirs[..., 2]
+    u = (torch.atan2(x, -z) / (2 * math.pi) + 0.5) * W - 0.5
+    v = (torch.arccos(torch.clamp(y, -1, 1)) / math.pi) * H - 0.5
+    u0 = torch.floor(u).to(torch.int64)
+    v0 = torch.floor(v).to(torch.int64)
+    fu = u - u0
+    fv = v - v0
+    flat = equirect.reshape(-1, 3)
+
+    def tex(ui, vi):
+        return flat[torch.clamp(vi, 0, H - 1) * W + torch.remainder(ui, W)]
+
+    return (tex(u0, v0) * ((1 - fu) * (1 - fv))[..., None]
+            + tex(u0 + 1, v0) * (fu * (1 - fv))[..., None]
+            + tex(u0, v0 + 1) * ((1 - fu) * fv)[..., None]
+            + tex(u0 + 1, v0 + 1) * (fu * fv)[..., None])
+
+
+def equirect_to_cubemap(equirect: torch.Tensor, res: int = 128
+                        ) -> torch.Tensor:
+    """(H, W, 3) equirect -> (6, res, res, 3) cubemap (precompute)."""
+    return sample_equirect(equirect, face_directions(res, equirect.device))
 
 
 def _sh_basis(d: torch.Tensor) -> torch.Tensor:

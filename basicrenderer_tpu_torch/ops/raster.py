@@ -149,6 +149,10 @@ def _to_tiles(img: torch.Tensor, config: FrameConfig) -> torch.Tensor:
     return t.transpose(-3, -2).reshape(*lead, config.num_tiles, th, tw)
 
 
+# The plain walk's chunk: at most _CHUNK_ROWS rows of every tile a step,
+# and at most _CHUNK_VALUES (row, pixel) values.
+_CHUNK_ROWS = 64
+_CHUNK_VALUES = 1 << 23
 _INV255 = torch.tensor(1.0 / 255.0, dtype=torch.float32)
 _FOUR255 = torch.tensor(4.0 / 255.0, dtype=torch.float32)
 _INV256 = torch.tensor(1.0 / 256.0, dtype=torch.float32)
@@ -194,8 +198,9 @@ def _plain_walk(pair_data: torch.Tensor, tile_offsets: torch.Tensor,
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K1's walk, vectorised across tiles: step s gathers row start_t + s
     of every tile t at once (masked past each tile's count), then every
-    tile walks rows [0, big_count) with the bbox test. Reads the longest
-    tile's row count on the host. Modes as `raster_tiles`."""
+    tile walks rows [0, big_count) with the bbox test; outside accum mode
+    each step takes a run of rows of every tile (chunk_step). Reads the
+    longest tile's row count on the host. Modes as `raster_tiles`."""
     tangent = config.enable_vertex_tangents
     th, tw = config.tile_h, config.tile_w
     tiles_x = config.tiles_x
@@ -265,7 +270,37 @@ def _plain_walk(pair_data: torch.Tensor, tile_offsets: torch.Tensor,
         if tangent:
             chans[5] = torch.where(passd, d[:, 27], chans[5])
 
-    if n_rows:
+    def chunk_step(rows: torch.Tensor, live: torch.Tensor) -> None:
+        """K walked rows of every tile at once, (N, K, 32) and (N, K):
+        the same result as K row_steps. A row wins a pixel where it
+        covers it, passes the peel bound and lies strictly in front of
+        the depth so far, so of a run of rows the first that reaches the
+        run's largest z wins, if that z beats the depth before the run
+        (torch.max returns the first index of the largest value)."""
+        d = rows[:, :, :, None, None]                  # (N, K, 32, 1, 1)
+        pxk, pyk = px[:, None], py[:, None]
+        e0 = plane_eval(d[:, :, 0], d[:, :, 1], d[:, :, 2], pxk, pyk)
+        e1 = plane_eval(d[:, :, 3], d[:, :, 4], d[:, :, 5], pxk, pyk)
+        e2 = (1.0 - e0) - e1
+        z = plane_eval(d[:, :, 6], d[:, :, 7], d[:, :, 8], pxk, pyk)
+        cov = ((live & (rows[:, :, 9] > 0.5))[:, :, None, None]
+               & (e0 >= 0) & (e1 >= 0) & (e2 >= 0) & ~torch.isnan(z))
+        if peel_z is not None:
+            cov = cov & (z < peel_z[:, None])
+        zmax, k = torch.where(cov, z, -torch.inf).max(dim=1)
+        passd = zmax > depth
+        win = rows[torch.arange(N, device=dev)[:, None, None], k]
+        depth.copy_(torch.where(passd, zmax, depth))
+        vis.copy_(torch.where(passd, win[..., 9].to(torch.int32), vis))
+        for ch in range(4):
+            val = plane_eval(win[..., 15 + ch * 3], win[..., 16 + ch * 3],
+                             win[..., 17 + ch * 3], px, py)
+            chans[ch] = torch.where(passd, val, chans[ch])
+        chans[4] = torch.where(passd, win[..., 10], chans[4])
+        if tangent:
+            chans[5] = torch.where(passd, win[..., 27], chans[5])
+
+    if n_rows and accum:
         offs = tile_offsets.long().clamp(max=n_rows)
         starts, counts = offs[:-1], offs[1:] - offs[:-1]
         for s in range(int(counts.max()) if N else 0):
@@ -276,6 +311,23 @@ def _plain_walk(pair_data: torch.Tensor, tile_offsets: torch.Tensor,
             hit = ((txf >= row[11]) & (txf <= row[12])
                    & (tyf >= row[13]) & (tyf <= row[14]))
             row_step(row.expand(N, SETUP_LANES), hit)
+    elif n_rows:
+        # Sums need walk order; a maximum does not: the other modes walk
+        # K rows of every tile a step, K bounded by the step's pixels.
+        K = max(1, min(_CHUNK_ROWS, _CHUNK_VALUES // max(N * th * tw, 1)))
+        offs = tile_offsets.long().clamp(max=n_rows)
+        starts, counts = offs[:-1], offs[1:] - offs[:-1]
+        ks = torch.arange(K, device=dev)
+        for s in range(0, int(counts.max()) if N else 0, K):
+            idx = torch.clamp(starts[:, None] + s + ks, max=n_rows - 1)
+            chunk_step(pair_data[idx], (s + ks)[None] < counts[:, None])
+        nb = min(big_count, n_rows)
+        for j in range(0, nb, K):
+            rows = pair_data[j:min(j + K, nb)]
+            hit = ((txf[:, None] >= rows[:, 11]) & (txf[:, None] <= rows[:, 12])
+                   & (tyf[:, None] >= rows[:, 13])
+                   & (tyf[:, None] <= rows[:, 14]))
+            chunk_step(rows.expand(N, *rows.shape), hit)
 
     return (_to_image(depth, config), _to_image(vis, config),
             _to_image(chans, config))

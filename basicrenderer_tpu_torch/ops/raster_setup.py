@@ -60,6 +60,23 @@ class TriangleSetup(NamedTuple):
     lane_cols: List[torch.Tensor]  # the 32 (T,) payload columns
 
 
+def fma(a, b, c):
+    """a * b + c rounded once, as XLA's CPU backend contracts a product
+    feeding an add (torch.addcmul: a true fused multiply-add on both the
+    CPU and the card)."""
+    if not isinstance(c, torch.Tensor):
+        c = torch.full_like(a if isinstance(a, torch.Tensor) else b, c)
+    if not isinstance(b, torch.Tensor):
+        b = torch.tensor(b, dtype=torch.float32, device=c.device)
+    return torch.addcmul(c, a, b)
+
+
+def dot3(a0, b0, a1, b1, a2, b2):
+    """a0*b0 + a1*b1 + a2*b2 in XLA's contracted form:
+    fma(a2, b2, fma(a0, b0, a1*b1))."""
+    return fma(a2, b2, fma(a0, b0, a1 * b1))
+
+
 def oct_encode_cols(nx, ny, nz):
     """(T,)-column octahedral encode: unit-ish normal -> (ou, ov) in
     [-1, 1] (decoded per pixel by shade.oct_decode_cols)."""
@@ -166,10 +183,21 @@ def _setup_from_corners(g0, g1, g2, tri_valid, config: FrameConfig,
     w_c = [g0[:, 3], g1[:, 3], g2[:, 3]]
     w_ok = (w_c[0] > 1e-6) & (w_c[1] > 1e-6) & (w_c[2] > 1e-6)
     iw_c = [1.0 / torch.where(torch.abs(wc) > 1e-9, wc, 1.0) for wc in w_c]
-    # D3D viewport transform: y flips (NDC +y up -> screen y down).
-    sx_c = [(g[:, 0] * iw * 0.5 + 0.5) * W for g, iw in zip((g0, g1, g2), iw_c)]
-    sy_c = [(0.5 - g[:, 1] * iw * 0.5) * H for g, iw in zip((g0, g1, g2), iw_c)]
+    # D3D viewport transform: y flips (NDC +y up -> screen y down). The
+    # screen coordinates are products by W and H; in the area below XLA
+    # fuses such a product into the difference of two (ndx/ndy: a * W - b
+    # rounded once), while the edges' differences stay plain.
+    nx_c = [g[:, 0] * iw * 0.5 + 0.5 for g, iw in zip((g0, g1, g2), iw_c)]
+    ny_c = [0.5 - g[:, 1] * iw * 0.5 for g, iw in zip((g0, g1, g2), iw_c)]
+    sx_c = [n * W for n in nx_c]
+    sy_c = [n * H for n in ny_c]
     z_c = [g[:, 2] * iw for g, iw in zip((g0, g1, g2), iw_c)]
+
+    def ndx(a, b):   # sx_c[a] - sx_c[b]
+        return fma(nx_c[a], float(W), -sx_c[b])
+
+    def ndy(a, b):   # sy_c[a] - sy_c[b]
+        return fma(ny_c[a], float(H), -sy_c[b])
 
     x0, y0 = sx_c[0], sy_c[0]
     x1, y1 = sx_c[1], sy_c[1]
@@ -177,25 +205,31 @@ def _setup_from_corners(g0, g1, g2, tri_valid, config: FrameConfig,
     # Signed 2*area in y-down screen space; world-CCW front faces => s < 0.
     # Below ~1e-3 px^2 a triangle is a degenerate sliver whose normalized
     # planes would blow up (see the JAX package's note).
-    s = (x1 - x0) * (y2 - y0) - (x2 - x0) * (y1 - y0)
+    s = fma(ndx(1, 0), ndy(2, 0), -(ndx(2, 0) * ndy(1, 0)))
     front = s < -1e-3
     valid = tri_valid & w_ok & front
     # Normalize by the SIGNED area so E_i(v_i) = +1 regardless of winding.
     inv_area2 = torch.where(
         front, 1.0 / torch.where(torch.abs(s) > 1e-6, s, -1e-6), 0.0)
 
-    def edge(ax, ay, bx, by):
-        # Columns (A, B, C) of the edge plane a->b, normalized to barycentric.
+    def edge(a, b):
+        # Columns (A, B, C) of the edge plane of corners a->b, normalized
+        # to barycentric.
+        ax, ay, bx, by = sx_c[a], sy_c[a], sx_c[b], sy_c[b]
         return ((ay - by) * inv_area2, (bx - ax) * inv_area2,
-                (ax * by - ay * bx) * inv_area2)
+                fma(ax, by, -(ay * bx)) * inv_area2)
 
-    e0 = edge(x1, y1, x2, y2)   # barycentric weight plane of vertex 0
-    e1 = edge(x2, y2, x0, y0)
-    e2 = edge(x0, y0, x1, y1)
+    e0 = edge(1, 2)   # barycentric weight plane of vertex 0
+    e1 = edge(2, 0)
+    e2 = edge(0, 1)
+    # XLA computes e1's A column for the lane rows in the fusion of the
+    # area, where y2 - y0 is contracted; the planes below take the plain
+    # difference.
+    e1_lane = (ndy(2, 0) * inv_area2,) + e1[1:]
 
     def plane_from(v0, v1, v2):
         """Per-vertex scalars -> affine plane columns (A, B, C)."""
-        return tuple(v0 * e0[c] + v1 * e1[c] + v2 * e2[c] for c in range(3))
+        return tuple(dot3(v0, e0[c], v1, e1[c], v2, e2[c]) for c in range(3))
 
     zplane_c = plane_from(*z_c)
 
@@ -244,7 +278,7 @@ def _setup_from_corners(g0, g1, g2, tri_valid, config: FrameConfig,
     ty1 = tile_of(by1, th, config.tiles_y)
     bbox = torch.stack([tx0, ty0, tx1, ty1], dim=-1).to(torch.int32)
     return TriangleSetup(bbox, valid,
-                         _lane_columns(e0, e1, zplane_c, plane_cols, valid,
+                         _lane_columns(e0, e1_lane, zplane_c, plane_cols, valid,
                                        tx0, ty0, tx1, ty1, tangent_col))
 
 
@@ -511,17 +545,17 @@ def _transform_corner_cols(px, py, pz, nx0, ny0, nz0, u, v, m, viewproj):
     """Object-space corner columns + per-row matrix columns `m` (25 x
     (Kt,): model 4x4 row-major, then the normal 3x3) -> corner rows
     [clip4 | wnormal3 | uv2] (Kt, 9)."""
-    wx = m[0] * px + m[1] * py + m[2] * pz + m[3]
-    wy = m[4] * px + m[5] * py + m[6] * pz + m[7]
-    wz = m[8] * px + m[9] * py + m[10] * pz + m[11]
+    wx = dot3(m[0], px, m[1], py, m[2], pz) + m[3]
+    wy = dot3(m[4], px, m[5], py, m[6], pz) + m[7]
+    wz = dot3(m[8], px, m[9], py, m[10], pz) + m[11]
     vp = viewproj
-    cx = vp[0, 0] * wx + vp[0, 1] * wy + vp[0, 2] * wz + vp[0, 3]
-    cy = vp[1, 0] * wx + vp[1, 1] * wy + vp[1, 2] * wz + vp[1, 3]
-    cz = vp[2, 0] * wx + vp[2, 1] * wy + vp[2, 2] * wz + vp[2, 3]
-    cw = vp[3, 0] * wx + vp[3, 1] * wy + vp[3, 2] * wz + vp[3, 3]
-    nx = m[16] * nx0 + m[17] * ny0 + m[18] * nz0
-    ny = m[19] * nx0 + m[20] * ny0 + m[21] * nz0
-    nz = m[22] * nx0 + m[23] * ny0 + m[24] * nz0
+    cx = dot3(vp[0, 0], wx, vp[0, 1], wy, vp[0, 2], wz) + vp[0, 3]
+    cy = dot3(vp[1, 0], wx, vp[1, 1], wy, vp[1, 2], wz) + vp[1, 3]
+    cz = dot3(vp[2, 0], wx, vp[2, 1], wy, vp[2, 2], wz) + vp[2, 3]
+    cw = dot3(vp[3, 0], wx, vp[3, 1], wy, vp[3, 2], wz) + vp[3, 3]
+    nx = dot3(m[16], nx0, m[17], ny0, m[18], nz0)
+    ny = dot3(m[19], nx0, m[20], ny0, m[21], nz0)
+    nz = dot3(m[22], nx0, m[23], ny0, m[24], nz0)
     return torch.stack([cx, cy, cz, cw, nx, ny, nz, u, v], dim=1)
 
 
@@ -533,17 +567,17 @@ def _dequantized_corner_cols(q6, dq, meshlet_tris: int):
     def rep(col):
         return col.repeat_interleave(meshlet_tris)
     inv = 1.0 / 65535.0
-    px = rep(dq[:, 0]) + q6[0] * (rep(dq[:, 3]) * inv)
-    py = rep(dq[:, 1]) + q6[1] * (rep(dq[:, 4]) * inv)
-    pz = rep(dq[:, 2]) + q6[2] * (rep(dq[:, 5]) * inv)
+    px = fma(q6[0], rep(dq[:, 3]) * inv, rep(dq[:, 0]))
+    py = fma(q6[1], rep(dq[:, 4]) * inv, rep(dq[:, 1]))
+    pz = fma(q6[2], rep(dq[:, 5]) * inv, rep(dq[:, 2]))
     o = q6[3].to(torch.int32)
-    a = (o & 255).to(torch.float32) * (2.0 / 255.0) - 1.0
-    b = (o >> 8).to(torch.float32) * (2.0 / 255.0) - 1.0
+    a = fma((o & 255).to(torch.float32), 2.0 / 255.0, -1.0)
+    b = fma((o >> 8).to(torch.float32), 2.0 / 255.0, -1.0)
     z = 1.0 - torch.abs(a) - torch.abs(b)
     t = torch.clamp(-z, 0.0, 1.0)
     x = a + torch.where(a >= 0, -t, t)
     y = b + torch.where(b >= 0, -t, t)
-    rl = 1.0 / torch.sqrt(torch.clamp(x * x + y * y + z * z, min=1e-20))
+    rl = 1.0 / torch.sqrt(torch.clamp(dot3(x, x, y, y, z, z), min=1e-20))
 
     def half(col):   # 16-bit value -> its bits as an f16 -> f32
         return col.to(torch.int32).to(torch.int16).view(torch.float16).to(

@@ -125,3 +125,58 @@ def np_orthographic(left, right, bottom, top, near, far, reverse_z=True) -> np.n
     m[2, 2], m[2, 3] = sz, tz
     m[3, 3] = 1.0
     return m
+
+
+# ---------------------------------------------------------------------------
+# Quaternions and TRS (numpy f32; the host-side animation sampler)
+# ---------------------------------------------------------------------------
+
+def quat_to_matrix(q) -> np.ndarray:
+    """(..., 4) xyzw quaternion -> (..., 4, 4) f32 rotation matrix (the
+    quaternion need not be unit length)."""
+    q = np.asarray(q, np.float32)
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    n = x * x + y * y + z * z + w * w
+    s = np.where(n > 0, np.float32(2.0) / np.maximum(n, np.float32(1e-20)),
+                 np.float32(0.0)).astype(np.float32)
+    xx, yy, zz = x * x * s, y * y * s, z * z * s
+    xy, xz, yz = x * y * s, x * z * s, y * z * s
+    wx, wy, wz = w * x * s, w * y * s, w * z * s
+    one = np.ones_like(x)
+    zero = np.zeros_like(x)
+    rows = [
+        np.stack([one - (yy + zz), xy - wz, xz + wy, zero], -1),
+        np.stack([xy + wz, one - (xx + zz), yz - wx, zero], -1),
+        np.stack([xz - wy, yz + wx, one - (xx + yy), zero], -1),
+        np.stack([zero, zero, zero, one], -1),
+    ]
+    return np.stack(rows, axis=-2)
+
+
+def quat_slerp(a, b, t) -> np.ndarray:
+    """Spherical linear interpolation between xyzw quaternions, in f32;
+    a lerp where they are nearly parallel."""
+    a = np.asarray(a, np.float32)
+    b = np.asarray(b, np.float32)
+    d = np.sum(a * b, axis=-1, keepdims=True)
+    b = np.where(d < 0, -b, b)
+    d = np.clip(np.abs(d), np.float32(-1.0), np.float32(1.0))
+    theta = np.arccos(d)
+    sin_theta = np.sin(theta)
+    use_lerp = sin_theta < 1e-5
+    safe = np.where(use_lerp, np.float32(1.0), sin_theta)
+    w_a = np.where(use_lerp, np.float32(1.0 - t),
+                   np.sin(np.float32(1.0 - t) * theta) / safe)
+    w_b = np.where(use_lerp, np.float32(t), np.sin(np.float32(t) * theta) / safe)
+    out = (w_a * a + w_b * b).astype(np.float32)
+    return out / (np.linalg.norm(out, axis=-1, keepdims=True)
+                  + np.float32(1e-20))
+
+
+def compose_trs(translation_v, rotation_q, scale_v) -> np.ndarray:
+    """Translation * Rotation * Scale -> (..., 4, 4) f32."""
+    m = quat_to_matrix(rotation_q)
+    s = np.broadcast_to(np.asarray(scale_v, np.float32), m.shape[:-2] + (3,))
+    m[..., :3, :3] = m[..., :3, :3] * s[..., None, :]
+    m[..., :3, 3] = np.asarray(translation_v, np.float32)
+    return m

@@ -110,7 +110,18 @@ Run from the root of a checkout. Phases, one line each:
     plain+tangent and seeded+tangent launches checked, K6's tangent mode
     on the captured phase-1 layer against K1's fused channels); then the
     cluster path of config1_minimal with group_binning=False and
-    occlusion for 3 frames (K1 seeded on clustered rows).
+    occlusion for 3 frames (K1 seeded on clustered rows);
+13. bench.py's own scene at full size: assets/city.glb through the port's
+    glTF importer and cluster-LOD build (5,097,780 source triangles, 988 +
+    12 point lights, the bench's capacities and hero camera), rendered at
+    1920x1080 in config1_minimal, full and full_taau (a 1280x720 render
+    presented at 1920x1080) through graph/temporal.py, timed with
+    per-stage CUDA events; K4's alpha-MASK launch over the `leaf` jobs
+    and K5's launch on the 1080x1920 output-size history checked (exact)
+    and timed alone; full_taau and full against the native max-quality
+    full frame (bench.py's rmse_vs_max_quality); a 4-frame moving
+    full_taau sequence (256x128 presented at 512x256) on the card against
+    the CPU.
 Each kernel timed alone is timed twice: by CUDA events around
 back-to-back launches (cuda_ms, the kernels line's `ms`) and by the device
 time of its launches in a torch.profiler trace (device_ms, the kernels
@@ -1498,6 +1509,14 @@ def main():
                               ("seeded", cfg512, dict(init=seed1)),
                               ("peel+tangent", tcfg, dict(peel=band)),
                               ("accum", cfg512, dict(peel=band, accum=True))))
+    # The setup's fused multiply-add (raster_setup.fma) must round once on
+    # the card, as it does on the CPU and as XLA's contracted setup does.
+    fa, fb, fc = (torch.randn(100003, device=dev) * k for k in (1.0, 100.0,
+                                                                50.0))
+    fma_diff = int((raster_setup.fma(fa, fb, fc)
+                    != raster.fma32(fa, fb, fc)).sum())
+    check(fma_diff == 0, f"raster_setup.fma differs from the one-rounding "
+          f"fused multiply-add on {fma_diff} of 100003 values on the card")
     say("phase 3 kernels vs plain: " + "; ".join(f"{k} max_abs_err {e:.3g}"
                                                   for k, e in res)
         + f" (K1/K2 every mode: vis, depth and channels exact; K3 rtol "
@@ -1506,7 +1525,8 @@ def main():
         f"exact) | K1/K2 split "
         f"design tie case: {ties} | accum skew cases: {'; '.join(skews)} "
         f"| {k3_line} | CUDA launches per raster call (torch.profiler): "
-        f"{per_call}")
+        f"{per_call} | setup fma one rounding on the card: 100003 values "
+        "exact")
 
     # -- 4. golden on the card ---------------------------------------------
     frame = build_frame_fn(gcfg)
@@ -1633,6 +1653,8 @@ def main():
     records.update(slice5_tangents(np, torch, dev, kernels, smi, yard))
     records.update(slice5_occlusion(np, torch, dev, kernels, smi, soup,
                                     yard))
+    del soup, yard
+    records.update(slice10_city(np, torch, dev, kernels, smi))
 
     print(json.dumps({"kernels": [records[k] for k in
                                   ("K1", "K2", "K2-VSM", "K3", "K4", "K4-BC3",
@@ -1640,13 +1662,15 @@ def main():
                                    "K2-accum", "K6", "K1-seeded",
                                    "K1-tangent", "K1-peel-tangent",
                                    "K2-tangent", "K2-peel-tangent",
-                                   "K6-tangent")]}),
+                                   "K6-tangent", "K4-city", "K5-taau")]}),
           flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
 
 
 def slice1(np, torch, dev, kernels, soup):
@@ -3284,6 +3308,297 @@ def slice5_occlusion(np, torch, dev, kernels, smi, soup, yard):
         + registers(r"span_tiles|resolve_tiles|id_table|last_match|"
                     r"attr_pixels")
         + f" | {smi}")
+    return recs
+
+
+# Phase 13: bench.py's own scene and matrix rows (bench.py:203-248).
+CITY_TRIANGLES = 5_097_780   # bench.py's metric line for assets/city.glb
+CITY_CAPS = dict(max_vertices=1 << 22, max_triangles=1 << 22,
+                 max_objects=512, max_materials=64, max_lights=1024 + 8,
+                 max_clusters=1 << 16, max_geom_clusters=1 << 15,
+                 max_groups=1 << 13)              # bench.py:206-208
+TAAU = dict(width=1280, height=720, output_width=1920,
+            output_height=1080)                    # bench.py:246-248
+# bench.py:302-306: every sampling rate at full resolution.
+MAX_QUALITY = dict(texture_downscale=1, ibl_specular_downscale=1,
+                   ssr_downscale=2, ssr_steps=32, vsm_sample_downscale=1,
+                   vsm_mark_downscale=2, vsm_filter_taps=4,
+                   near_clip_tris=512)
+CITY_FRAMES = (3, 8)         # phase 13: (warm, timed) frames of each row
+CITY_HQ_FRAMES = 8           # phase 13: static frames of the max-quality full
+CITY_SEQ = dict(width=256, height=128, tile_h=16, output_width=512,
+                output_height=256)  # phase 13's card-vs-CPU full_taau
+CITY_SEQ_RAD_PER_FRAME = 0.01
+
+
+def slice10_city(np, torch, dev, kernels, smi):
+    """Phase 13: bench.py's imported city (assets/city.glb through the
+    port's glTF importer and LOD build, 988 + 12 point lights, the bench's
+    capacities and hero camera) at 1920x1080 in config1_minimal, full and
+    full_taau (1280x720 presented at 1920x1080) through graph/temporal.py,
+    static camera; K4's mask launch (live `leaf` jobs) and K5's launch at
+    the output size checked and timed alone; full_taau against the native
+    max-quality full frame; a 4-frame moving full_taau sequence at a small
+    size on the card against the CPU."""
+    import dataclasses
+    import gc
+    from basicrenderer_tpu_torch.graph.frame import build_frame_fn
+    from basicrenderer_tpu_torch.graph.framedata import FrameConfig
+    from basicrenderer_tpu_torch.graph.temporal import TemporalState
+    from basicrenderer_tpu_torch.models import city, clusters
+    from basicrenderer_tpu_torch.models.textures import TextureRegistry
+    from basicrenderer_tpu_torch.ops import taa_warp, textures
+    from basicrenderer_tpu_torch.scene.bridge import (BridgeCapacities,
+                                                      SceneRenderBridge)
+    # Import, with the LOD build's seconds counted apart.
+    lod_s = [0.0]
+    build = clusters.build_cluster_lod
+
+    def timed_build(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return build(*a, **kw)
+        finally:
+            lod_s[0] += time.perf_counter() - t
+
+    t0 = time.perf_counter()
+    clusters.build_cluster_lod = timed_build
+    try:
+        tex = TextureRegistry(256)
+        built = city.load_city(lod=True, textures=tex,
+                               num_point_lights=1000 - 12)
+    finally:
+        clusters.build_cluster_lod = build
+    load_s = time.perf_counter() - t0
+    check(built.num_triangles == CITY_TRIANGLES, f"city: "
+          f"{built.num_triangles} source triangles, {CITY_TRIANGLES} expected")
+    leaf_layers = sum(c >= 0 for c in tex.alpha_cutoffs)
+    check(leaf_layers == 1, f"city: {leaf_layers} alpha-MASK texture layers")
+    t0 = time.perf_counter()
+    bridge = SceneRenderBridge(built.scene, built.meshes, built.materials,
+                               BridgeCapacities(**CITY_CAPS), textures=tex)
+    buf = bridge.build_scene_buffers(device=dev)
+    torch.cuda.synchronize()
+    buf_s = time.perf_counter() - t0
+    base = FrameConfig(**CONFIG1_MINIMAL)
+    rows = {"config1_minimal": base,
+            "full": dataclasses.replace(base, **FULL),
+            "full_taau": dataclasses.replace(base, **FULL, **TAAU)}
+    order = ["cut", "hzb", "setup", "bin", "raster", "hzb2", "cut2", "setup2",
+             "bin2", "raster2", "mask", "gbuffer", "textures", "normal_map",
+             "vsm", "light_cull", "tiled_shade", "shade", "ssr", "gtao", "ibl",
+             "upscale", "motion", "taa", "bloom", "exposure"]
+    warm, timed = CITY_FRAMES
+    n = warm + timed
+    lines, images, recs = [], {}, {}
+    for name, cfg in rows.items():
+        fr = build_frame_fn(cfg)
+        temporal = TemporalState(cfg, device=dev)
+        pages = []
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches(kernels)
+        out, frame_ms, inputs_ms, stages = timed_frames(
+            torch, np, fr, buf, built.scene, bridge, temporal, warm, timed,
+            on_frame=lambda o: pages.append(int(o["vsm_stats"]["rendered"])
+                                            if "vsm_stats" in o else 0))
+        launches = [k.launches for k in kernels]
+        peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        full = cfg.enable_textures
+        oh = cfg.output_height or cfg.height
+        ow = cfg.output_width or cfg.width
+        # Per frame: K2 for phase 1, phase 2 and the mask pass (the
+        # temporal state passes a zero previous depth first), one per VSM
+        # page rendered; K3 once; K4 for the mask pass (and the texture
+        # channels on full); K5 from the second frame with TAA.
+        check(launches[0] == 0, f"city {name} launched K1 {launches[0]} "
+              "times")
+        check(launches[1] == 3 * n + sum(pages), f"city {name}: K2 launched "
+              f"{launches[1]} times in {n} frames with {sum(pages)} VSM pages")
+        check(launches[2] == n and launches[3] == (2 if full else 1) * n,
+              f"city {name}: K3 / K4 launched {launches[2:4]} times in {n} "
+              "frames")
+        check(launches[4] == (n - 1 if cfg.enable_taa else 0),
+              f"city {name}: K5 launched {launches[4]} times in {n} frames")
+        img, vis = out["image"], out["vis"]
+        coverage = float((vis > 0).float().mean())
+        check(tuple(img.shape) == (oh, ow, 3) and img.dtype == torch.uint8,
+              f"city {name}: image {tuple(img.shape)} {img.dtype}")
+        check(tuple(vis.shape) == (cfg.height, cfg.width),
+              f"city {name}: vis {tuple(vis.shape)}")
+        check(bool(torch.isfinite(out["hdr"]).all()), f"city {name}: "
+              "non-finite HDR values")
+        # The hero view is half sky, and the ground is culled: its faces
+        # wind clockwise seen from above (ROADMAP Queue 3).
+        check(0.1 < coverage < 1.0, f"city {name}: coverage {coverage}")
+        check(float(img.float().std()) > 5.0, f"city {name}: flat image")
+        if cfg.enable_taa:
+            check(tuple(out["taa_out"].shape) == (oh, ow, 3),
+                  f"city {name}: history {tuple(out['taa_out'].shape)}")
+        counters = {k: int(out[k]) for k in ("bin_overflow",
+                                             "cluster_overflow", "num_pairs",
+                                             "light_overflow")}
+        images[name] = img.cpu().numpy()
+        del out
+
+        # One more frame with the kernel inputs captured: K4's mask launch
+        # (config1_minimal) and K5's output-size launch (full_taau), each
+        # alone against its plain version.
+        extra = ""
+        if name in ("config1_minimal", "full_taau"):
+            with Capture(textures, ["tex_block_eval_cuda"]) as tc, \
+                    Capture(taa_warp, ["warp_history_tiles"]) as wc:
+                timed_frames(torch, np, fr, buf, built.scene, bridge,
+                             temporal, 1, 0, first=n)
+            if name == "config1_minimal":
+                check(len(tc.calls) == 1, f"city {name}: captured frame "
+                      f"launched K4 {len(tc.calls)} times")
+                a4, k4_out = tc.calls[0][1], tc.calls[0][3]
+                plain, k4_plain = host_ms(
+                    torch, lambda: textures.tex_block_eval_plain(*a4))
+                check(torch.equal(k4_out, plain), f"city K4 mask launch "
+                      f"differs from plain on {int((k4_out != plain).sum())} "
+                      "values")
+                live = a4[4].bool()
+                live_px = int(live.sum())
+                check(live_px > 0, "city K4 mask launch: no live pixel (the "
+                      "leaf MASK clusters are not in view)")
+                k4_ms = cuda_ms(torch, lambda: textures.tex_block_eval_cuda(
+                    *a4), 10)
+                k4_dev = device_ms(torch, lambda: textures.tex_block_eval_cuda(
+                    *a4), 10)
+                b4_ms, b4_by = k4_bound(torch, a4, bc3=False)
+                recs["K4-city"] = {
+                    "name": "tex_block_eval (K4, RGBA8, the city's alpha-MASK"
+                            " pass: live leaf jobs at 1920x1080)",
+                    "route": "cuda",
+                    "source": "basicrenderer_tpu_torch/csrc/tex_block.cu",
+                    "replaces": "basicrenderer_tpu/ops/textures.py:508",
+                    "launches": launches[3], "max_abs_err": float(
+                        (k4_out - plain).abs().max()), "ms": k4_ms,
+                    "device_ms": k4_dev, "plain_ms": k4_plain,
+                    "bound_ms": b4_ms, "bound_by": b4_by, "library_ms": None}
+                extra = (f" | K4 mask launch {k4_ms:.4f} ms (device "
+                         f"{k4_dev:.4f}; plain {k4_plain:.2f} ms; exact; "
+                         f"{k4_live_line(torch, a4, bc3=False)})")
+            else:
+                check(len(wc.calls) == 1, f"city {name}: captured frame "
+                      f"launched K5 {len(wc.calls)} times")
+                a5, k5_out = wc.calls[0][1], wc.calls[0][3]
+                hist = a5[0]
+                padded = (-(-oh // cfg.tile_h) * cfg.tile_h,
+                          -(-ow // cfg.tile_w) * cfg.tile_w, 3)
+                check(tuple(hist.shape) == padded, f"city {name}: K5 warped "
+                      f"a {tuple(hist.shape)} history, the padded output "
+                      f"size {padded} expected")
+                plain, k5_plain = host_ms(
+                    torch, lambda: taa_warp.warp_history_plain(*a5))
+                check(torch.equal(k5_out, plain), f"city K5 launch differs "
+                      f"from plain on {int((k5_out != plain).sum())} values")
+                k5_ms = cuda_ms(torch, lambda: taa_warp.warp_history_tiles(
+                    *a5), 20)
+                k5_dev = device_ms(torch, lambda: taa_warp.warp_history_tiles(
+                    *a5), 20)
+                lib_ms, lib_err, lib_dev = grid_sample_warp(
+                    torch, hist, a5[1], a5[2], a5[3], a5[4], plain)
+                Hp, Wp, C = hist.shape
+                b5_ms, b5_by = bound(Hp * Wp * C * WARP_FLOPS_PER_VALUE,
+                                     2 * hist.numel() * 4
+                                     + 2 * a5[1].numel() * 4)
+                recs["K5-taau"] = {
+                    "name": "warp_history_tiles (K5, TAAU: the 1920x1080 "
+                            "output-size history of a 1280x720 render)",
+                    "route": "cuda",
+                    "source": "basicrenderer_tpu_torch/csrc/taa_warp.cu",
+                    "replaces": "basicrenderer_tpu/ops/taa_warp.py:44",
+                    "launches": launches[4], "max_abs_err": float(
+                        (k5_out - plain).abs().max()), "ms": k5_ms,
+                    "device_ms": k5_dev, "plain_ms": k5_plain,
+                    "bound_ms": b5_ms, "bound_by": b5_by,
+                    "library_ms": lib_ms}
+                extra = (f" | K5 on the {Hp}x{Wp} output history "
+                         f"{k5_ms:.4f} ms (device {k5_dev:.4f}; bound "
+                         f"{b5_ms:.4f} {b5_by}; plain {k5_plain:.2f} ms; "
+                         f"grid_sample {lib_ms:.4f}, device {lib_dev:.4f}; "
+                         f"exact; tiles {a5[1].numel()})")
+            del tc, wc
+        lines.append(
+            f"{name}: median {statistics.median(frame_ms):.3f} ms/frame over "
+            f"{timed} after {warm} warm (min {min(frame_ms):.3f}, max "
+            f"{max(frame_ms):.3f}; temporal state host "
+            f"{statistics.median(inputs_ms):.3f} ms) | stage ms (CUDA "
+            "events, median): "
+            + " ".join(f"{k} {stages[k]:.3f}" for k in order if k in stages)
+            + f" | launches K2 {launches[1]} K3 {launches[2]} K4 "
+            f"{launches[3]} K5 {launches[4]} in {n} frames, VSM pages {pages}"
+            f" | counters {counters} | coverage {coverage:.4f} | peak "
+            f"{peak_gib:.2f} GiB" + extra)
+
+    # Upscale quality (bench.py:296-321): full_taau against the native
+    # max-quality full frame, RMSE on the 0-1 scale; full against it too.
+    hq = dataclasses.replace(rows["full"], **MAX_QUALITY)
+    fr = build_frame_fn(hq)
+    out = timed_frames(torch, np, fr, buf, built.scene, bridge,
+                       TemporalState(hq, device=dev), CITY_HQ_FRAMES, 0)[0]
+    img_hq = out["image"].cpu().numpy().astype(np.float32) / 255.0
+    del out
+
+    def rmse01(a):
+        return float(np.sqrt(np.mean((a.astype(np.float32) / 255.0
+                                      - img_hq) ** 2)))
+    q_taau, q_full = rmse01(images["full_taau"]), rmse01(images["full"])
+    check(np.isfinite(q_taau) and np.isfinite(q_full), "upscale RMSE")
+    del buf
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Card against CPU: a 4-frame moving full_taau sequence at a small size.
+    scfg = dataclasses.replace(rows["full_taau"], **CITY_SEQ)
+    sfr = build_frame_fn(scfg)
+    devices = (dev, torch.device("cpu"))
+    states = [TemporalState(scfg, device=d) for d in devices]
+    bufs = [bridge.build_scene_buffers(device=d) for d in devices]
+    pos0 = built.scene.camera_matrices(aspect=2.0)[2].copy()
+    target = np.asarray(built.scene._camera_target, np.float64)
+    before = taa_warp.warp_history_tiles.launches
+    cpu_ms = 0.0
+    outs = [None, None]
+    for i in range(4):
+        orbit_camera(np, built.scene, pos0, target,
+                     CITY_SEQ_RAD_PER_FRAME * i, 2.0)
+        built.scene.propagate_transforms()
+        for k, state in enumerate(states):
+            t1 = time.perf_counter()
+            view, params, kw = state.inputs(built.scene, bridge)
+            outs[k] = sfr(bufs[k], view, params, **kw)
+            state.carry(outs[k])
+            if k == 1:
+                cpu_ms += (time.perf_counter() - t1) * 1e3
+    torch.cuda.synchronize()
+    s_k5 = taa_warp.warp_history_tiles.launches - before
+    card, cpu = outs
+    s_agree = float((card["vis"].cpu() == cpu["vis"]).float().mean())
+    s_rmse = rmse(card["image"].cpu().numpy(), cpu["image"].numpy())
+    check(s_agree >= 0.999 and s_rmse <= 1.0, f"city full_taau sequence "
+          f"card vs CPU: vis agreement {s_agree}, RMSE {s_rmse}")
+    check(s_k5 == 3, f"city sequence: K5 launched {s_k5} times in 4 frames")
+    check(tuple(card["image"].shape) == (256, 512, 3), "city sequence image "
+          f"{tuple(card['image'].shape)}")
+    del outs, card, cpu, bufs
+    say(f"phase 13 city: assets/city.glb through the port's importer "
+        f"{load_s - lod_s[0]:.1f} s + LOD build {lod_s[0]:.1f} s (host), "
+        f"{built.num_triangles} source triangles, "
+        f"{len(built.meshes.meshes)} meshes, {len(tex)} texture layers "
+        f"({leaf_layers} alpha-MASK), scene buffers {buf_s:.1f} s | "
+        + " || ".join(lines)
+        + f" | upscale: full_taau vs the native max-quality full "
+        f"({CITY_HQ_FRAMES} static frames) RMSE {q_taau:.5f} (0-1), full vs "
+        f"it {q_full:.5f} | card vs CPU, full_taau 256x128 -> 512x256, 4 "
+        f"frames orbiting {CITY_SEQ_RAD_PER_FRAME} rad/frame: vis agreement "
+        f"{s_agree:.5f}, RMSE {s_rmse:.4f} (limits 0.999, 1.0), K5 "
+        f"launches {s_k5}, CPU {cpu_ms / 1e3:.1f} s | {smi}")
     return recs
 
 

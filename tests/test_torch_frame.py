@@ -101,7 +101,7 @@ def test_frame_with_local_lights_matches_jax():
     ("enable_voxel_rt", True), ("enable_coat", True), ("enable_skinning", True),
     ("enable_sss", True), ("max_shadow_lights", 2), ("debug_view", "normals"),
     ("wireframe", True), ("enable_rt_reflect", True),
-    ("output_width", 256),
+    ("enable_fuzz", True),
 ])
 def test_unported_toggles_raise(field, value):
     cfg = dataclasses.replace(FrameConfig(**CFG_KW), **{field: value})

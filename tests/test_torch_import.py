@@ -40,7 +40,8 @@ def test_port_never_imports_jax():
                 "ops.oit", "ops.resolve",
                 "models.clusters", "models.pageblob", "models.scenes",
                 "models.textures", "scene.bridge", "interop",
-                "utils.cuda_build"):
+                "utils.cuda_build", "models.importers", "models.city",
+                "models.animation", "utils.taskpool"):
         assert f"basicrenderer_tpu_torch.{mod}" in out["modules"], mod
     assert out["jax"] == []
     assert out["tf32"] == [False, False]

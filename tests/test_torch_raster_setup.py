@@ -186,3 +186,58 @@ def test_oct_encode_matches_jax():
     p = prs.oct_encode_cols(*(_t(n[:, i]) for i in range(3)))
     for a, b in zip(p, j):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6, atol=1e-7)
+
+
+def test_setup_fma_is_one_rounding():
+    """raster_setup.fma rounds a * b + c once, as XLA's CPU backend's
+    contracted multiply-adds do: equal to the f64-emulated fused form on
+    every length (vector bodies and scalar tails) and with broadcast
+    scalars, and different from the two-rounding form somewhere."""
+    from basicrenderer_tpu_torch.ops.raster import fma32
+    rng = np.random.default_rng(31)
+    two = 0
+    for n in (1, 7, 33, 1000, 4099):
+        a, b, c = (torch.as_tensor(rng.normal(size=n).astype(np.float32) * k)
+                   for k in (1.0, 100.0, 50.0))
+        assert torch.equal(prs.fma(a, b, c), fma32(a, b, c))
+        assert torch.equal(prs.fma(a, 2.0 / 255.0, -1.0),
+                           fma32(a, torch.tensor(2.0 / 255.0),
+                                 torch.tensor(-1.0)))
+        two += int((prs.fma(a, b, c) != a * b + c).sum())
+    assert two > 0
+
+
+def test_clustered_setup_lanes_equal_jax():
+    """The cluster-page setup of the 512x512 rig (tests/test_goldens_512.py
+    through tests/test_torch_cluster_frame.build_rig) at 192x120 (neither
+    side a power of two, so every product by the frame size rounds) from
+    the same compacted slots: the edge, depth and uv planes and every
+    integer lane bit for bit equal to the JAX package's (the port spells
+    XLA's contracted multiply-adds); the octahedral normal planes, which
+    go through XLA's rsqrt, within the plane tolerance."""
+    from basicrenderer_tpu.ops import clod as jclod
+    from basicrenderer_tpu_torch.graph import frame as pframe
+    from basicrenderer_tpu_torch.graph.framedata import FrameParams
+    from basicrenderer_tpu_torch.graph.framedata import make_view as p_make_view
+    from tests.test_torch_cluster_frame import JAX_PKG as J, PORT_PKG as P
+    from tests.test_torch_cluster_frame import build_rig
+    (jsc, jb), (psc, pb) = build_rig(J), build_rig(P)
+    kw = dict(width=192, height=120, tile_h=16, tile_w=128,
+              max_pairs=1 << 15, enable_clod=True, max_visible_clusters=256)
+    jc, pc = _configs(**kw)
+    jbuf, pbuf = jb.build_scene_buffers(), pb.build_scene_buffers(device="cpu")
+    cams = psc.camera_matrices(aspect=1.6)
+    pview, jview = p_make_view(*cams, device="cpu"), j_make_view(*cams)
+    comp = pframe.clod_compact(pbuf, pview, pc, FrameParams.default("cpu"))
+    jcomp = jclod.CompactedTris(**{f: jnp.asarray(getattr(comp, f).numpy())
+                                   for f in comp._fields})
+    jl, _, jv, _ = jax.jit(lambda s, c, vp: jrs.setup_from_compacted(
+        s, c, vp, jc))(jbuf, jcomp, jview.viewproj)
+    pl, _, pv, _ = prs.setup_from_compacted(pbuf, comp, pview.viewproj, pc)
+    jl, pl = np.asarray(jl), pl.numpy()
+    np.testing.assert_array_equal(pv.numpy(), np.asarray(jv))
+    assert int(pv.sum()) > 150
+    exact = list(range(0, 15)) + list(range(21, 32))
+    live = pv.numpy()       # dead rows' planes are never read
+    np.testing.assert_array_equal(pl[live][:, exact], jl[live][:, exact])
+    assert_lanes_close(pl, jl, 192, 120)

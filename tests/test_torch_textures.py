@@ -175,10 +175,27 @@ def test_resize_bilinear_matches_jax_image_resize(shape, out):
     np.testing.assert_allclose(p, j, rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize("fmt", ["rgba8", "bc3"])
+def test_alpha_coverage_strip_pyramids_match_jax(fmt):
+    """Layers added with an alpha cutoff (alpha-MASK base colours) get
+    coverage-preserving mips: the port's strip pyramid equals the JAX
+    registry's in both formats, and differs from the same layers' pyramid
+    without the fix."""
+    rng = np.random.default_rng(21)
+    regs = [JTex(resolution=64), PTex(resolution=64), PTex(resolution=64)]
+    for k, cutoff in enumerate((0.5, -1.0, 0.3, 0.8)):
+        alpha = (rng.random((64, 64)) < 0.25 + 0.1 * k).astype(np.float32)
+        img = np.concatenate([rng.random((64, 64, 3)).astype(np.float32),
+                              alpha[..., None]], -1)
+        for r, c in zip(regs, (cutoff, cutoff, -1.0)):
+            r.add(img, srgb=k % 2 == 0, alpha_cutoff=c)
+    (js, jf), (ps, pf), (ns, _) = (r.strip_pyramid(fmt=fmt) for r in regs)
+    np.testing.assert_array_equal(ps, js)
+    np.testing.assert_array_equal(pf, jf)
+    assert not np.array_equal(ps, ns)
+
+
 def test_unported_texture_modes_raise():
-    with pytest.raises(NotImplementedError, match="alpha"):
-        PTex(resolution=16).add(np.ones((16, 16, 4), np.float32),
-                                alpha_cutoff=0.5)
     # BC3 is ported (tests/test_torch_texture_channels.py); a format
     # neither package has is refused.
     with pytest.raises(ValueError, match="bc7"):
