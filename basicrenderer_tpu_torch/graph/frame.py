@@ -41,8 +41,19 @@ Ported paths:
   page cache per VSM'd directional light (ops/vsm.py), dirty pages
   rastered through the cluster path, the shadow term multiplying each
   directional light;
+- otherwise cascaded shadow maps (enable_shadows) for light 0, the
+  primary directional light (ops/shadows.py): num_cascades ortho maps of
+  the casters (the cluster cut of shadow_clusters with enable_clod, K2;
+  else the soup, K1), sampled from the depth buffer;
 - clustered lighting (enable_clustered): per-tile light culling and the
-  tiled local-light shading (K3), directional lights full-screen.
+  tiled local-light shading (K3), directional lights full-screen. With
+  max_shadow_cubes / max_shadow_lights, the shadow-casting point and spot
+  lights leave the tiled loop; each point light renders a six-face cube
+  map and each spot light a perspective map of the caster cut (K2), and
+  shades full-screen with its shadow term, after the deferred shade;
+- the OpenPBR lobes (enable_coat, enable_fuzz, enable_energy_comp,
+  enable_sss, enable_aniso) in the deferred shade, and coat, fuzz and
+  energy compensation in the IBL composite too.
 Then G-buffer -> deferred shade -> sky, and the post stack: screen-space
 reflections (enable_ssr), GTAO (enable_gtao), the IBL ambient composite
 (enable_ibl: SH diffuse + split-sum specular, SSR hits replacing the
@@ -71,7 +82,9 @@ import torch
 from ..ops import clod as clod_ops
 from ..ops import culling, ibl, lighting, motion, post, raster_setup
 from ..ops import oit as oit_ops
+from ..ops import brdf_energy
 from ..ops import shade as shade_ops
+from ..ops import shadows as shadow_ops
 from ..ops import ssr as ssr_ops
 from ..ops import textures as tex_ops
 from ..ops import vsm as vsm_ops
@@ -81,20 +94,15 @@ from ..utils import math3d
 from .framedata import FrameConfig, FrameParams, SceneBuffers, ViewData
 
 # FrameConfig fields that switch on passes this port does not have yet,
-# with the value that leaves the pass off. The voxel, ray-traced, coat,
-# fuzz and energy branches of the IBL composite stay behind their fields
-# here.
+# with the value that leaves the pass off. The voxel and ray-traced
+# branches of the IBL composite stay behind their fields here.
 _UNPORTED_TOGGLES = (
     ("enable_texture_streaming", False),
-    ("enable_shadows", False), ("max_shadow_lights", 0),
-    ("max_shadow_cubes", 0),
     ("enable_skinning", False),
     ("enable_reyes", False), ("enable_voxel_rt", False),
     ("enable_voxel_fallback", False), ("enable_rt_reflect", False),
     ("enable_streaming", False), ("debug_view", "none"),
-    ("wireframe", False), ("enable_coat", False), ("enable_fuzz", False),
-    ("enable_energy_comp", False), ("enable_sss", False),
-    ("enable_aniso", False), ("cut_windows", 0),
+    ("wireframe", False), ("cut_windows", 0),
 )
 _TEX_LANE = {"base": 0, "normal": 1, "mr": 2, "emissive": 3}
 
@@ -433,15 +441,30 @@ def _render_body(scene: SceneBuffers, view: ViewData, params: FrameParams,
         gb = _apply_textures(gb, smp, config.tex_channels,
                              config.enable_vertex_tangents)
 
+    casters = []   # the shadow passes' caster cut, made once a frame
+
+    def shadow_casters():
+        if not casters:
+            casters.append(clod_compact(scene, view, config, params,
+                                        frustum=False,
+                                        max_visible=config.shadow_clusters))
+        return casters[0]
+
     shadow_fn = None
     vsm_out = {}
     if use_vsm:
         stage("vsm")
         shadow_fn, vsm_out = _vsm_pass(scene, view, params, config,
                                        vsm_state, depth)
-    shade_kw = dict(coat=config.enable_coat, energy=config.enable_energy_comp,
-                    fuzz=config.enable_fuzz, sss=config.enable_sss,
-                    aniso=config.enable_aniso)
+    elif config.enable_shadows:
+        stage("shadows")
+        shadow_fn = _csm_pass(scene, view, params, config, depth,
+                              shadow_casters() if config.enable_clod
+                              else None)
+    terms = shade_ops.view_terms(gb, view, config.enable_energy_comp,
+                                 config.enable_fuzz)
+    shade_kw = dict(coat=config.enable_coat, sss=config.enable_sss,
+                    aniso=config.enable_aniso, terms=terms)
     if config.enable_clustered:
         # Tiled many-light pass: local lights per tile (K3), directional
         # lights full-screen.
@@ -468,6 +491,9 @@ def _render_body(scene: SceneBuffers, view: ViewData, params: FrameParams,
         light_overflow = torch.zeros((), dtype=torch.int32, device=dev)
         hdr = shade_ops.shade_deferred(gb, scene, view, num_lights,
                                        shadow_fn=shadow_fn, **shade_kw)
+    if config.enable_clustered:
+        hdr = _local_shadow_pass(hdr, gb, scene, view, params, config, depth,
+                                 shadow_casters, terms, stage)
     sky = shade_ops.procedural_sky(view, H, W, params.sky_intensity)
     hdr = torch.where(gb.valid[..., None], hdr, sky)
     hdr = _post_composite(hdr, depth, gb, scene, view, params, config, stage)
@@ -664,6 +690,83 @@ def _vsm_pass(scene: SceneBuffers, view: ViewData, params: FrameParams,
                        "vsm_stats": stats}
 
 
+def _csm_pass(scene: SceneBuffers, view: ViewData, params: FrameParams,
+              config: FrameConfig, depth: torch.Tensor, casters):
+    """Cascaded shadow maps for light 0 (the bridge packs directional
+    lights first); the term is 1 when the scene has no directional light.
+    `casters` is the cluster cut (None: the soup). Returns shadow_fn."""
+    cascade_vps, _splits = shadow_ops.cascade_matrices(
+        view, scene.lights[0, 4:7], config.num_cascades)
+    smaps = torch.stack([
+        shadow_ops.render_cascade(scene, cascade_vps[k], config,
+                                  compacted=casters)
+        for k in range(config.num_cascades)])
+    term = shadow_ops.sample_shadow_cascades(depth, view, cascade_vps, smaps,
+                                             params.shadow_bias)
+    term = torch.where(scene.num_dir_lights > 0, term, 1.0)
+
+    def shadow_fn(i, world_pos, normal):
+        return term if i == 0 else torch.ones_like(term)
+    return shadow_fn
+
+
+def _local_shadow_pass(hdr: torch.Tensor, gb: shade_ops.GBuffer,
+                       scene: SceneBuffers, view: ViewData,
+                       params: FrameParams, config: FrameConfig,
+                       depth: torch.Tensor, casters: Callable, terms,
+                       stage: Callable[[str], None]) -> torch.Tensor:
+    """Shadow-casting point lights (stage cube_shadows: six perspective
+    faces a slot, the face picked per pixel by the dominant axis), then
+    spot lights (stage spot_shadows: one perspective view a slot), in the
+    JAX package's order so that the HDR sums add alike. Per slot: the
+    caster cut `casters()` rendered into each view, the slot's term
+    sampled from those maps, and the light's full-screen shade (`terms`
+    from shade_ops.view_terms) times the term added where the slot is
+    live."""
+    v, comp, fuzz = terms
+    L = scene.lights.shape[0]
+    R = config.point_shadow_resolution
+
+    def cube_views():
+        return shadow_ops.point_cube_matrices(scene.lights,
+                                              config.max_shadow_cubes)
+
+    def spot_views():
+        vps, idx, live = shadow_ops.spot_shadow_matrices(
+            scene.lights, config.max_shadow_lights)
+        return vps[:, None], idx, live
+
+    def cube_term(row, vps, maps):
+        return shadow_ops.sample_point_shadow(depth, view, row[0:3], vps,
+                                              maps[:, :R, :R])
+
+    def spot_term(row, vps, maps):
+        return shadow_ops.sample_spot_shadow(depth, view, vps[0], maps[0],
+                                             params.shadow_bias)
+
+    for name, slots, res, views, sample in (
+            ("cube_shadows", config.max_shadow_cubes, R, cube_views,
+             cube_term),
+            ("spot_shadows", config.max_shadow_lights,
+             config.spot_shadow_resolution, spot_views, spot_term)):
+        if slots == 0:
+            continue
+        stage(name)
+        vps, idx, live = views()
+        cfg = dataclasses.replace(config, shadow_resolution=res)
+        for k in range(slots):
+            maps = torch.stack([
+                shadow_ops.render_cascade(scene, vp, cfg,
+                                          compacted=casters())
+                for vp in vps[k]])
+            row = scene.lights[torch.clamp(idx[k], 0, L - 1).long()]
+            term = sample(row, vps[k], maps)
+            contrib = shade_ops.shade_one_light(gb, row, v, gb.normal,
+                                                spec_comp=comp, fuzz_e=fuzz)
+            hdr = hdr + torch.where(live[k], contrib * term[..., None], 0.0)
+    return hdr
+
+
 def _post_composite(hdr: torch.Tensor, depth: torch.Tensor,
                     gb: shade_ops.GBuffer, scene: SceneBuffers,
                     view: ViewData, params: FrameParams, config: FrameConfig,
@@ -705,6 +808,29 @@ def _post_composite(hdr: torch.Tensor, depth: torch.Tensor,
             prefiltered = prefiltered * (1.0 - ssr_wgt[..., None]) \
                 + ssr_col * ssr_wgt[..., None]
         spec_ibl = prefiltered * (f0 * scale[..., None] + bias[..., None])
+        if config.enable_energy_comp:
+            # Kulla-Conty on the environment specular too (the analytic
+            # lights' factor, so the furnace stays white).
+            spec_ibl = spec_ibl * brdf_energy.energy_compensation(
+                f0, ndv, gb.roughness)
+        if config.enable_fuzz:
+            # Fuzz over the environment: the base attenuated by the layer's
+            # directional albedo, plus a sheen-coloured irradiance term.
+            fe = (gb.fuzz_weight * brdf_energy.sheen_energy(
+                ndv, gb.fuzz_rough))[..., None]
+            spec_ibl = spec_ibl * (1.0 - fe) + irr * fe
+            diffuse_ibl = diffuse_ibl * (1.0 - fe)
+        if config.enable_coat:
+            # Coat over the environment: a second prefiltered fetch at the
+            # coat roughness, the base attenuated by the coat's Fresnel.
+            cf = shade_ops._f_schlick(ndv[..., None],
+                                      shade_ops.coat_f0(ndv.device))
+            cw = gb.coat_weight[..., None]
+            coat_pref = ibl.runtime_specular_ibl(
+                gb.normal, v, gb.coat_rough, scene.env_specular,
+                downscale=config.ibl_specular_downscale)
+            spec_ibl = spec_ibl * (1.0 - cf * cw) + coat_pref * cf * cw
+            diffuse_ibl = diffuse_ibl * (1.0 - cf * cw)
         ambient = (diffuse_ibl + spec_ibl) * params.ibl_intensity
         if ao is not None:
             ambient = ambient * ao[..., None]
@@ -777,8 +903,10 @@ def build_frame_fn(config: FrameConfig) -> Callable[..., Dict[str, torch.Tensor]
     "raster" on the cluster path, with occlusion "cut", "hzb", "setup",
     "bin", "raster", "hzb2", "cut2", "setup2", "bin2", "raster2"; then "mask"
     (alpha-MASK pass; "mask_peel2", ... for its further peels),
-    "gbuffer", "textures" and "normal_map" (enable_textures), "vsm",
-    "light_cull" and "tiled_shade" (clustered), "shade", then the post
+    "gbuffer", "textures" and "normal_map" (enable_textures), "vsm" or
+    "shadows" (CSM), "light_cull" and "tiled_shade" (clustered), "shade",
+    "cube_shadows" and "spot_shadows" (the shadowed point and spot
+    lights), then the post
     stages "ssr", "gtao", "ibl" of the enabled passes, OIT's "oit_cut",
     "oit_setup", "oit_bin", "oit_peel0", ... (one per layer rastered),
     "oit_accum", "oit_shade", "oit_composite", then "upscale" (TAAU),

@@ -24,6 +24,7 @@ import torch
 
 from .shadows import downsample2d
 from .textures import resize_bilinear
+from ..utils.math3d import sqrt_rn
 
 
 def face_directions(res: int, device="cpu") -> torch.Tensor:
@@ -143,8 +144,8 @@ def prefilter_specular(cubemap: torch.Tensor, mips: int = 5,
                              device=dev)
         a = rough * rough
         phi = 2 * math.pi * xi[:, 0]
-        cos_t = torch.sqrt((1 - xi[:, 1]) / (1 + (a * a - 1) * xi[:, 1]))
-        sin_t = torch.sqrt(torch.clamp(1 - cos_t ** 2, min=0))
+        cos_t = sqrt_rn((1 - xi[:, 1]) / (1 + (a * a - 1) * xi[:, 1]))
+        sin_t = sqrt_rn(torch.clamp(1 - cos_t ** 2, min=0))
         hx = sin_t * torch.cos(phi)
         hy = sin_t * torch.sin(phi)
         hz = cos_t                                          # (S,)

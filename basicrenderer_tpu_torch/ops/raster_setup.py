@@ -128,6 +128,20 @@ def rotate_cols_3x3(m_cols, idx, x, y, z):
 _MODEL3 = (0, 1, 2, 4, 5, 6, 8, 9, 10)
 
 
+def transform_vertices(positions: torch.Tensor, vert_object: torch.Tensor,
+                       object_mats: torch.Tensor, viewproj: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Object-space verts -> (clip (V, 4), world (V, 3)), in column math
+    (the shadow passes need no normals)."""
+    m = object_mats.reshape(-1, 16)[vert_object.long()]   # (V, 16)
+    px, py, pz = positions[:, 0], positions[:, 1], positions[:, 2]
+    wx = m[:, 0] * px + m[:, 1] * py + m[:, 2] * pz + m[:, 3]
+    wy = m[:, 4] * px + m[:, 5] * py + m[:, 6] * pz + m[:, 7]
+    wz = m[:, 8] * px + m[:, 9] * py + m[:, 10] * pz + m[:, 11]
+    clip = torch.stack(math3d.mat4_columns(viewproj, wx, wy, wz), dim=-1)
+    return clip, torch.stack([wx, wy, wz], dim=-1)
+
+
 def transform_geometry(positions: torch.Tensor, normals: torch.Tensor,
                        vert_object: torch.Tensor, object_mats: torch.Tensor,
                        object_normal_mats: torch.Tensor, viewproj: torch.Tensor
@@ -135,19 +149,14 @@ def transform_geometry(positions: torch.Tensor, normals: torch.Tensor,
     """Object-space verts+normals -> (clip (V,4), world (V,3), wnormal (V,3)).
     Column math throughout: no matmul, so every product is a true f32
     product whatever the device."""
-    obj = vert_object.long()
-    m = object_mats.reshape(-1, 16)[obj]              # (V, 16)
-    nm = object_normal_mats.reshape(-1, 9)[obj]       # (V, 9)
-    px, py, pz = positions[:, 0], positions[:, 1], positions[:, 2]
-    wx = m[:, 0] * px + m[:, 1] * py + m[:, 2] * pz + m[:, 3]
-    wy = m[:, 4] * px + m[:, 5] * py + m[:, 6] * pz + m[:, 7]
-    wz = m[:, 8] * px + m[:, 9] * py + m[:, 10] * pz + m[:, 11]
+    clip, world = transform_vertices(positions, vert_object, object_mats,
+                                     viewproj)
+    nm = object_normal_mats.reshape(-1, 9)[vert_object.long()]   # (V, 9)
     nx, ny, nz = normals[:, 0], normals[:, 1], normals[:, 2]
     wn = torch.stack([nm[:, 0] * nx + nm[:, 1] * ny + nm[:, 2] * nz,
                       nm[:, 3] * nx + nm[:, 4] * ny + nm[:, 5] * nz,
                       nm[:, 6] * nx + nm[:, 7] * ny + nm[:, 8] * nz], dim=-1)
-    clip = torch.stack(math3d.mat4_columns(viewproj, wx, wy, wz), dim=-1)
-    return clip, torch.stack([wx, wy, wz], dim=-1), wn
+    return clip, world, wn
 
 
 def vertex_world_theta(scene, world_normals: torch.Tensor) -> torch.Tensor:

@@ -3,9 +3,10 @@
 Port of the base path of basicrenderer_tpu/ops/shade.py: the G-buffer from
 the raster's channel planes, Cook-Torrance GGX + Lambert per analytic
 light, ACES tonemapping, sRGB encoding and the procedural sky, and the
-OpenPBR transmission lobe (the OIT layers' shading, ops/oit.py). The other
-OpenPBR extension lobes (coat, fuzz, energy compensation, subsurface,
-anisotropy) are not ported yet and raise NotImplementedError.
+OpenPBR extension lobes: transmission (the OIT layers' shading,
+ops/oit.py), clear coat, fuzz (Charlie sheen), Kulla-Conty energy
+compensation (ops/brdf_energy.py), subsurface wrap diffusion and GGX
+anisotropy along the screen-derivative tangent frame.
 
 Reference analogue: shaders/VisUtilEvaluate.hlsl (G-buffer resolve) and
 shaders/deferred.hlsl + PBR.hlsli (full-screen Cook-Torrance).
@@ -20,12 +21,14 @@ import torch
 
 from ..graph.framedata import SceneBuffers, ViewData
 from ..utils import math3d
+from . import brdf_energy
 from .raster_setup import OBJ_COMBO
+from .textures import _ddx, _ddy
 
 
 class GBuffer(NamedTuple):
-    """The G-buffer fields the ported frames fill (the JAX package's
-    GBuffer also carries the OpenPBR extension inputs)."""
+    """The G-buffer of the frame: surface attributes and the OpenPBR
+    extension inputs, per pixel."""
     world_pos: torch.Tensor   # (H, W, 3) f32
     normal: torch.Tensor      # (H, W, 3) f32 (world space, normalized)
     albedo: torch.Tensor      # (H, W, 3) f32 (linear)
@@ -50,6 +53,15 @@ class GBuffer(NamedTuple):
     tangent_theta: torch.Tensor  # (H, W) f32 encoded per-triangle tangent
     #                              (channel 5; tangent_from_theta decodes;
     #                              read with enable_vertex_tangents)
+    coat_weight: torch.Tensor   # (H, W) f32 OpenPBR coat weight
+    coat_rough: torch.Tensor    # (H, W) f32 coat roughness
+    fuzz_weight: torch.Tensor   # (H, W) f32 OpenPBR fuzz weight
+    fuzz_rough: torch.Tensor    # (H, W) f32 fuzz roughness
+    sss_weight: torch.Tensor    # (H, W) f32 OpenPBR subsurface weight
+    sss_color: torch.Tensor     # (H, W, 3) f32 subsurface tint
+    sss_radius: torch.Tensor    # (H, W) f32 wrap-diffusion width
+    aniso_strength: torch.Tensor  # (H, W) f32 GGX anisotropy
+    aniso_rotation: torch.Tensor  # (H, W) f32 tangent rotation (rad)
 
 
 def _iota(n: int, dim: int, shape, dev) -> torch.Tensor:
@@ -180,6 +192,15 @@ def gbuffer_from_channels(channels: torch.Tensor, depth: torch.Tensor,
         trans_depth=torch.clamp(mat[:, 31].reshape(H, W), min=1e-4),
         ior=torch.where(covered, mat[:, 12].reshape(H, W), 1.5),
         tangent_theta=channels[5],
+        coat_weight=torch.where(covered, mat[:, 18].reshape(H, W), 0.0),
+        coat_rough=torch.clamp(mat[:, 19].reshape(H, W), 0.05, 1.0),
+        fuzz_weight=torch.where(covered, mat[:, 22].reshape(H, W), 0.0),
+        fuzz_rough=torch.clamp(mat[:, 23].reshape(H, W), 0.05, 1.0),
+        sss_weight=torch.where(covered, mat[:, 36].reshape(H, W), 0.0),
+        sss_color=torch.where(c3, mat[:, 37:40].reshape(H, W, 3), 1.0),
+        sss_radius=torch.clamp(mat[:, 40].reshape(H, W), 0.0, 1.0),
+        aniso_strength=torch.where(covered, mat[:, 41].reshape(H, W), 0.0),
+        aniso_rotation=mat[:, 42].reshape(H, W),
     )
 
 
@@ -213,52 +234,149 @@ def _normalize(v, eps):
     return v / torch.clamp(torch.linalg.vector_norm(v, dim=-1, keepdim=True), min=eps)
 
 
+def tangent_frame(world_pos: torch.Tensor, uv: torch.Tensor,
+                  normal: torch.Tensor, rotation: torch.Tensor):
+    """Screen-derivative cotangent frame (Schueler), rotated about the
+    normal by `rotation` (H, W) radians: the anisotropy tangent.
+    Returns (T, B) each (H, W, 3); degenerate UV areas fall back to an
+    arbitrary normal-orthogonal frame."""
+    dpdx, dpdy = _ddx(world_pos), _ddy(world_pos)
+    dudx, dudy = _ddx(uv[..., 0]), _ddy(uv[..., 0])
+    dvdx, dvdy = _ddx(uv[..., 1]), _ddy(uv[..., 1])
+    det = dudx * dvdy - dudy * dvdx
+    t = dpdx * dvdy[..., None] - dpdy * dvdx[..., None]
+    t = t - normal * _dot(t, normal)
+    tlen = torch.linalg.vector_norm(t, dim=-1, keepdim=True)
+    dev = normal.device
+    up = torch.where(torch.abs(normal[..., 1:2]) < 0.9,
+                     torch.tensor([0.0, 1.0, 0.0], device=dev),
+                     torch.tensor([1.0, 0.0, 0.0], device=dev))
+    alt = _normalize(torch.linalg.cross(up * torch.ones_like(normal), normal,
+                                        dim=-1), 1e-9)
+    ok = (torch.abs(det) > 1e-12) & (tlen[..., 0] > 1e-9)
+    t = torch.where(ok[..., None], t / torch.clamp(tlen, min=1e-9), alt)
+    b = torch.linalg.cross(normal, t, dim=-1)
+    c = torch.cos(rotation)[..., None]
+    s = torch.sin(rotation)[..., None]
+    t = t * c + b * s
+    return t, torch.linalg.cross(normal, t, dim=-1)
+
+
 def eval_brdf(n, v, l, albedo, metallic, roughness, spec_scale=None,
-              trans_w=None):
+              sss=None, trans_w=None, aniso=None):
     """Cook-Torrance specular + Lambert diffuse; all (..., 3)/(...,) tensors.
     Returns the radiance factor to multiply by the light's radiance.
-    `spec_scale` (..., 3) multiplies the specular lobe only. `trans_w`
-    (H, W), the OpenPBR transmission weight, removes that share of the
-    diffuse lobe (the light passes through; ops/oit.py tints the
-    background instead)."""
+    `spec_scale` (..., 3) multiplies the specular lobe only (the
+    Kulla-Conty compensation). OpenPBR extensions:
+    - `sss` = (weight, color3, radius): wrap-diffusion subsurface replaces
+      the Lambert term by weight (light bleeds past the terminator by the
+      radius, tinted by the colour; white furnace kept for colour 1);
+    - `trans_w` (H, W): the transmission weight removes that share of the
+      diffuse lobe (the light passes through; ops/oit.py tints the
+      background instead);
+    - `aniso` = (T, B, strength): anisotropic GGX along the tangent frame
+      (Burley parameterisation, Heitz height-correlated visibility)."""
     h = _normalize(l + v, 1e-12)
-    n_dot_l = torch.clamp(_dot(n, l), min=0.0)
+    ndl_s = _dot(n, l)
+    n_dot_l = torch.clamp(ndl_s, min=0.0)
     n_dot_v = torch.clamp(_dot(n, v), min=1e-4)
     n_dot_h = torch.clamp(_dot(n, h), min=0.0)
     v_dot_h = torch.clamp(_dot(v, h), min=0.0)
     alpha = torch.clamp(roughness[..., None] ** 2, min=1e-3)
     f0 = 0.04 * (1.0 - metallic[..., None]) + albedo * metallic[..., None]
     F = _f_schlick(v_dot_h, f0)
-    D = _d_ggx(n_dot_h, alpha)
-    Vis = _g_smith(n_dot_v, n_dot_l, alpha)
+    if aniso is not None:
+        T, B, strength = aniso
+        s = torch.clamp(strength, 0.0, 0.98)[..., None]
+        ax = torch.clamp(alpha * (1.0 + s), min=1e-3)
+        ay = torch.clamp(alpha * (1.0 - s), min=1e-3)
+        t_h, b_h = _dot(T, h), _dot(B, h)
+        t_v, b_v = _dot(T, v), _dot(B, v)
+        t_l, b_l = _dot(T, l), _dot(B, l)
+        d = (t_h / ax) ** 2 + (b_h / ay) ** 2 + n_dot_h ** 2
+        D = 1.0 / torch.clamp(math.pi * ax * ay * d * d, min=1e-8)
+        lv = n_dot_l * torch.sqrt(torch.clamp(
+            (t_v * ax) ** 2 + (b_v * ay) ** 2 + n_dot_v ** 2, min=1e-12))
+        ll = n_dot_v * torch.sqrt(torch.clamp(
+            (t_l * ax) ** 2 + (b_l * ay) ** 2 + n_dot_l ** 2, min=1e-12))
+        Vis = 0.5 / torch.clamp(lv + ll, min=1e-8)
+    else:
+        D = _d_ggx(n_dot_h, alpha)
+        Vis = _g_smith(n_dot_v, n_dot_l, alpha)
     specular = D * Vis * F
     if spec_scale is not None:
         specular = specular * spec_scale
     kd = (1.0 - F) * (1.0 - metallic[..., None])
     diffuse = kd * albedo / math.pi * n_dot_l
+    if sss is not None:
+        w8, scol, rad = sss
+        wrap = torch.clamp(rad, 0.0, 1.0)[..., None]
+        wrapped = torch.clamp((ndl_s + wrap) / ((1.0 + wrap) ** 2), 0.0, 1.0)
+        sss_d = kd * albedo * scol / math.pi * wrapped
+        diffuse = diffuse + w8[..., None] * (sss_d - diffuse)
     if trans_w is not None:
         diffuse = diffuse * (1.0 - trans_w[..., None])
     return diffuse + specular * n_dot_l
 
 
+def coat_f0(dev) -> torch.Tensor:
+    """The coat's F0 as an f32 scalar (1 - F0 is then rounded in f32, as
+    the JAX package's jnp.float32(0.05) is)."""
+    return torch.tensor(0.05, dtype=torch.float32, device=dev)
+
+
+def apply_coat(base: torch.Tensor, gb: GBuffer, n: torch.Tensor,
+               v: torch.Tensor, l: torch.Tensor, radiance: torch.Tensor
+               ) -> torch.Tensor:
+    """OpenPBR clear coat: a second GGX lobe at the coat roughness over an
+    attenuated base. Coat F0 ~0.05 (ior 1.6); energy: base *= (1 - Fc *
+    weight)."""
+    w = gb.coat_weight[..., None]
+    h = _normalize(l + v, 1e-12)
+    n_dot_l = torch.clamp(_dot(n, l), min=0.0)
+    n_dot_v = torch.clamp(_dot(n, v), min=1e-4)
+    n_dot_h = torch.clamp(_dot(n, h), min=0.0)
+    v_dot_h = torch.clamp(_dot(v, h), min=0.0)
+    alpha = torch.clamp(gb.coat_rough[..., None] ** 2, min=1e-3)
+    Fc = _f_schlick(v_dot_h, coat_f0(n.device))
+    spec = _d_ggx(n_dot_h, alpha) * _g_smith(n_dot_v, n_dot_l, alpha) * Fc
+    return base * (1.0 - Fc * w) + spec * n_dot_l * radiance * w
+
+
 def openpbr_terms(gb: GBuffer, v: torch.Tensor, n: torch.Tensor,
                   energy: bool, fuzz: bool):
-    """Light-independent OpenPBR factors (spec compensation, fuzz albedo).
-    The base path has neither; the lobes are not ported yet."""
+    """Light-independent OpenPBR factors, computed once a frame and shared
+    by every light pass: the Kulla-Conty specular compensation (..., 3)
+    with `energy` and the fuzz layer's directional albedo (H, W) with
+    `fuzz`, each None when off."""
+    ndv = torch.clamp(torch.sum(n * v, -1), min=1e-4)
+    spec_comp = None
     if energy:
-        raise NotImplementedError(
-            "energy compensation is not ported yet "
-            "(FrameConfig.enable_energy_comp)")
+        f0 = 0.04 * (1.0 - gb.metallic[..., None]) \
+            + gb.albedo * gb.metallic[..., None]
+        spec_comp = brdf_energy.energy_compensation(f0, ndv, gb.roughness)
+    fuzz_e = None
     if fuzz:
-        raise NotImplementedError(
-            "the fuzz lobe is not ported yet (FrameConfig.enable_fuzz)")
-    return None, None
+        fuzz_e = gb.fuzz_weight * brdf_energy.sheen_energy(ndv, gb.fuzz_rough)
+    return spec_comp, fuzz_e
+
+
+def view_terms(gb: GBuffer, view: ViewData, energy: bool, fuzz: bool):
+    """(v, spec_comp, fuzz_e): the unit view directions (H, W, 3) and
+    openpbr_terms' factors, computed once a frame and shared by the
+    deferred loop and the shadowed local-light passes."""
+    v = _normalize(view.cam_pos[None, None, :] - gb.world_pos, 1e-12)
+    return (v,) + openpbr_terms(gb, v, gb.normal, energy, fuzz)
 
 
 def shade_one_light(gb: GBuffer, row: torch.Tensor, v: torch.Tensor,
                     n: torch.Tensor, directional_only: bool = False,
-                    spec_comp=None, trans_w=None) -> torch.Tensor:
-    """Full-screen contribution of ONE packed light row (H, W, 3)."""
+                    coat: bool = False, spec_comp=None, fuzz_e=None,
+                    sss=None, trans_w=None, aniso=None) -> torch.Tensor:
+    """Full-screen contribution of ONE packed light row (H, W, 3), shared
+    by the deferred loop and the shadowed local-light passes.
+    `spec_comp`/`fuzz_e` are openpbr_terms' factors; `coat` layers the
+    clear coat over the result."""
     lpos, ltype = row[0:3], row[3]
     ldir, intensity = row[4:7], row[7]
     color, rng = row[8:11], row[11]
@@ -280,7 +398,16 @@ def shade_one_light(gb: GBuffer, row: torch.Tensor, v: torch.Tensor,
     att = torch.where(ltype == 2.0, att * spot * spot, att)
     radiance = color[None, None, :] * (intensity * att)
     out = eval_brdf(n, v, l, gb.albedo, gb.metallic, gb.roughness,
-                    spec_scale=spec_comp, trans_w=trans_w) * radiance
+                    spec_scale=spec_comp, sss=sss, trans_w=trans_w,
+                    aniso=aniso) * radiance
+    if fuzz_e is not None:
+        # The Charlie-sheen lobe layered over the base, which the layer's
+        # directional albedo attenuates.
+        sheen = brdf_energy.eval_sheen(n, v, l, gb.fuzz_rough) \
+            * gb.fuzz_weight[..., None]
+        out = out * (1.0 - fuzz_e[..., None]) + sheen * radiance
+    if coat:
+        out = apply_coat(out, gb, n, v, l, radiance)
     if directional_only:
         out = out * torch.where(ltype == 0.0, 1.0, 0.0)
     return out
@@ -291,7 +418,7 @@ def shade_deferred(gb: GBuffer, scene: SceneBuffers, view: ViewData,
                    directional_only: bool = False, coat: bool = False,
                    energy: bool = False, fuzz: bool = False,
                    sss: bool = False, aniso: bool = False,
-                   transmission: bool = False) -> torch.Tensor:
+                   transmission: bool = False, terms=None) -> torch.Tensor:
     """Full-screen deferred lighting -> HDR (H, W, 3).
 
     `num_lights` is the light loop's bound as a host integer: the live
@@ -299,24 +426,28 @@ def shade_deferred(gb: GBuffer, scene: SceneBuffers, view: ViewData,
     JAX package loops to a traced device scalar; here the caller reads the
     count once per frame before queuing any work (see graph/frame.py), so
     the loop runs exactly the live lights and queues no masked passes.
-    With `transmission`, each light's diffuse lobe loses the pixel's
-    OpenPBR transmission weight (eval_brdf's `trans_w`).
+    The flags switch on the OpenPBR lobes: `coat`, `energy` (Kulla-Conty),
+    `fuzz`, `sss`, `aniso` (in the screen-derivative tangent frame rotated
+    by the material's angle) and `transmission` (each light's diffuse lobe
+    loses the pixel's transmission weight). The light-independent inputs
+    are computed once and shared by every light; `terms` hands in
+    view_terms' result when the caller already has it.
     """
-    for flag, name in ((coat, "enable_coat"), (sss, "enable_sss"),
-                       (aniso, "enable_aniso")):
-        if flag:
-            raise NotImplementedError(
-                f"this OpenPBR lobe is not ported yet (FrameConfig.{name})")
     H, W = gb.valid.shape
-    v = _normalize(view.cam_pos[None, None, :] - gb.world_pos, 1e-12)
     n = gb.normal
-    spec_comp, _fuzz_e = openpbr_terms(gb, v, n, energy, fuzz)
+    v, spec_comp, fuzz_e = terms or view_terms(gb, view, energy, fuzz)
+    sss_t = (gb.sss_weight, gb.sss_color, gb.sss_radius) if sss else None
     trans_w = gb.trans_weight if transmission else None
+    aniso_t = None
+    if aniso:
+        T, B = tangent_frame(gb.world_pos, gb.uv, n, gb.aniso_rotation)
+        aniso_t = (T, B, gb.aniso_strength)
     total = torch.zeros((H, W, 3), dtype=torch.float32, device=gb.valid.device)
     for i in range(num_lights):
         out = shade_one_light(gb, scene.lights[i], v, n,
-                              directional_only=directional_only,
-                              spec_comp=spec_comp, trans_w=trans_w)
+                              directional_only=directional_only, coat=coat,
+                              spec_comp=spec_comp, fuzz_e=fuzz_e, sss=sss_t,
+                              trans_w=trans_w, aniso=aniso_t)
         if shadow_fn is not None:
             out = out * shadow_fn(i, gb.world_pos, n)[..., None]
         total = total + out

@@ -64,6 +64,36 @@ def sphere_in_frustum(planes: torch.Tensor, centers: torch.Tensor,
     return torch.all(d >= -radii[:, None], dim=-1)
 
 
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """f32 square root rounded correctly, as XLA's and CUDA's are. PyTorch's
+    CPU f32 sqrt is not always: some calls round apart in the last ulp
+    (0.03125006 -> 0.17677686, not 0.17677687) and some return part of a
+    tensor approximated to ~2^-12 (sqrt(1.0) -> 0.99975586). The f64 root
+    rounds to f32 exactly."""
+    return torch.sqrt(x.double()).float()
+
+
+def perspective(fov_y: torch.Tensor, aspect: float, near: float,
+                far: torch.Tensor) -> torch.Tensor:
+    """(4, 4) reverse-Z perspective projection to D3D clip space on the
+    device of `fov_y`, for a field of view and far plane that are tensors
+    (the shadow views take them from the light table). View space looks
+    down -Z; clip w = -z_view; z_view = -near maps to 1 and -far to 0."""
+    fov_y = torch.as_tensor(fov_y, dtype=torch.float32)
+    dev = fov_y.device
+    f = 1.0 / torch.tan(fov_y * 0.5)
+    near = torch.tensor(near, dtype=torch.float32, device=dev)
+    far = torch.as_tensor(far, dtype=torch.float32, device=dev)
+    A = near / (far - near)
+    B = far * near / (far - near)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    one = torch.ones((), dtype=torch.float32, device=dev)
+    return torch.stack([torch.stack([f / aspect, zero, zero, zero]),
+                        torch.stack([zero, f, zero, zero]),
+                        torch.stack([zero, zero, A, B]),
+                        torch.stack([zero, zero, -one, zero])])
+
+
 # ---------------------------------------------------------------------------
 # Numpy-side helpers (host precompute)
 # ---------------------------------------------------------------------------

@@ -121,7 +121,31 @@ Run from the root of a checkout. Phases, one line each:
     and timed alone; full_taau and full against the native max-quality
     full frame (bench.py's rmse_vs_max_quality); a 4-frame moving
     full_taau sequence (256x128 presented at 512x256) on the card against
-    the CPU.
+    the CPU;
+14. shadow maps and the OpenPBR lobes at full size: (a) city-1080p-shadows,
+    phase 13's city in config1_minimal with enable_shadows (4 cascades at
+    1024^2), energy compensation and the Renderer's shadow caps (4 spot
+    slots at 512^2, 2 cubes of 256^2 faces) over four shadow-casting spot
+    and two shadow-casting point lights added to the hero view, static
+    camera, timed with per-stage CUDA events ("shadows", "spot_shadows",
+    "cube_shadows"), K2 launches per frame (3 + 20), peak memory, a frame
+    with the shadows off for comparison, and one captured frame's K2
+    launches on the cascades, spot maps and cube faces held to the plain
+    version and timed alone per shape; (b) openpbr-1080p, the OpenPBR rig
+    of tests/test_goldens_512.py with a coat and a fuzz sphere at
+    1920x1080 with every lobe, OIT with transmission, textures, IBL,
+    clustered lights, cascades and a cube-shadowed point light, one
+    captured frame's K3 and K4 launches held to the plain version; (c)
+    card against CPU, 4 moving frames at 256x128 (vis equal, RMSE <= 1.0
+    on every frame): (a)'s flags on tests/test_spot_shadows.py's scene
+    (the cluster path, dead spot and cube slots), enable_shadows on
+    tests/test_shadows_ibl.py's wall (the soup path: K1 rasters the
+    cascades) and (b)'s flags on its rig (every lobe, textures, OIT with
+    transmission, IBL); (d) soup-1080p-shadows, phase 6's courtyard with
+    enable_shadows: K1 on the soup's cascades at full size, one captured
+    frame's cascade launches held to the plain version and timed alone.
+    The (a) and (d) frames' K3 launches, with the shadowed lights taken
+    out of the tiled loop, are held to the plain version too.
 Each kernel timed alone is timed twice: by CUDA events around
 back-to-back launches (cuda_ms, the kernels line's `ms`) and by the device
 time of its launches in a torch.profiler trace (device_ms, the kernels
@@ -239,9 +263,11 @@ def device_parts(torch, fn, reps):
     after a warm call, from a torch.profiler trace of the calls' CUDA
     kernels (and copies), as profile_frames reads them: each kernel's mean
     event duration times its launches a call. Late in a long process the
-    trace loses a few device events (8 or 9 of a kernel's 10); a kernel's
-    launches a call are its event count over `reps`, rounded, and a trace
-    that lost half a call's worth of some kernel is taken again."""
+    trace loses a few device events (8 or 9 of a kernel's 10; for a
+    kernel of a few microseconds, every other one); a kernel's launches a
+    call are its event count over `reps`, rounded, and at least 1 (every
+    call is the same, so a kernel in the trace runs in every call), and a
+    trace that lost half a call's worth of some kernel is taken again."""
     import re
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -260,7 +286,7 @@ def device_parts(torch, fn, reps):
                 events.setdefault(e.name, []).append(
                     e.time_range.elapsed_us() / 1e3)
         counts = {k: len(v) for k, v in events.items()}
-        per_call = {k: round(c / reps) for k, c in counts.items()}
+        per_call = {k: max(1, round(c / reps)) for k, c in counts.items()}
         if events and all(n >= 1 and abs(counts[k] - n * reps) <= reps // 2
                           for k, n in per_call.items()):
             parts = {}
@@ -1134,6 +1160,16 @@ def k2_bound(raster, pairs, cfg, row0, init):
     return b_ms, b_by, walked
 
 
+def map_bound(walked, cfg):
+    """(bound ms, by) of one depth-only shadow-map launch walking `walked`
+    (row, tile) pairs: each walked row tested on its tile's pixels and
+    read once, and the depth plane written (4 bytes a pixel). A map keeps
+    only the depth (ops/shadows.render_cascade); the vis and 8 channel
+    planes K1/K2 write there too are no work the map needs."""
+    return bound(walked * cfg.tile_h * cfg.tile_w * RASTER_FLOPS_PER_ROW_PIXEL,
+                 walked * 128 + cfg.padded_height * cfg.padded_width * 4)
+
+
 def random_warp(torch, np, seed, shape, dev, tile=(32, 128), channels=3):
     """Random history (H, W, channels) and per-tile shifts on `dev`:
     uniform over +-80 rows / +-220 columns (past the clip limits), the
@@ -1635,11 +1671,11 @@ def main():
         "moving-camera sequences, 4 frames, last frame card vs CPU (limits "
         "0.999, 1.0): " + "; ".join(seqs))
     if quick:
-        say(f"quick run: phases 6-12 skipped; {time.perf_counter() - t_start:.1f} s")
+        say(f"quick run: phases 6-14 skipped; {time.perf_counter() - t_start:.1f} s")
         return 0
 
     records = {}
-    soup = []     # phase 6's scene, kept for phase 12
+    soup = []     # phase 6's scene, kept for phases 12 and 14
     records.update(slice1(np, torch, dev, kernels, soup))
     yard = list(courtyard(np, torch, dev))   # phase 9 drops its buffers
     records.update(slice2(np, torch, dev, kernels, smi, yard,
@@ -1653,8 +1689,12 @@ def main():
     records.update(slice5_tangents(np, torch, dev, kernels, smi, yard))
     records.update(slice5_occlusion(np, torch, dev, kernels, smi, soup,
                                     yard))
-    del soup, yard
-    records.update(slice10_city(np, torch, dev, kernels, smi))
+    del yard
+    city_recs, city_built = slice10_city(np, torch, dev, kernels, smi)
+    records.update(city_recs)
+    records.update(slice11_shadows(np, torch, dev, kernels, smi, city_built,
+                                   soup))
+    del city_built, soup
 
     print(json.dumps({"kernels": [records[k] for k in
                                   ("K1", "K2", "K2-VSM", "K3", "K4", "K4-BC3",
@@ -1662,7 +1702,9 @@ def main():
                                    "K2-accum", "K6", "K1-seeded",
                                    "K1-tangent", "K1-peel-tangent",
                                    "K2-tangent", "K2-peel-tangent",
-                                   "K6-tangent", "K4-city", "K5-taau")]}),
+                                   "K6-tangent", "K4-city", "K5-taau",
+                                   "K2-CSM", "K2-spot", "K2-cube",
+                                   "K1-CSM")]}),
           flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1686,8 +1728,7 @@ def slice1(np, torch, dev, kernels, soup):
     buf = bridge.build_scene_buffers(device=dev)
     view = make_view(*sc.camera_matrices(aspect=16 / 9), device=dev)
     setup_s = time.perf_counter() - t0
-    cfg = FrameConfig(width=1920, height=1080, tile_h=32, tile_w=128,
-                      max_pairs=1 << 22, near_clip_tris=4096)
+    cfg = FrameConfig(**SOUP_1080P)
     fr = build_frame_fn(cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1748,6 +1789,8 @@ def slice1(np, torch, dev, kernels, soup):
         "library_ms": None}}
 
 
+SOUP_1080P = dict(width=1920, height=1080, tile_h=32, tile_w=128,  # phase 6
+                  max_pairs=1 << 22, near_clip_tris=4096)
 CFG512 = dict(width=512, height=512, tile_h=32, tile_w=128,   # phase 3
               max_pairs=1 << 16, max_tiles_per_tri=8, max_tiles_per_group=4,
               max_group_pairs=1 << 13)
@@ -3599,6 +3642,522 @@ def slice10_city(np, torch, dev, kernels, smi):
         f"frames orbiting {CITY_SEQ_RAD_PER_FRAME} rad/frame: vis agreement "
         f"{s_agree:.5f}, RMSE {s_rmse:.4f} (limits 0.999, 1.0), K5 "
         f"launches {s_k5}, CPU {cpu_ms / 1e3:.1f} s | {smi}")
+    return recs, (built, bridge)
+
+
+# Phase 14: cascaded, spot and point shadow maps and the OpenPBR lobes.
+# (a) city-1080p-shadows: bench.py's base config (bench.py:215-224) on the
+# city with the Renderer's shadow caps (graph/framedata.py: 4 cascades at
+# 1024^2; 4 spot slots at 512^2, 2 cubes of 256^2 faces) and energy
+# compensation, over four shadow-casting spot lights and two
+# shadow-casting point lights in the hero view (as examples/showcase.py
+# adds a shadow-casting spot light to the courtyard).
+CITY_SHADOWS = dict(enable_shadows=True, enable_energy_comp=True,
+                    max_shadow_lights=4, max_shadow_cubes=2)
+CITY_SPOTS = ((14.0, 10.0, 18.0), (8.0, 10.0, 10.0), (2.0, 10.0, 3.0),
+              (-4.0, 10.0, -4.0))
+CITY_POINTS = ((11.0, 5.0, 14.0), (-1.0, 5.0, -1.0))
+# FrameConfig's defaults for the cascades, the Renderer's map sizes.
+CITY_SHADOW_SIZES = (4, 1024, 512, 256)
+SHADOW_FRAMES = (3, 8)        # phase 14: (warm, timed) frames
+SHADOW_K2_PER_FRAME = 4 + 4 + 12   # cascades, spot maps, cube faces
+# (b) openpbr-1080p: the OpenPBR rig of tests/test_goldens_512.py with a
+# clear-coated and a fuzz sphere, its point light casting a cube shadow.
+OPENPBR_1080P = dict(width=1920, height=1080, tile_h=32, tile_w=128,
+                     max_pairs=1 << 18, max_tiles_per_tri=8,
+                     enable_clod=True, max_visible_clusters=1024,
+                     enable_textures=True, texture_downscale=1,
+                     enable_oit=True, oit_layers=2, enable_transmission=True,
+                     enable_ibl=True, enable_clustered=True,
+                     enable_shadows=True, max_shadow_cubes=1,
+                     enable_coat=True, enable_fuzz=True,
+                     enable_energy_comp=True, enable_sss=True,
+                     enable_aniso=True)
+# (c) card against CPU, 4 moving frames at 256x128.
+SHADOW_SEQ = dict(width=256, height=128, tile_h=16)
+# The capacities of tests/test_spot_shadows.py's config for its scene (16
+# clusters).
+SHADOW_SEQ_CAPS = dict(max_pairs=1 << 12, max_visible_clusters=16,
+                       max_phase2_clusters=16, shadow_clusters=16)
+SHADOW_SEQ_RAD_PER_FRAME = 0.03
+# (b)'s flags on its rig at (c)'s size, with two 256^2 cascades: the plain
+# version rasters 4 x 1024^2 cascades of the rig's spheres on the CPU at
+# ~75 s a frame.
+OPENPBR_SEQ = dict(OPENPBR_1080P, **SHADOW_SEQ, num_cascades=2,
+                   shadow_resolution=256)
+# (d) soup-1080p-shadows: phase 6's frame with FrameConfig's cascades.
+SOUP_SHADOW_FRAMES = (1, 3)
+SOUP_CAMERA = dict(position=(12 * 1.1, 12 * 0.55, 12 * 1.25),
+                   target=(0, 0.0, 0), aspect=16 / 9)   # soup_courtyard's
+
+
+def shadow_test_scene(np, name):
+    """tests/test_shadows_ibl.py's wall ("wall": a floor and a tall wall
+    under a shadow-casting directional light) or tests/test_spot_shadows.py's
+    scene ("spot": a floor and a cube under a shadow-casting spot light),
+    from the port's modules."""
+    from basicrenderer_tpu_torch.models import procedural
+    from basicrenderer_tpu_torch.models.materials import Material, MaterialRegistry
+    from basicrenderer_tpu_torch.models.mesh import MeshRegistry
+    from basicrenderer_tpu_torch.scene.bridge import BridgeCapacities, SceneRenderBridge
+    from basicrenderer_tpu_torch.scene.scene import Scene
+    meshes, mats = MeshRegistry(), MaterialRegistry()
+    sc = Scene()
+    if name == "wall":
+        plane = meshes.add(procedural.make_plane(20.0, 2))
+        cube = meshes.add(procedural.make_cube(1.5))
+        m = mats.add(Material(base_color=np.array([0.7, 0.7, 0.7, 1],
+                                                  np.float32), roughness=0.8))
+        sc.create_renderable(plane, m)
+        sc.create_renderable(cube, m, position=(0, 1.5, 0), scale=(3, 2, 0.3))
+        sc.create_directional_light(direction=(-0.5, -1.0, 0.6),
+                                    intensity=4.0, cast_shadows=True)
+        sc.set_camera(position=(6, 6, 8), target=(0, 0.5, 0), aspect=2.0)
+        caps = BridgeCapacities(max_vertices=1 << 10, max_triangles=1 << 10,
+                                max_objects=8, max_materials=4, max_lights=4)
+    else:
+        cube = meshes.add(procedural.make_cube(0.8))
+        plane = meshes.add(procedural.make_plane(12.0, 4))
+        white = mats.add(Material(base_color=np.array([1, 1, 1, 1],
+                                                      np.float32),
+                                  roughness=0.9))
+        sc.create_renderable(plane, white)
+        sc.create_renderable(cube, white, position=(0, 0.8, 0))
+        sc.create_spot_light(position=(1.5, 5.0, 1.0),
+                             direction=(-0.3, -1, -0.2), intensity=60.0,
+                             range=12.0, inner_cone=0.5, outer_cone=0.9,
+                             cast_shadows=True)
+        sc.set_camera(position=(4, 4, 5), target=(0, 0.5, 0), aspect=2.0)
+        caps = BridgeCapacities(max_vertices=1 << 10, max_triangles=1 << 10,
+                                max_objects=8, max_materials=4, max_lights=8,
+                                max_clusters=16, max_geom_clusters=16)
+    sc.propagate_transforms()
+    return sc, SceneRenderBridge(sc, meshes, mats, caps)
+
+
+def openpbr_scene(np, aspect):
+    """The OpenPBR rig of tests/test_goldens_512.py (glass, skin and
+    brushed-metal spheres over a checkered floor) with a clear-coated and
+    a fuzz sphere, its point light casting a cube shadow."""
+    from basicrenderer_tpu_torch.models import clusters, procedural
+    from basicrenderer_tpu_torch.models.materials import Material, MaterialRegistry
+    from basicrenderer_tpu_torch.models.mesh import MeshRegistry
+    from basicrenderer_tpu_torch.models.textures import TextureRegistry
+    from basicrenderer_tpu_torch.scene.bridge import BridgeCapacities, SceneRenderBridge
+    from basicrenderer_tpu_torch.scene.scene import Scene
+    meshes, mats = MeshRegistry(), MaterialRegistry()
+    tex = TextureRegistry(resolution=64)
+    checker = tex.checkerboard(a=(1, 1, 1), b=(0.15, 0.15, 0.15), squares=8)
+    sphere = meshes.add(clusters.to_mesh_data(clusters.build_cluster_lod(
+        procedural.make_uv_sphere(0.8, rings=24, sectors=48))))
+    plane = meshes.add(procedural.make_plane(8.0, 2))
+
+    def mat(rgb, **kw):
+        return mats.add(Material(base_color=np.array([*rgb, 1], np.float32),
+                                 **kw))
+    floor_m = mat((0.7, 0.7, 0.72), roughness=0.3,
+                  base_color_texture=checker)
+    glass_m = mat((1, 1, 1), roughness=0.05, transmission_weight=1.0,
+                  transmission_color=np.array([0.4, 0.9, 0.5], np.float32),
+                  ior=1.5)
+    skin_m = mat((0.85, 0.62, 0.52), roughness=0.55, subsurface_weight=0.8,
+                 subsurface_color=np.array([1.0, 0.35, 0.25], np.float32),
+                 subsurface_radius=0.6)
+    brushed_m = mat((0.9, 0.9, 0.92), roughness=0.35, metallic=1.0,
+                    anisotropy_strength=0.85, anisotropy_rotation=0.6)
+    coat_m = mat((0.7, 0.05, 0.05), roughness=0.6, coat_weight=1.0,
+                 coat_roughness=0.08)
+    fuzz_m = mat((0.2, 0.2, 0.6), roughness=0.8, fuzz_weight=0.9,
+                 fuzz_roughness=0.4)
+    sc = Scene()
+    sc.create_renderable(plane, floor_m)
+    sc.create_renderable(sphere, glass_m, position=(-1.6, 0.8, 0))
+    sc.create_renderable(sphere, skin_m, position=(0, 0.8, -0.4))
+    sc.create_renderable(sphere, brushed_m, position=(1.6, 0.8, 0))
+    sc.create_renderable(sphere, coat_m, position=(-0.8, 0.8, 1.4))
+    sc.create_renderable(sphere, fuzz_m, position=(0.9, 0.8, 1.4))
+    sc.create_directional_light(direction=(-0.5, -1, -0.35), intensity=2.5)
+    sc.create_point_light(position=(0.0, 2.2, 2.0), color=(1.0, 0.9, 0.8),
+                          intensity=5.0, cast_shadows=True)
+    sc.set_camera(position=(0.4, 2.0, 4.2), target=(0, 0.7, 0), aspect=aspect)
+    sc.propagate_transforms()
+    caps = BridgeCapacities(max_vertices=1 << 15, max_triangles=1 << 15,
+                            max_objects=16, max_materials=8, max_lights=8,
+                            max_clusters=1 << 10, max_geom_clusters=1 << 10)
+    return sc, SceneRenderBridge(sc, meshes, mats, caps, textures=tex)
+
+
+def shadow_launches(torch, raster, calls, cuda_fn, plain_fn, walked_fn,
+                    label):
+    """Every captured shadow-map launch (name, args, kwargs, output) held
+    to its plain version (vis, depth and channels exact), then all of them
+    timed together by CUDA events and by device time, and their depth-only
+    bounds (map_bound) summed. Returns (ms, device ms, plain ms, bound ms,
+    bound_by of the largest, max abs err, rows walked, bytes bound ms with
+    every plane the kernel writes)."""
+    err, plain_ms, b_sum, b_big, by, walked = 0.0, 0.0, 0.0, 0.0, "bytes", 0
+    planes_ms = 0.0
+    for k, (_n, a, kw, kout) in enumerate(calls):
+        check(len(a) < 4 or a[3] is None, f"{label} launch {k} is seeded")
+        pout, p_ms = host_ms(torch, lambda: plain_fn(*a, **kw))
+        err = max(err, compare_raster(torch, kout, pout,
+                                      f"{label} launch {k}"))
+        w = walked_fn(a)
+        b_ms, b_by = map_bound(w, a[1])
+        planes_ms += (w * 128 + a[1].padded_height * a[1].padded_width
+                      * 40) / PEAK_BYTES * 1e3
+        plain_ms, b_sum, walked = plain_ms + p_ms, b_sum + b_ms, walked + w
+        if b_ms > b_big:
+            b_big, by = b_ms, b_by
+    def run():
+        for _n, a, kw, _o in calls:
+            cuda_fn(*a, **kw)
+    return (cuda_ms(torch, run, 5), device_ms(torch, run, 5), plain_ms,
+            b_sum, by, err, walked, planes_ms)
+
+
+def frame_k3_k4(torch, lc, tc, label):
+    """The K3 and K4 launches of one captured frame (Capture lists), each
+    held to its plain version: K3 within SHADE_RTOL / SHADE_ATOL (k3_check),
+    K4 exact. Returns (K3 max abs err, K3 max ulp, K4 launches, K4 max abs
+    err)."""
+    from basicrenderer_tpu_torch.ops import textures
+    check(len(lc.calls) == 1, f"{label}: captured frame launched K3 "
+          f"{len(lc.calls)} times")
+    k3_err, k3_ulp = k3_check(torch, lc.calls[0][1], f"{label} K3")
+    k4_err = 0.0
+    for k, (_n, a, kw, kout) in enumerate(tc.calls):
+        plain = textures.tex_block_eval_plain(*a, **kw)
+        check(torch.equal(kout, plain), f"{label} K4 launch {k} differs "
+              f"from plain on {int((kout != plain).sum())} values")
+        k4_err = max(k4_err, float((kout - plain).abs().max()))
+    return k3_err, k3_ulp, len(tc.calls), k4_err
+
+
+def slice11_shadows(np, torch, dev, kernels, smi, city_built, soup):
+    """Phase 14: (a) city-1080p-shadows, (b) openpbr-1080p, (c) 4-frame
+    moving sequences at 256x128 on the card against the CPU (the cluster
+    path with (a)'s flags on tests/test_spot_shadows.py's scene; the soup
+    path with enable_shadows on tests/test_shadows_ibl.py's wall, K1
+    rastering the cascades; (b)'s flags on its rig), (d) soup-1080p-shadows
+    (phase 6's courtyard `soup` with enable_shadows: K1 on its cascades).
+    Returns the kernels-line records of the shadow launches."""
+    import gc
+    from basicrenderer_tpu_torch.graph.frame import build_frame_fn
+    from basicrenderer_tpu_torch.graph.framedata import FrameConfig
+    from basicrenderer_tpu_torch.graph.temporal import TemporalState
+    from basicrenderer_tpu_torch.models.environment import Environment
+    from basicrenderer_tpu_torch.ops import lighting, raster, textures
+    recs = {}
+    order = ["cut", "hzb", "setup", "bin", "raster", "hzb2", "cut2", "setup2",
+             "bin2", "raster2", "mask", "gbuffer", "textures", "normal_map",
+             "shadows", "light_cull", "tiled_shade", "shade", "cube_shadows",
+             "spot_shadows", "ibl", "oit_cut", "oit_setup", "oit_bin",
+             "oit_peel0", "oit_peel1", "oit_accum", "oit_shade",
+             "oit_composite"]
+
+    def stage_line(stages):
+        return " ".join(f"{k} {stages[k]:.3f}" for k in order if k in stages)
+
+    # -- (a) city-1080p-shadows -------------------------------------------
+    built, bridge = city_built
+    sc = built.scene
+    for pos in CITY_SPOTS:
+        sc.create_spot_light(position=pos, direction=(-0.25, -1.0, -0.3),
+                             intensity=300.0, range=28.0, inner_cone=0.45,
+                             outer_cone=0.85, cast_shadows=True)
+    for pos in CITY_POINTS:
+        sc.create_point_light(position=pos, color=(1.0, 0.85, 0.7),
+                              intensity=150.0, range=22.0, cast_shadows=True)
+    sc.propagate_transforms()
+    t0 = time.perf_counter()
+    buf = bridge.build_scene_buffers(device=dev)
+    torch.cuda.synchronize()
+    buf_s = time.perf_counter() - t0
+    slots = buf.lights[:int(buf.num_lights), 14:16].cpu().numpy()
+    check(sorted(slots[slots[:, 0] >= 0, 0].tolist()) == [0, 1, 2, 3]
+          and sorted(slots[slots[:, 1] >= 0, 1].tolist()) == [0, 1],
+          f"city: spot slots / cube indices {slots[(slots >= 0).any(1)]}")
+    cfg = FrameConfig(**CONFIG1_MINIMAL, **CITY_SHADOWS)
+    sizes = (cfg.num_cascades, cfg.shadow_resolution,
+             cfg.spot_shadow_resolution, cfg.point_shadow_resolution)
+    check(sizes == CITY_SHADOW_SIZES, f"city-1080p-shadows: cascades and "
+          f"map sizes {sizes}, {CITY_SHADOW_SIZES} expected")
+    fr = build_frame_fn(cfg)
+    temporal = TemporalState(cfg, device=dev)
+    warm, timed = SHADOW_FRAMES
+    n = warm + timed
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches(kernels)
+    out, frame_ms, _inputs_ms, stages = timed_frames(
+        torch, np, fr, buf, sc, bridge, temporal, warm, timed)
+    launches = [k.launches for k in kernels]
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    per_frame = 3 + SHADOW_K2_PER_FRAME
+    check(launches[0] == 0, f"city-1080p-shadows launched K1 {launches[0]} "
+          "times")
+    check(launches[1] == per_frame * n, f"city-1080p-shadows: K2 launched "
+          f"{launches[1]} times in {n} frames, {per_frame * n} expected")
+    check(launches[2] == n and launches[3] == n, f"city-1080p-shadows: K3 / "
+          f"K4 launched {launches[2:4]} times in {n} frames")
+    check(bool(torch.isfinite(out["hdr"]).all()), "city-1080p-shadows: "
+          "non-finite HDR values")
+    img = out["image"]
+    check(tuple(img.shape) == (cfg.height, cfg.width, 3),
+          f"city-1080p-shadows image {tuple(img.shape)}")
+    # The same view with the shadows off: the shadowed lights leave the
+    # tiled loop for their own passes, so pixels must darken somewhere.
+    cfg0 = FrameConfig(**CONFIG1_MINIMAL, enable_energy_comp=True)
+    out0 = timed_frames(torch, np, build_frame_fn(cfg0), buf, sc, bridge,
+                        TemporalState(cfg0, device=dev), 1, 0)[0]
+    darker = float(((out0["image"].float() - img.float()).mean(-1) > 8.0)
+                   .float().mean())
+    check(darker > 0.001, f"city-1080p-shadows: {darker} of the pixels "
+          "darker than with the shadows off")
+    del out, out0
+
+    # One more frame with K2's and K3's launches captured: each shadow map
+    # shape held to the plain version and timed alone; K3, with the six
+    # shadowed lights out of the tiled loop, held to its plain version.
+    with Capture(raster, ["raster_groups_cuda"]) as rc, \
+            Capture(lighting, ["tiled_shade_cuda"]) as lc, \
+            Capture(textures, ["tex_block_eval_cuda"]) as tc:
+        timed_frames(torch, np, fr, buf, sc, bridge, temporal, 1, 0, first=n)
+    check(len(rc.calls) == per_frame, f"city-1080p-shadows: captured frame "
+          f"launched K2 {len(rc.calls)} times")
+    a_k3_err, a_k3_ulp, a_k4_n, a_k4_err = frame_k3_k4(
+        torch, lc, tc, "city-1080p-shadows")
+    del lc, tc
+    k2_lines = []
+    r_csm, r_spot, r_cube = sizes[1:]
+    for key, res, count, what in (
+            ("K2-CSM", r_csm, 4, f"cascades, {r_csm}^2 depth-only ortho"),
+            ("K2-spot", r_spot, 4, f"spot shadow maps, {r_spot}^2 "
+                                   "depth-only perspective"),
+            ("K2-cube", r_cube, 12, f"cube faces, {r_cube}^2 depth-only "
+                                    "perspective, 2 point lights x 6")):
+        calls = [c for c in rc.calls
+                 if (c[1][1].width, c[1][1].height) == (res, res)]
+        check(len(calls) == count, f"{key}: {len(calls)} launches in the "
+              f"captured frame, {count} expected")
+        ms, d_ms, p_ms, b_ms, b_by, err, walked, planes_ms = \
+            shadow_launches(
+                torch, raster, calls, raster.raster_groups_cuda,
+                raster.raster_groups_plain,
+                lambda a: raster.expand_group_pairs(
+                    a[0], a[1], a[2] if len(a) > 2 else 0)[0].shape[0], key)
+        pairs = sum(int(c[1][0].num_pairs) for c in calls)
+        recs[key] = {
+            "name": f"raster_groups (K2, plain mode, {what}; per frame: "
+                    f"{count} launches of the city-1080p-shadows frame)",
+            "route": "cuda",
+            "source": "basicrenderer_tpu_torch/csrc/raster.cu",
+            "replaces": "basicrenderer_tpu/ops/raster_pallas.py:252",
+            "launches": launches[1] * count // per_frame,
+            "max_abs_err": err, "ms": ms, "device_ms": d_ms,
+            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
+        k2_lines.append(f"{key} {count} launches {ms:.4f} ms (device "
+                        f"{d_ms:.4f}; depth-only bound {b_ms:.4f} {b_by}, "
+                        f"with every plane written {planes_ms:.4f} bytes; "
+                        f"plain {p_ms:.0f} ms; vis, depth and channels "
+                        f"exact; pairs {pairs}, rows walked {walked})")
+    del rc, buf
+    gc.collect()
+    torch.cuda.empty_cache()
+    a_line = (f"(a) city-1080p-shadows: scene buffers {buf_s:.1f} s | median "
+              f"{statistics.median(frame_ms):.3f} ms/frame over {timed} after "
+              f"{warm} warm (min {min(frame_ms):.3f}, max "
+              f"{max(frame_ms):.3f}) | stage ms (CUDA events, median): "
+              + stage_line(stages)
+              + f" | launches K2 {launches[1]} ({per_frame}/frame: 3 + "
+              f"{SHADOW_K2_PER_FRAME} shadow) K3 {launches[2]} K4 "
+              f"{launches[3]} in {n} frames | {darker:.4f} of the pixels "
+              f"darker than with the shadows off | peak {peak_gib:.2f} GiB | "
+              f"captured frame: K3 max abs err {a_k3_err:.3g} (max ulp "
+              f"{a_k3_ulp}), K4 {a_k4_n} launches exact | "
+              + "; ".join(k2_lines))
+
+    # -- (b) openpbr-1080p ------------------------------------------------
+    psc, pbridge = openpbr_scene(np, 1920 / 1080)
+    env = Environment.procedural(device=dev, use_cache=False)
+    pbuf = pbridge.build_scene_buffers(env_sh=env.sh,
+                                       env_specular=env.spec_mips,
+                                       device=dev)
+    pcfg = FrameConfig(**OPENPBR_1080P)
+    pfr = build_frame_fn(pcfg)
+    ptemporal = TemporalState(pcfg, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches(kernels)
+    out, p_frame_ms, _, p_stages = timed_frames(
+        torch, np, pfr, pbuf, psc, pbridge, ptemporal, warm, timed)
+    p_launches = [k.launches for k in kernels]
+    p_peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    check(bool(torch.isfinite(out["hdr"]).all()), "openpbr-1080p: "
+          "non-finite HDR values")
+    coverage = float((out["vis"] > 0).float().mean())
+    check(0.2 < coverage < 1.0, f"openpbr-1080p: coverage {coverage}")
+    check(p_launches[3] >= n and p_launches[2] == n, f"openpbr-1080p: K3 / "
+          f"K4 launched {p_launches[2:4]} times in {n} frames")
+    del out
+    # One more frame with K3's and K4's launches captured, each held to
+    # its plain version (K4: the textured floor's base colour).
+    with Capture(lighting, ["tiled_shade_cuda"]) as lc, \
+            Capture(textures, ["tex_block_eval_cuda"]) as tc:
+        timed_frames(torch, np, pfr, pbuf, psc, pbridge, ptemporal, 1, 0,
+                     first=n)
+    b_k3_err, b_k3_ulp, b_k4_n, b_k4_err = frame_k3_k4(
+        torch, lc, tc, "openpbr-1080p")
+    check(b_k4_n >= 1, "openpbr-1080p: the captured frame launched no K4")
+    del lc, tc, pbuf
+    b_line = (f"(b) openpbr-1080p: median {statistics.median(p_frame_ms):.3f}"
+              f" ms/frame over {timed} after {warm} warm (min "
+              f"{min(p_frame_ms):.3f}, max {max(p_frame_ms):.3f}) | stage ms "
+              "(CUDA events, median): " + stage_line(p_stages)
+              + f" | launches K2 {p_launches[1]} (of which peel "
+              f"{raster.MODE_LAUNCHES[('K2', 'peel')].launches}, accum "
+              f"{raster.MODE_LAUNCHES[('K2', 'accum')].launches}) K3 "
+              f"{p_launches[2]} K4 {p_launches[3]} in {n} frames | coverage "
+              f"{coverage:.4f} | peak {p_peak:.2f} GiB | captured frame: K3 "
+              f"max abs err {b_k3_err:.3g} (max ulp {b_k3_ulp}), K4 "
+              f"{b_k4_n} launches exact")
+
+    # -- (c) card against CPU ---------------------------------------------
+    c_lines = []
+    for label, name, flags in (
+            ("cluster path", "spot", dict(CONFIG1_MINIMAL, **CITY_SHADOWS,
+                                          **SHADOW_SEQ, **SHADOW_SEQ_CAPS)),
+            ("soup path", "wall", dict(enable_shadows=True, max_pairs=1 << 12,
+                                       **SHADOW_SEQ, tile_w=128)),
+            ("OpenPBR rig", "openpbr", OPENPBR_SEQ)):
+        devices = (dev, torch.device("cpu"))
+        if name == "openpbr":
+            ssc, sbridge = openpbr_scene(np, 2.0)
+            target = np.array([0.0, 0.7, 0.0])
+            envs = [Environment.procedural(device=d, use_cache=False)
+                    for d in devices]
+            sbufs = [sbridge.build_scene_buffers(env_sh=e.sh,
+                                                 env_specular=e.spec_mips,
+                                                 device=d)
+                     for e, d in zip(envs, devices)]
+        else:
+            ssc, sbridge = shadow_test_scene(np, name)
+            target = np.array([0.0, 0.5, 0.0])
+            sbufs = [sbridge.build_scene_buffers(device=d) for d in devices]
+        scfg = FrameConfig(**flags)
+        sfr = build_frame_fn(scfg)
+        states = [TemporalState(scfg, device=d) for d in devices]
+        pos0 = ssc.camera_matrices(aspect=2.0)[2].copy()
+        reset_launches(kernels)
+        cpu_ms, worst = 0.0, (1.0, 0.0)
+        for i in range(4):
+            orbit_camera(np, ssc, pos0, target, SHADOW_SEQ_RAD_PER_FRAME * i,
+                         2.0)
+            ssc.propagate_transforms()
+            outs = []
+            for k, state in enumerate(states):
+                t1 = time.perf_counter()
+                view, params, kw = state.inputs(ssc, sbridge)
+                o = sfr(sbufs[k], view, params, **kw)
+                state.carry(o)
+                outs.append(o)
+                if k == 1:
+                    cpu_ms += (time.perf_counter() - t1) * 1e3
+            agree = float((outs[0]["vis"].cpu() == outs[1]["vis"])
+                          .float().mean())
+            err = rmse(outs[0]["image"].cpu().numpy(),
+                       outs[1]["image"].numpy())
+            check(agree == 1.0 and err <= 1.0, f"phase 14 {label} frame {i} "
+                  f"card vs CPU: vis agreement {agree}, RMSE {err}")
+            worst = (min(worst[0], agree), max(worst[1], err))
+        c_launches = [k.launches for k in kernels]
+        if name == "wall":
+            # The soup path: K1 rasters the main view and each cascade.
+            check(c_launches[0] == 4 * (1 + scfg.num_cascades)
+                  and c_launches[1] == 0, f"phase 14 soup path: K1 / K2 "
+                  f"launched {c_launches[:2]} times in 4 frames")
+        elif name == "spot":
+            check(c_launches[1] == 4 * (3 + SHADOW_K2_PER_FRAME)
+                  and c_launches[0] == 0, f"phase 14 cluster path: K1 / K2 "
+                  f"launched {c_launches[:2]} times in 4 frames")
+        else:
+            check(c_launches[1] > 0 and c_launches[2] == 4
+                  and c_launches[3] >= 4, f"phase 14 OpenPBR rig: K2 / K3 / "
+                  f"K4 launched {c_launches[1:4]} times in 4 frames")
+        c_lines.append(f"{label} ({name}): every frame vis agreement >= "
+                       f"{worst[0]:.5f}, RMSE <= {worst[1]:.4f} (limits 1.0 "
+                       f"equal, 1.0), K1 {c_launches[0]} K2 {c_launches[1]} "
+                       f"K3 {c_launches[2]} K4 {c_launches[3]} launches, "
+                       f"CPU {cpu_ms / 1e3:.1f} s")
+        del sbufs, outs
+
+    # -- (d) soup-1080p-shadows: K1 on the soup's cascades at full size ----
+    usc, ubridge, ubuf, _ntris = soup
+    usc.set_camera(**SOUP_CAMERA)   # phase 6's view (phase 12 moved it)
+    usc.propagate_transforms()
+    ucfg = FrameConfig(**SOUP_1080P, enable_shadows=True)
+    ufr = build_frame_fn(ucfg)
+    utemporal = TemporalState(ucfg, device=dev)
+    uwarm, utimed = SOUP_SHADOW_FRAMES
+    un = uwarm + utimed
+    reset_launches(kernels)
+    out, u_frame_ms, _, u_stages = timed_frames(
+        torch, np, ufr, ubuf, usc, ubridge, utemporal, uwarm, utimed)
+    u_launches = [k.launches for k in kernels]
+    check(u_launches[0] == un * (1 + ucfg.num_cascades)
+          and u_launches[1] == 0, f"soup-1080p-shadows: K1 / K2 launched "
+          f"{u_launches[:2]} times in {un} frames")
+    check(bool(torch.isfinite(out["hdr"]).all()), "soup-1080p-shadows: "
+          "non-finite HDR values")
+    del out
+    with Capture(raster, ["raster_tiles_cuda"]) as kc, \
+            Capture(lighting, ["tiled_shade_cuda"]) as lc, \
+            Capture(textures, ["tex_block_eval_cuda"]) as tc:
+        timed_frames(torch, np, ufr, ubuf, usc, ubridge, utemporal, 1, 0,
+                     first=un)
+    k1_calls = [c for c in kc.calls if c[1][1].width == ucfg.shadow_resolution]
+    check(len(k1_calls) == ucfg.num_cascades, f"soup-1080p-shadows: "
+          f"captured {len(k1_calls)} cascade launches")
+    check(len(lc.calls) == 0 and len(tc.calls) == 0, "soup-1080p-shadows "
+          "launched K3 or K4")
+    pairs = [int(c[1][0].num_pairs) for c in k1_calls]
+    overflow = [int(c[1][0].overflow) for c in k1_calls]
+    ms, d_ms, p_ms, b_ms, b_by, err1, walked, planes_ms = shadow_launches(
+        torch, raster, k1_calls, raster.raster_tiles_cuda,
+        raster.raster_tiles_plain, lambda a: k1_walked(torch, a[0], a[1]),
+        "K1-CSM")
+    del kc, lc, tc, k1_calls
+    recs["K1-CSM"] = {
+        "name": "raster_tiles (K1, plain mode, soup-path cascades: "
+                f"{ucfg.num_cascades} x {ucfg.shadow_resolution}^2 depth-only "
+                "ortho of phase 6's courtyard; per frame: one launch a "
+                "cascade)",
+        "route": "cuda",
+        "source": "basicrenderer_tpu_torch/csrc/raster.cu",
+        "replaces": "basicrenderer_tpu/ops/raster_pallas.py:135",
+        "launches": u_launches[0] * ucfg.num_cascades
+        // (1 + ucfg.num_cascades),
+        "max_abs_err": err1, "ms": ms, "device_ms": d_ms,
+        "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None}
+    d_line = (f"(d) soup-1080p-shadows: median "
+              f"{statistics.median(u_frame_ms):.3f} ms/frame over {utimed} "
+              f"after {uwarm} warm | stage ms (CUDA events, median): "
+              + " ".join(f"{k} {v:.3f}" for k, v in u_stages.items())
+              + f" | K1 {u_launches[0]} launches in {un} frames | captured "
+              f"frame's {ucfg.num_cascades} cascade launches {ms:.4f} ms "
+              f"(device {d_ms:.4f}; depth-only bound {b_ms:.4f} {b_by}, with "
+              f"every plane written {planes_ms:.4f} bytes; plain "
+              f"{p_ms:.0f} ms; vis, depth and channels exact; pairs {pairs}, "
+              f"overflow {overflow}, rows walked {walked})")
+    say("phase 14 shadows + OpenPBR: " + " || ".join(
+        [a_line, b_line, "(c) card vs CPU, 4 frames at 256x128 orbiting "
+         f"{SHADOW_SEQ_RAD_PER_FRAME} rad/frame: " + "; ".join(c_lines),
+         d_line]) + f" | {smi}")
     return recs
 
 

@@ -97,11 +97,10 @@ def test_frame_with_local_lights_matches_jax():
 
 @pytest.mark.parametrize("field,value", [
     ("enable_texture_streaming", True), ("enable_reyes", True),
-    ("enable_shadows", True),
-    ("enable_voxel_rt", True), ("enable_coat", True), ("enable_skinning", True),
-    ("enable_sss", True), ("max_shadow_lights", 2), ("debug_view", "normals"),
-    ("wireframe", True), ("enable_rt_reflect", True),
-    ("enable_fuzz", True),
+    ("enable_voxel_rt", True), ("enable_skinning", True),
+    ("debug_view", "normals"), ("wireframe", True),
+    ("enable_rt_reflect", True), ("enable_streaming", True),
+    ("enable_voxel_fallback", True), ("cut_windows", 2),
 ])
 def test_unported_toggles_raise(field, value):
     cfg = dataclasses.replace(FrameConfig(**CFG_KW), **{field: value})

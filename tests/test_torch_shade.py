@@ -144,13 +144,43 @@ def test_sky_tonemap_srgb_match_jax(inputs):
                                rtol=RTOL, atol=ATOL)
 
 
-def test_unported_lobes_raise(inputs):
-    _, pgb = _gbuffers(inputs)
+@pytest.mark.parametrize("lobes", [
+    dict(coat=True, energy=True, fuzz=True),
+    dict(coat=True, energy=True, fuzz=True, sss=True, aniso=True,
+         transmission=True)])
+def test_openpbr_lobes_match_jax(inputs, lobes):
+    """The layered lobes, then every lobe, on the scene's G-buffer with
+    the extension lanes of the material table filled from a seed (coat
+    18-19, fuzz 22-23, subsurface 36-40, anisotropy 41-42, transmission
+    30-34): the G-buffer's extension fields equal the JAX package's and
+    the HDR radiance agrees at the deferred test's tolerance."""
     i = inputs
-    for kw, field in ((dict(coat=True), "enable_coat"),
-                      (dict(energy=True), "enable_energy_comp"),
-                      (dict(fuzz=True), "enable_fuzz"),
-                      (dict(sss=True), "enable_sss"),
-                      (dict(aniso=True), "enable_aniso")):
-        with pytest.raises(NotImplementedError, match=field):
-            pshade.shade_deferred(pgb, i["pscene"], i["pview"], 1, **kw)
+    mt = np.array(i["jscene"].material_table)
+    M = mt.shape[0]
+    rng = np.random.default_rng(11)
+    for lane, lo, hi in ((18, 0.2, 1.0), (19, 0.02, 0.8), (22, 0.2, 1.0),
+                         (23, 0.02, 1.0), (30, 0.0, 0.5), (36, 0.2, 1.0),
+                         (40, 0.0, 1.2), (41, 0.0, 1.0), (42, -3.0, 3.0)):
+        mt[:, lane] = rng.uniform(lo, hi, M)
+    mt[:, 37:40] = rng.uniform(0.2, 1.0, (M, 3))
+    jscene = dataclasses.replace(i["jscene"], material_table=mt)
+    pscene = dataclasses.replace(i["pscene"],
+                                 material_table=torch.as_tensor(mt))
+    jgb = jax.jit(lambda ch, d, v, vd, m: jshade.gbuffer_from_channels(
+        ch, d, v, vd, m, W, H))(i["ch"], i["depth"], i["vis"], i["jview"], mt)
+    pgb = pshade.gbuffer_from_channels(
+        torch.tensor(i["ch"]), torch.tensor(i["depth"]),
+        torch.tensor(i["vis"]), i["pview"], pscene.material_table, W, H)
+    for f in ("coat_weight", "coat_rough", "fuzz_weight", "fuzz_rough",
+              "sss_weight", "sss_color", "sss_radius", "aniso_strength",
+              "aniso_rotation"):
+        np.testing.assert_array_equal(getattr(pgb, f).numpy(),
+                                      np.asarray(getattr(jgb, f)), err_msg=f)
+    n_lights = int(i["pscene"].num_lights)
+    jhdr = jax.jit(lambda gb, s, v: jshade.shade_deferred(
+        gb, s, v, **lobes))(jgb, jscene, i["jview"])
+    phdr = pshade.shade_deferred(pgb, pscene, i["pview"], n_lights, **lobes)
+    np.testing.assert_allclose(phdr.numpy(), np.asarray(jhdr),
+                               rtol=HDR_RTOL, atol=ATOL)
+    plain = pshade.shade_deferred(pgb, pscene, i["pview"], n_lights)
+    assert np.abs(phdr.numpy() - plain.numpy()).max() > 1e-3
