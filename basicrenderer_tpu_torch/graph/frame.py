@@ -68,6 +68,14 @@ history, K5's warp and the rest of the post stack run there), bloom
 the OpenPBR transmission split with enable_transmission) composites onto
 the lit frame after the IBL composite and before TAA. graph/temporal.py
 drives the TAA inputs (and the VSM state) from frame to frame.
+With enable_reyes, the cluster setups (the main view's, the shadow maps',
+the VSM pages' and OIT's) dice large displaced triangles into micro rows
+(ops/reyes.py); the soup path never dices, as in the JAX package. A
+debug_view ("normals", "depth", "albedo", "material", "clusters", "ao",
+"uv") replaces the image after the post stack, and `wireframe` overlays
+the vis buffer's triangle edges before the tonemap (not under TAAU).
+`FrameProgramCache` keeps one frame function per FrameConfig
+(renderer.py's).
 
 Every other structural toggle raises NotImplementedError naming its field.
 """
@@ -99,10 +107,9 @@ from .framedata import FrameConfig, FrameParams, SceneBuffers, ViewData
 _UNPORTED_TOGGLES = (
     ("enable_texture_streaming", False),
     ("enable_skinning", False),
-    ("enable_reyes", False), ("enable_voxel_rt", False),
+    ("enable_voxel_rt", False),
     ("enable_voxel_fallback", False), ("enable_rt_reflect", False),
-    ("enable_streaming", False), ("debug_view", "none"),
-    ("wireframe", False), ("cut_windows", 0),
+    ("enable_streaming", False), ("cut_windows", 0),
 )
 _TEX_LANE = {"base": 0, "normal": 1, "mr": 2, "emissive": 3}
 
@@ -496,7 +503,8 @@ def _render_body(scene: SceneBuffers, view: ViewData, params: FrameParams,
                                  shadow_casters, terms, stage)
     sky = shade_ops.procedural_sky(view, H, W, params.sky_intensity)
     hdr = torch.where(gb.valid[..., None], hdr, sky)
-    hdr = _post_composite(hdr, depth, gb, scene, view, params, config, stage)
+    hdr, ao = _post_composite(hdr, depth, gb, scene, view, params, config,
+                              stage)
     oit_overflow = torch.zeros((), dtype=torch.int32, device=dev)
     if config.enable_oit and config.enable_clod:
         hdr, oit_overflow = oit_ops.composite_oit(
@@ -553,6 +561,27 @@ def _render_body(scene: SceneBuffers, view: ViewData, params: FrameParams,
     if config.enable_auto_exposure:
         stage("exposure")
         exposure = exposure * post.auto_exposure(hdr)
+    if config.debug_view != "none":
+        # A debug view replaces the image (reference: the Menu's debug-view
+        # selector and its resolve pass); its outputs leave out the
+        # OIT counter, as the JAX frame's do.
+        hdr = _debug_view(config.debug_view, gb, vis, ao, hdr)
+        image = (torch.clamp(hdr, 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
+        stage("end")
+        return {
+            "image": image, "hdr": hdr, "depth": depth,
+            "depth_padded": depth_p, "vis": vis,
+            "bin_overflow": pairs.overflow, "num_pairs": pairs.num_pairs,
+            "cluster_overflow": cluster_overflow,
+            "light_overflow": light_overflow, "taa_out": hdr,
+            **vsm_out,
+        }
+    if config.wireframe and hdr.shape[:2] == vis.shape:
+        # Triangle-edge overlay from the visibility buffer: a covered pixel
+        # whose id differs from its left or upper neighbour's sits on an
+        # edge (skipped under TAAU, where the frame is output-size).
+        hdr = torch.where(_vis_edges(vis)[..., None], torch.tensor(
+            [0.05, 1.0, 0.25], dtype=torch.float32, device=dev), hdr)
     ldr = shade_ops.aces_tonemap(hdr * exposure)
     srgb = shade_ops.linear_to_srgb(ldr)
     image = (srgb * 255.0 + 0.5).to(torch.uint8)
@@ -571,6 +600,47 @@ def _render_body(scene: SceneBuffers, view: ViewData, params: FrameParams,
         "taa_out": taa_out,
         **vsm_out,
     }
+
+
+def _debug_view(mode: str, gb: shade_ops.GBuffer, vis: torch.Tensor,
+                ao: Optional[torch.Tensor], hdr: torch.Tensor) -> torch.Tensor:
+    """(H, W, 3) debug visualisation `mode` of the G-buffer, the vis
+    buffer or the AO, black where nothing is covered. Any other mode (and
+    "ao" without GTAO) shows the frame's HDR there, as in the JAX
+    package."""
+    if mode == "normals":
+        out = gb.normal * 0.5 + 0.5
+    elif mode == "depth":
+        d = torch.clamp(gb.depth / torch.clamp(gb.depth.max(), min=1e-6),
+                        0.0, 1.0)
+        out = torch.stack([d, d, d], -1)
+    elif mode == "albedo":
+        out = gb.albedo
+    elif mode == "material":
+        mid = gb.material_id.to(torch.float32)
+        out = torch.stack([torch.sin(mid * 3.1) * 0.5 + 0.5,
+                           torch.sin(mid * 7.7) * 0.5 + 0.5,
+                           torch.sin(mid * 13.3) * 0.5 + 0.5], -1)
+    elif mode == "clusters":
+        cid = vis.to(torch.float32) / 128.0
+        out = torch.stack([torch.sin(cid * 12.9898) * 0.5 + 0.5,
+                           torch.sin(cid * 78.233) * 0.5 + 0.5,
+                           torch.sin(cid * 37.719) * 0.5 + 0.5], -1)
+    elif mode == "ao" and ao is not None:
+        out = torch.stack([ao, ao, ao], -1)
+    elif mode == "uv":
+        out = torch.cat([gb.uv, torch.zeros_like(gb.uv[..., :1])], -1)
+    else:
+        out = hdr
+    return torch.where(gb.valid[..., None], out, 0.0)
+
+
+def _vis_edges(vis: torch.Tensor) -> torch.Tensor:
+    """(H, W) bool: covered pixels whose vis id differs from the left or
+    the upper neighbour's (0 past the border)."""
+    left = torch.nn.functional.pad(vis, (1, 0))[:, :-1]
+    up = torch.nn.functional.pad(vis, (0, 0, 1, 0))[:-1, :]
+    return ((vis != left) | (vis != up)) & (vis > 0)
 
 
 def _sample_ds_planes(scene: SceneBuffers, view: ViewData,
@@ -775,7 +845,8 @@ def _post_composite(hdr: torch.Tensor, depth: torch.Tensor,
     lit frame (sky included). SSR marches the direct-lit frame; with IBL
     its hits replace the prefiltered environment in the env-specular slot
     and AO scales the ambient term; without IBL the reflection is added
-    with the Fresnel-at-normal tint and AO darkens the lit frame."""
+    with the Fresnel-at-normal tint and AO darkens the lit frame. Returns
+    (hdr, ao), ao None without GTAO."""
     valid3 = gb.valid[..., None]
     H = depth.shape[0]
     ssr_col = ssr_wgt = None
@@ -841,7 +912,7 @@ def _post_composite(hdr: torch.Tensor, depth: torch.Tensor,
         f0 = 0.04 * (1 - metal3) + gb.albedo * metal3
         refl = ssr_col * ssr_wgt[..., None]
         hdr = hdr + torch.where(valid3, refl * f0, 0.0)
-    return hdr
+    return hdr, ao
 
 
 def _mask_alpha_keep(scene: SceneBuffers, view: ViewData, config: FrameConfig,
@@ -934,3 +1005,21 @@ def build_frame_fn(config: FrameConfig) -> Callable[..., Dict[str, torch.Tensor]
                             moving_rel, moving_ids, vsm_state)
 
     return frame
+
+
+class FrameProgramCache:
+    """Frame functions keyed by FrameConfig (the counterpart of the JAX
+    package's jit-specialization cache). A frame function compiles
+    nothing: the kernels are built once per process (utils/cuda_build),
+    so the cache only saves rebuilding the closure and its config
+    checks."""
+
+    def __init__(self):
+        self._cache: Dict[FrameConfig, Callable] = {}
+
+    def get(self, config: FrameConfig) -> Callable:
+        fn = self._cache.get(config)
+        if fn is None:
+            fn = build_frame_fn(config)
+            self._cache[config] = fn
+        return fn

@@ -2,8 +2,8 @@
 
 Counterpart of the TAA and VSM parts of basicrenderer_tpu/renderer.py
 (`Renderer.render`, renderer.py:459-525, and the VSM invalidation of
-`Renderer.update`, renderer.py:383-427); the rest of the Renderer is not
-ported yet. Per frame, `TemporalState.inputs` gives:
+`Renderer.update`, renderer.py:383-427); the port's renderer.py
+delegates them here. Per frame, `TemporalState.inputs` gives:
 
 - the ViewData with the Halton sub-pixel jitter in the projection (with
   enable_taa; in render pixels, also under TAAU);
@@ -63,15 +63,19 @@ class TemporalState:
         self._vsm_prev_mats: Optional[np.ndarray] = None
         self._vsm_prev_bounds: Optional[np.ndarray] = None
 
-    def inputs(self, scene, bridge
+    def inputs(self, scene, bridge, camera=None, objects=None, lights=None
                ) -> Tuple[ViewData, FrameParams, Dict[str, object]]:
         """(view, params, frame kwargs) for this state's current frame of
         `scene`'s camera. Records this frame's un-jittered view-projection
-        and object matrices for the next frame's motion."""
+        and object matrices for the next frame's motion. `camera` (view,
+        proj, position), `objects` (bridge.snapshot_objects()) and `lights`
+        (the light table) stand in for reading the scene and the bridge,
+        for a caller that captured them earlier (the Renderer's scene
+        overlap)."""
         cfg = self.config
         fi = self.frame_index
-        view_np, proj_np, cam_pos = scene.camera_matrices(
-            aspect=cfg.width / cfg.height)
+        view_np, proj_np, cam_pos = camera if camera is not None else \
+            scene.camera_matrices(aspect=cfg.width / cfg.height)
         vp_unjit = (proj_np @ view_np).astype(np.float32)
         if cfg.enable_taa:
             jx, jy = taa_jitter(fi)
@@ -82,8 +86,8 @@ class TemporalState:
         params = dataclasses.replace(self.params, frame_index=torch.tensor(
             fi, dtype=torch.int32, device=self.device))
         kwargs: Dict[str, object] = {}
-        objects = (bridge.snapshot_objects()
-                   if cfg.enable_taa or cfg.enable_vsm else None)
+        if objects is None and (cfg.enable_taa or cfg.enable_vsm):
+            objects = bridge.snapshot_objects()
         if cfg.enable_occlusion or cfg.enable_taa:
             shape = (cfg.padded_height, cfg.padded_width)
             if self.prev_depth is None or tuple(self.prev_depth.shape) != shape:
@@ -109,7 +113,9 @@ class TemporalState:
             self.prev_viewproj = vp_unjit
             self.prev_object_mats = cur_mats.copy()
         if cfg.enable_vsm:
-            self._vsm_invalidate(bridge, objects[0], objects[2])
+            if lights is None:
+                lights = bridge.snapshot_lights()[0]
+            self._vsm_invalidate(lights, objects[0], objects[2])
             geom = (vsm_ops.geometry(cfg), cfg.vsm_num_lights)
             if self.vsm_state is None or self._vsm_geom != geom:
                 self.vsm_state = vsm_ops.init_states(cfg, device=self.device)
@@ -117,13 +123,13 @@ class TemporalState:
             kwargs["vsm_state"] = self.vsm_state
         return view, params, kwargs
 
-    def _vsm_invalidate(self, bridge, mats: np.ndarray,
+    def _vsm_invalidate(self, lights: np.ndarray, mats: np.ndarray,
                         bounds: np.ndarray) -> None:
         """Drop the VSM cache when a light changed (the light basis moves
         every page) or more than MAX_MOVING objects moved; else clear the
         pages under each moved object's old and new bounding spheres
-        (`mats`, `bounds`: this frame's object matrices and spheres)."""
-        lights = bridge.snapshot_lights()[0]
+        (`lights`, `mats`, `bounds`: this frame's light table, object
+        matrices and spheres)."""
         lh = hash(lights.tobytes())
         if lh != self._vsm_light_hash:
             self.vsm_state = None

@@ -611,11 +611,10 @@ def triangle_setup_clustered(scene, comp, viewproj: torch.Tensor,
     quantized page as one row; pages are corner-major (row j = corner * 128
     + tri), so each corner's values are a contiguous lane block. Returns
     (lanes (Kt', SETUP_LANES), bbox (Kt', 4) i32, valid (Kt',) bool,
-    clip_overflow () i32) like triangle_setup_packed."""
+    overflow () i32) like triangle_setup_packed. With enable_reyes the
+    micro rows of ops/reyes.py follow the main rows (before the near-clip
+    rows), and the overflow adds the Reyes budgets' to the near clip's."""
     from ..models.clusters import MESHLET_TRIS, SLAB_VERTS
-    if config.enable_reyes:
-        raise NotImplementedError(
-            "Reyes dicing is not ported yet (FrameConfig.enable_reyes)")
     O = scene.object_mats.shape[0]
     mat_table = torch.cat([scene.object_mats.reshape(O, 16),
                            scene.object_normal_mats.reshape(O, 9)], dim=-1)
@@ -640,6 +639,19 @@ def triangle_setup_clustered(scene, comp, viewproj: torch.Tensor,
 
     gs = [_transform_corner_cols(*corner_cols(c), m_cols, viewproj)
           for c in range(3)]
+    tri_ok = comp.valid
+    extra = None
+    ovf = torch.zeros((), dtype=torch.int32, device=comp.valid.device)
+    if config.enable_reyes and config.reyes_tris > 0:
+        # Reyes micro-tessellation (ops/reyes.py): diced parents leave the
+        # main stream; the micro rows go after the main pack.
+        from . import reyes as reyes_ops
+        elanes, ebbox, evalid, keep, r_ovf = reyes_ops.dice_reyes(
+            gs, comp.valid, comp, scene, viewproj, config,
+            id_base=comp.valid.shape[0])
+        tri_ok = comp.valid & keep
+        extra = (elanes, ebbox, evalid)
+        ovf = ovf + r_ovf
     tangent_col = None
     if config.enable_vertex_tangents:
         # The corner-0 object tangents, fetched in the vertex pages' slot
@@ -652,16 +664,20 @@ def triangle_setup_clustered(scene, comp, viewproj: torch.Tensor,
         wtx, wty, wtz = rotate_cols_3x3(m_cols, _MODEL3, *ot[:3])
         tangent_col = encode_theta_cols(wtx, wty, wtz, ot[3], gs[0][:, 4],
                                         gs[0][:, 5], gs[0][:, 6])
-    setup = _setup_from_corners(gs[0], gs[1], gs[2], comp.valid, config,
+    setup = _setup_from_corners(gs[0], gs[1], gs[2], tri_ok, config,
                                 has_normals=True, has_uvs=True,
                                 tangent_col=tangent_col)
     lanes = pack_setup_lanes(setup, comp.material, comp.object)
     bbox, valid = setup.bbox, setup.valid
-    ovf = torch.zeros((), dtype=torch.int32, device=lanes.device)
+    if extra is not None:
+        lanes = torch.cat([lanes, extra[0]], dim=0)
+        bbox = torch.cat([bbox, extra[1]], dim=0)
+        valid = torch.cat([valid, extra[2]], dim=0)
     if config.near_clip_tris > 0:
-        lanes, bbox, valid, ovf = _append_clipped(
-            lanes, bbox, valid, gs, comp.valid, config, comp.material,
+        lanes, bbox, valid, clip_ovf = _append_clipped(
+            lanes, bbox, valid, gs, tri_ok, config, comp.material,
             comp.object, True, True)
+        ovf = ovf + clip_ovf
     return lanes, bbox, valid, ovf
 
 

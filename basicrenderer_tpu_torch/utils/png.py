@@ -1,7 +1,8 @@
-"""Minimal PNG reader (stdlib zlib + numpy) for the golden images.
+"""Minimal PNG reader and writer (stdlib zlib + numpy).
 
 Reads the non-interlaced 8-bit grayscale, RGB and RGBA files the golden
-corpus holds, so golden checks need no imaging package.
+corpus holds, so golden checks need no imaging package; writes RGB8 files
+(the UI server's frames, the showcase's images).
 """
 
 from __future__ import annotations
@@ -75,3 +76,27 @@ def read_png(path) -> np.ndarray:
         out[y] = cur
         prev = cur
     return out.reshape(h, w, bpp)
+
+
+def encode_png(img) -> bytes:
+    """Minimal RGB8 PNG encoder (a grayscale image is repeated to RGB)."""
+    img = np.ascontiguousarray(img, dtype=np.uint8)
+    if img.ndim == 2:
+        img = np.repeat(img[:, :, None], 3, axis=2)
+    h, w = img.shape[:2]
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        body = tag + data
+        return struct.pack(">I", len(data)) + body + \
+            struct.pack(">I", zlib.crc32(body) & 0xFFFFFFFF)
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    raw = b"".join(b"\x00" + img[y].tobytes() for y in range(h))
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+def write_png(path, img) -> None:
+    """Write an (H, W, 3) or (H, W) uint8 image as an RGB8 PNG."""
+    with open(path, "wb") as f:
+        f.write(encode_png(img))

@@ -145,7 +145,22 @@ Run from the root of a checkout. Phases, one line each:
     enable_shadows: K1 on the soup's cascades at full size, one captured
     frame's cascade launches held to the plain version and timed alone.
     The (a) and (d) frames' K3 launches, with the shadowed lights taken
-    out of the tiled loop, are held to the plain version too.
+    out of the tiled loop, are held to the plain version too;
+15. the Renderer entry point and Reyes: (a) README.md's quick start
+    through Renderer() at the settings' defaults (1280x720, the soup
+    frame, 4 cascades, clustered lights, IBL, bloom), 4 frames with the
+    cube moving, on the card and with device="cpu" (vis equal, RMSE < 0.1
+    every frame; K1 and K3 launch counts); (b) phase 13's city through the
+    Renderer at its defaults at 1920x1080: ms/frame, its telemetry stages
+    and one frame's profile_fn table, the same FrameConfig driven
+    directly (the Renderer's host cost), then with enableSceneOverlap,
+    then 8 render_async frames equal to render_to_numpy's; (c) bench.py's
+    full_reyes on the city (the cobble ground displaced): diced parents,
+    live micro rows and the Reyes overflow, the frame's K2 launches held
+    to the plain version and timed alone against their bound; (d)
+    tests/test_reyes.py's displaced plane at 1920x1080 (the share of
+    pixels the dicing changes) and 4 orbiting frames at 256x256 on the
+    card against the CPU (vis equal, RMSE < 0.1).
 Each kernel timed alone is timed twice: by CUDA events around
 back-to-back launches (cuda_ms, the kernels line's `ms`) and by the device
 time of its launches in a torch.profiler trace (device_ms, the kernels
@@ -261,43 +276,16 @@ def cuda_ms(torch, fn, reps):
 def device_parts(torch, fn, reps):
     """{kernel name: mean device ms a call} of `fn()` over `reps` calls
     after a warm call, from a torch.profiler trace of the calls' CUDA
-    kernels (and copies), as profile_frames reads them: each kernel's mean
-    event duration times its launches a call. Late in a long process the
-    trace loses a few device events (8 or 9 of a kernel's 10; for a
-    kernel of a few microseconds, every other one); a kernel's launches a
-    call are its event count over `reps`, rounded, and at least 1 (every
-    call is the same, so a kernel in the trace runs in every call), and a
-    trace that lost half a call's worth of some kernel is taken again."""
-    import re
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    counts = None
-    for _ in range(5):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        events = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                events.setdefault(e.name, []).append(
-                    e.time_range.elapsed_us() / 1e3)
-        counts = {k: len(v) for k, v in events.items()}
-        per_call = {k: max(1, round(c / reps)) for k, c in counts.items()}
-        if events and all(n >= 1 and abs(counts[k] - n * reps) <= reps // 2
-                          for k, n in per_call.items()):
-            parts = {}
-            for name, durations in events.items():
-                m = re.search(r"::(\w+(?:<[^>(]*>)?)\(", name)
-                key = m.group(1) if m else name[:60]
-                parts[key] = parts.get(key, 0.0) + (
-                    statistics.mean(durations) * per_call[name])
-            return parts
-    raise CheckFailed(f"torch.profiler lost device events in 5 traces "
-                      f"of {reps} calls: {counts}")
+    kernels (and copies): utils/profiling.kernel_times, which scales each
+    kernel's mean event duration by its launches a call and takes the
+    trace again when it lost events (late in a long process the profiler
+    loses a few device events; for a kernel of a few microseconds, every
+    other one)."""
+    from basicrenderer_tpu_torch.utils.profiling import kernel_times
+    try:
+        return kernel_times(fn, iters=reps)
+    except RuntimeError as e:
+        raise CheckFailed(str(e)) from e
 
 
 def device_ms(torch, fn, reps):
@@ -1265,6 +1253,7 @@ def main():
                                                          FrameParams, make_view)
     from basicrenderer_tpu_torch.ops import (lighting, raster, raster_setup,
                                              resolve, taa_warp, textures, vsm)
+    from basicrenderer_tpu_torch.renderer import kernel_sources
     from basicrenderer_tpu_torch.utils import cuda_build
     from basicrenderer_tpu_torch.utils.png import read_png
     dev = torch.device("cuda", 0)
@@ -1304,9 +1293,7 @@ def main():
 
     # -- 2. kernel build ---------------------------------------------------
     t0 = time.perf_counter()
-    libs = cuda_build.build_all([raster.SOURCE, lighting.SOURCE,
-                                 textures.SOURCE, taa_warp.SOURCE,
-                                 resolve.SOURCE])
+    libs = cuda_build.build_all(kernel_sources())
     reports = [f"{src.name}: {ptxas_summary(lib.build_log)}"
                for src, lib in libs.items()]
     PTXAS.extend(reports)
@@ -1694,7 +1681,10 @@ def main():
     records.update(city_recs)
     records.update(slice11_shadows(np, torch, dev, kernels, smi, city_built,
                                    soup))
-    del city_built, soup
+    del soup
+    records.update(slice12_renderer(np, torch, dev, kernels, smi,
+                                    city_built))
+    del city_built
 
     print(json.dumps({"kernels": [records[k] for k in
                                   ("K1", "K2", "K2-VSM", "K3", "K4", "K4-BC3",
@@ -1704,7 +1694,7 @@ def main():
                                    "K2-tangent", "K2-peel-tangent",
                                    "K6-tangent", "K4-city", "K5-taau",
                                    "K2-CSM", "K2-spot", "K2-cube",
-                                   "K1-CSM")]}),
+                                   "K1-CSM", "K2-reyes")]}),
           flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4158,6 +4148,395 @@ def slice11_shadows(np, torch, dev, kernels, smi, city_built, soup):
         [a_line, b_line, "(c) card vs CPU, 4 frames at 256x128 orbiting "
          f"{SHADOW_SEQ_RAD_PER_FRAME} rad/frame: " + "; ".join(c_lines),
          d_line]) + f" | {smi}")
+    return recs
+
+
+# Phase 15: the Renderer entry point and Reyes micro-tessellation.
+# (a) README.md's quick start through Renderer() at the settings' defaults
+# (1280x720, the soup frame, CSM, clustered lights, IBL, bloom), the cube
+# moving, card against CPU.
+QUICK_FRAMES = 4
+QUICK_STEP = 0.15            # the cube's x step a frame
+# (b) the city through the Renderer at its defaults (enableClod forced by
+# the LOD meshes), 1920x1080: sync, then enableSceneOverlap, then
+# render_async; the same FrameConfig driven directly as phase 14a does.
+RENDERER_RES = (1920, 1080)
+RENDERER_FRAMES = (3, 8)
+ASYNC_FRAMES = 8
+# (c) full_reyes (bench.py:378-393): full + Reyes over the cobble ground
+# displaced 0.12 by its base-colour texture.
+FULL_REYES = dict(enable_reyes=True, reyes_tris=2048, reyes_dice=4,
+                  reyes_px=96.0)
+REYES_FRAMES = (3, 8)
+# (d) tests/test_reyes.py::_rig's displaced plane (its CFG and Reyes
+# flags) at 1920x1080, then 4 orbiting frames at 256x256 card vs CPU.
+REYES_RIG = dict(tile_h=16, tile_w=128, max_pairs=1 << 14, enable_clod=True,
+                 max_visible_clusters=256, enable_reyes=True, reyes_tris=256,
+                 reyes_dice=4, reyes_px=16.0)
+REYES_RIG_RES = (1920, 1080)
+REYES_RIG_RAD_PER_FRAME = 0.05
+
+
+def quick_start_renderer(np, device):
+    """README.md's quick start on `device`: Renderer(), a red cube, a
+    directional light, the procedural environment. Returns (renderer,
+    scene, cube entity)."""
+    from basicrenderer_tpu_torch.models import procedural
+    from basicrenderer_tpu_torch.models.materials import Material
+    from basicrenderer_tpu_torch.renderer import Renderer
+    from basicrenderer_tpu_torch.scene.scene import Scene
+    r = Renderer(device=device)
+    cube = r.meshes.add(procedural.make_cube(1.0))
+    red = r.materials.add(Material(base_color=[0.8, 0.1, 0.1, 1.0]))
+    sc = Scene()
+    ent = sc.create_renderable(cube, red, position=(0, 0.5, 0))
+    sc.create_directional_light(direction=(-0.4, -1, -0.3), intensity=3.0)
+    sc.set_camera(position=(3, 2, 4), target=(0, 0.5, 0))
+    r.set_current_scene(sc)
+    r.set_environment("procedural")
+    return r, sc, ent
+
+
+def reyes_rig(np, displacement):
+    """tests/test_reyes.py::_rig from the port's modules: (scene, bridge)."""
+    from basicrenderer_tpu_torch.models import procedural
+    from basicrenderer_tpu_torch.models.materials import (Material,
+                                                          MaterialRegistry)
+    from basicrenderer_tpu_torch.models.mesh import MeshRegistry
+    from basicrenderer_tpu_torch.models.textures import TextureRegistry
+    from basicrenderer_tpu_torch.scene.bridge import (BridgeCapacities,
+                                                      SceneRenderBridge)
+    from basicrenderer_tpu_torch.scene.scene import Scene
+    meshes, mats = MeshRegistry(), MaterialRegistry()
+    tex = TextureRegistry(resolution=64)
+    r = tex.resolution
+    _yy, xx = np.mgrid[0:r, 0:r]
+    h = (xx > r // 2).astype(np.float32)
+    height = tex.add(np.dstack([h, h * 0, h * 0]), srgb=False)
+    plane = meshes.add(procedural.make_plane(4.0, 2))
+    m = mats.add(Material(
+        base_color=np.array([0.8, 0.8, 0.8, 1], np.float32), roughness=0.6,
+        displacement_scale=displacement, displacement_texture=height))
+    sc = Scene()
+    sc.create_renderable(plane, m)
+    sc.create_directional_light(direction=(-0.4, -1, -0.3), intensity=3.0)
+    sc.set_camera(position=(0, 2.2, 3.2), target=(0, 0, 0), aspect=1.0)
+    sc.propagate_transforms()
+    caps = BridgeCapacities(max_vertices=1 << 12, max_triangles=1 << 12,
+                            max_objects=4, max_materials=4, max_lights=4,
+                            max_clusters=1 << 8, max_geom_clusters=1 << 8)
+    return sc, SceneRenderBridge(sc, meshes, mats, caps, textures=tex)
+
+
+def renderer_frames(torch, r, warm, timed, sync=True):
+    """Run warm + timed frames of Renderer `r` (update, render and, with
+    `sync`, a synchronise). Returns (last output, ms list: update to
+    synchronise, update ms list)."""
+    frame_ms, update_ms, out = [], [], None
+    for i in range(warm + timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r.update()
+        t1 = time.perf_counter()
+        out = r.render()
+        if sync:
+            torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if i >= warm:
+            frame_ms.append((t2 - t0) * 1e3)
+            update_ms.append((t1 - t0) * 1e3)
+    return out, frame_ms, update_ms
+
+
+def telemetry_line(r, n):
+    avg = r.telemetry.averages(n)
+    return " ".join(f"{k} {v:.3f}" for k, v in sorted(avg.items()))
+
+
+def slice12_renderer(np, torch, dev, kernels, smi, city_built):
+    """Phase 15: (a) the README quick start through Renderer(), card
+    against CPU; (b) the city through the Renderer at its defaults, sync,
+    overlapped and render_async, against the same FrameConfig driven
+    directly; (c) full_reyes on the city, its K2 launches held to the plain
+    version and timed alone; (d) the Reyes rig at 1920x1080 and 4 frames
+    card against CPU at 256x256. Returns the kernels-line record of K2 on
+    the Reyes micro rows."""
+    import dataclasses
+    import gc
+    from basicrenderer_tpu_torch.graph.frame import build_frame_fn
+    from basicrenderer_tpu_torch.graph.framedata import (FrameConfig,
+                                                         FrameParams, make_view)
+    from basicrenderer_tpu_torch.graph.temporal import TemporalState
+    from basicrenderer_tpu_torch.ops import raster, reyes
+    from basicrenderer_tpu_torch.renderer import Renderer
+    from basicrenderer_tpu_torch.scene.bridge import (BridgeCapacities,
+                                                      SceneRenderBridge)
+    from basicrenderer_tpu_torch.scene.components import Position
+    from basicrenderer_tpu_torch.utils.profiling import profile_fn
+    t_phase = time.perf_counter()
+
+    # -- (a) the README quick start, card against CPU ----------------------
+    card, sc, ent = quick_start_renderer(np, dev)
+    cpu, sc_c, ent_c = quick_start_renderer(np, "cpu")
+    cfg_a = card.current_config()
+    check((cfg_a.width, cfg_a.height) == (1280, 720) and cfg_a.enable_shadows
+          and cfg_a.enable_clustered and cfg_a.enable_ibl
+          and cfg_a.enable_bloom and not cfg_a.enable_clod,
+          f"quick start config {cfg_a}")
+    check(cfg_a == cpu.current_config(), "quick start: card and CPU "
+          "renderers built different configs")
+    reset_launches(kernels)
+    a_lines, a_ms, cpu_s = [], [], 0.0
+    for i in range(QUICK_FRAMES):
+        pos = np.array([QUICK_STEP * i, 0.5, 0.0], np.float32)
+        for s, e in ((sc, ent), (sc_c, ent_c)):
+            s.world.set(e, Position(pos))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card.update()
+        o_card = card.render()
+        torch.cuda.synchronize()
+        a_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        cpu.update()
+        o_cpu = cpu.render()
+        cpu_s += time.perf_counter() - t0
+        agree = float((o_card["vis"].cpu() == o_cpu["vis"]).float().mean())
+        err = rmse(o_card["image"].cpu().numpy(), o_cpu["image"].numpy())
+        check(agree == 1.0 and err < 0.1, f"quick start frame {i} card vs "
+              f"CPU: vis agreement {agree}, RMSE {err}")
+        a_lines.append(f"{agree:.5f}/{err:.4f}")
+    k1_a, k3_a = kernels[0].launches, kernels[2].launches
+    per_frame = 1 + cfg_a.num_cascades
+    check(k1_a == per_frame * QUICK_FRAMES and k3_a == QUICK_FRAMES,
+          f"quick start: K1 launched {k1_a} and K3 {k3_a} times in "
+          f"{QUICK_FRAMES} frames ({per_frame} and 1 a frame expected)")
+    a_line = (f"(a) README quick start through Renderer() (1280x720: soup, "
+              f"{cfg_a.num_cascades} cascades at {cfg_a.shadow_resolution}"
+              f"^2, clustered lights, IBL, bloom), the cube moving "
+              f"{QUICK_STEP} a frame: card vs CPU vis agreement / RMSE per "
+              f"frame {', '.join(a_lines)} (limits 1.0, 0.1); card ms/frame "
+              f"{', '.join(f'{x:.2f}' for x in a_ms)}; launches K1 {k1_a} "
+              f"K3 {k3_a} in {QUICK_FRAMES} frames; CPU {cpu_s:.1f} s; "
+              f"telemetry (ms, mean) {telemetry_line(card, QUICK_FRAMES)}")
+    say(f"phase 15 Renderer + Reyes: {a_line}")
+    del card, cpu, o_card, o_cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (b) the city through the Renderer ---------------------------------
+    built, bridge = city_built
+    r = Renderer(caps=BridgeCapacities(**CITY_CAPS), device=dev)
+    r.meshes, r.materials, r.textures = (built.meshes, built.materials,
+                                         bridge.textures)
+    r.settings.set("renderResolution", RENDERER_RES)
+    r.set_current_scene(built.scene)
+    cfg = r.current_config()
+    check(cfg.enable_clod and cfg.enable_textures, "city Renderer: "
+          f"enable_clod {cfg.enable_clod}, enable_textures "
+          f"{cfg.enable_textures}")
+    warm, timed = RENDERER_FRAMES
+    n = warm + timed
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    out, sync_ms, upd_ms = renderer_frames(torch, r, warm, timed)
+    launches = [k.launches for k in kernels]
+    check(launches[0] == 0 and launches[1] > 0 and launches[2] == n,
+          f"city Renderer: K1 {launches[0]}, K2 {launches[1]}, K3 "
+          f"{launches[2]} launches in {n} frames")
+    check(bool(torch.isfinite(out["hdr"]).all())
+          and 0.1 < float((out["vis"] > 0).float().mean()) < 1.0,
+          "city Renderer: non-finite HDR or bad coverage")
+    sync_tel = telemetry_line(r, timed)
+    img_sync = out["image"].cpu().numpy()
+    view, params, kw = r._temporal.inputs(built.scene, r._bridge)
+    prof = profile_fn(r._programs.get(cfg), r._buffers, view, params,
+                      iters=2, **kw)
+    # The same FrameConfig driven directly (phase 14a's way).
+    fr = build_frame_fn(cfg)
+    _o, direct_ms, direct_in, _st = timed_frames(
+        torch, np, fr, r._buffers, built.scene, r._bridge,
+        TemporalState(cfg, device=dev), warm, timed)
+    del _o
+    r.settings.set("enableSceneOverlap", True)
+    out, over_ms, over_upd = renderer_frames(torch, r, warm, timed)
+    over_tel = telemetry_line(r, timed)
+    r.settings.set("enableSceneOverlap", False)
+    r.update()
+    img_ref = r.render_to_numpy()
+    check(np.array_equal(img_ref, img_sync), "city Renderer: the static "
+          "frame changed between the sync and overlapped runs")
+    futs = []
+    for _ in range(ASYNC_FRAMES):
+        r.update()
+        futs.append(r.render_async())
+    async_imgs = [f.result(timeout=300)["image"] for f in futs]
+    check(all(np.array_equal(a, img_ref) for a in async_imgs),
+          "city Renderer: render_async images differ from render_to_numpy")
+    r._readback.close()
+    med = statistics.median
+    host_cost = med(sync_ms) - med(direct_ms)
+    b_line = (f"(b) city through Renderer (its defaults: enableClod forced, "
+              f"textures, {cfg.num_cascades} cascades, clustered, IBL, "
+              f"bloom; shadow spot slots {cfg.max_shadow_lights}, cubes "
+              f"{cfg.max_shadow_cubes}) 1920x1080: median "
+              f"{med(sync_ms):.3f} ms/frame (update {med(upd_ms):.3f}) over "
+              f"{timed} after {warm} warm; the same FrameConfig driven "
+              f"directly {med(direct_ms):.3f} (temporal inputs "
+              f"{med(direct_in):.3f}): Renderer host cost {host_cost:.3f} "
+              f"ms/frame | telemetry {sync_tel} | enableSceneOverlap "
+              f"{med(over_ms):.3f} ms/frame (update {med(over_upd):.3f}), "
+              f"telemetry {over_tel} | render_async {ASYNC_FRAMES} frames "
+              f"equal to render_to_numpy | launches K2 {launches[1]} K3 "
+              f"{launches[2]} K4 {launches[3]} in {n} frames | profile_fn "
+              f"(one frame, ms): " + ", ".join(
+                  f"{name} {ms:.3f}" for name, ms in prof[:30]))
+    say(f"phase 15 {b_line}")
+    del out, r, fr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (c) full_reyes on the city ----------------------------------------
+    cobble = [m for m in built.materials.materials if m.name == "cobble"]
+    check(len(cobble) == 1 and cobble[0].base_color_texture >= 0,
+          "city: no textured cobble material")
+    saved = (cobble[0].displacement_scale, cobble[0].displacement_texture)
+    cobble[0].displacement_scale = 0.12
+    cobble[0].displacement_texture = cobble[0].base_color_texture
+    rbridge = SceneRenderBridge(built.scene, built.meshes, built.materials,
+                                BridgeCapacities(**CITY_CAPS),
+                                textures=bridge.textures)
+    buf = rbridge.build_scene_buffers(device=dev)
+    rcfg = dataclasses.replace(FrameConfig(**CONFIG1_MINIMAL, **FULL),
+                               **FULL_REYES)
+    fr = build_frame_fn(rcfg)
+    temporal = TemporalState(rcfg, device=dev)
+    warm, timed = REYES_FRAMES
+    n = warm + timed
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_launches(kernels)
+    out, frame_ms, _in_ms, stages = timed_frames(
+        torch, np, fr, buf, built.scene, rbridge, temporal, warm, timed)
+    k2_launches = kernels[1].launches
+    check(bool(torch.isfinite(out["hdr"]).all()), "full_reyes: non-finite")
+    cluster_ovf = int(out["cluster_overflow"])
+    del out
+    with Capture(reyes, ["dice_reyes"]) as dc, \
+            Capture(raster, ["raster_groups_cuda"]) as rc:
+        o = timed_frames(torch, np, fr, buf, built.scene, rbridge, temporal,
+                         1, 0, first=n)[0]
+        vis_now = o["vis"]
+        del o
+    dc_calls = dc.calls
+    Kt = rcfg.max_visible_clusters * 128
+    main_call = dc_calls[0]
+    diced = int((~main_call[3][3]).sum())
+    micro_live = int(main_call[3][2].sum())
+    r_ovf = int(main_call[3][4])
+    all_diced = sum(int((~c[3][3]).sum()) for c in dc_calls)
+    all_micro = sum(int(c[3][2].sum()) for c in dc_calls)
+    check(len(rc.calls) >= 3, f"full_reyes: captured frame launched K2 "
+          f"{len(rc.calls)} times")
+    err, plain_ms, b_sum, b_big, by, walked = 0.0, 0.0, 0.0, 0.0, "bytes", 0
+    for k, (_n, a, kw, kout) in enumerate(rc.calls):
+        pout, p_ms = host_ms(torch, lambda: raster.raster_groups_plain(
+            *a, **kw))
+        err = max(err, compare_raster(torch, kout, pout,
+                                      f"full_reyes K2 launch {k}"))
+        init = a[3] if len(a) > 3 else kw.get("init")
+        b_ms, b_by, w = k2_bound(raster, a[0], a[1], a[2] if len(a) > 2
+                                 else 0, init)
+        plain_ms, b_sum, walked = plain_ms + p_ms, b_sum + b_ms, walked + w
+        if b_ms > b_big:
+            b_big, by = b_ms, b_by
+
+    def k2_run():
+        for _n, a, kw, _o in rc.calls:
+            raster.raster_groups_cuda(*a, **kw)
+    k2_ms, k2_dev = cuda_ms(torch, k2_run, 5), device_ms(torch, k2_run, 5)
+    n_k2 = len(rc.calls)
+    recs = {"K2-reyes": {
+        "name": "raster_groups (K2 on full_reyes's frame: the city's cut "
+                "with the cobble ground's Reyes micro rows appended, at "
+                "1920x1080)",
+        "route": "cuda", "source": "basicrenderer_tpu_torch/csrc/raster.cu",
+        "replaces": "basicrenderer_tpu/ops/raster_pallas.py:252",
+        "launches": k2_launches, "max_abs_err": err, "ms": k2_ms,
+        "device_ms": k2_dev, "plain_ms": plain_ms, "bound_ms": b_sum,
+        "bound_by": by, "library_ms": None}}
+    cobble[0].displacement_scale, cobble[0].displacement_texture = saved
+    micro_px = int(((vis_now > Kt) & (vis_now <= Kt + rcfg.reyes_tris
+                                      * rcfg.reyes_dice ** 2)).sum())
+    del buf, rbridge, temporal, dc, rc
+    gc.collect()
+    torch.cuda.empty_cache()
+    c_line = (f"(c) full_reyes (full + reyes_tris 2048, dice 4, 96 px; "
+              f"cobble displaced 0.12) 1920x1080: median "
+              f"{statistics.median(frame_ms):.3f} ms/frame over {timed} after "
+              f"{warm} warm | stage ms (CUDA events, median): " + " ".join(
+                  f"{k} {v:.3f}" for k, v in stages.items())
+              + f" | main view: diced parents {diced}, live micro rows "
+              f"{micro_live} of {rcfg.reyes_tris * rcfg.reyes_dice ** 2}, "
+              f"Reyes overflow {r_ovf}, pixels showing a main-view micro "
+              f"row {micro_px}; all {len(dc_calls)} dicing setups of the "
+              f"frame: diced {all_diced}, live micro rows {all_micro} | "
+              f"cluster_overflow {cluster_ovf} | K2 {k2_launches} launches "
+              f"in {n} frames; the captured frame's {n_k2} K2 launches "
+              f"{k2_ms:.4f} ms (device {k2_dev:.4f}; bound {b_sum:.4f}, the "
+              f"largest by {by}; plain {plain_ms:.0f} ms; vis, depth and "
+              f"channels exact; rows walked {walked})")
+    say(f"phase 15 {c_line}")
+
+    # -- (d) the Reyes rig: where dicing shows ------------------------------
+    dcfg = FrameConfig(width=REYES_RIG_RES[0], height=REYES_RIG_RES[1],
+                       **REYES_RIG)
+    imgs, n_diced = [], 0
+    for disp in (0.5, 0.0):
+        rsc, rbr = reyes_rig(np, disp)
+        with Capture(reyes, ["dice_reyes"]) as rd:
+            o = build_frame_fn(dcfg)(
+                rbr.build_scene_buffers(device=dev),
+                make_view(*rsc.camera_matrices(
+                    aspect=REYES_RIG_RES[0] / REYES_RIG_RES[1]), device=dev),
+                FrameParams.default(dev))
+        n_diced = max(n_diced, int((~rd.calls[0][3][3]).sum()))
+        check(bool(torch.isfinite(o["hdr"]).all()), "Reyes rig: non-finite")
+        imgs.append(o["image"].cpu().numpy())
+    changed = float((imgs[0] != imgs[1]).any(-1).mean())
+    check(changed > 0.01 and n_diced > 0, f"Reyes rig 1080p: {changed} of "
+          f"the pixels changed, {n_diced} parents diced")
+    scfg = FrameConfig(width=256, height=256, **REYES_RIG)
+    sfr = build_frame_fn(scfg)
+    rsc, rbr = reyes_rig(np, 0.5)
+    bufs = [rbr.build_scene_buffers(device=d) for d in (dev, "cpu")]
+    pos0 = rsc.camera_matrices(aspect=1.0)[2].copy()
+    target = np.zeros(3)
+    d_lines, cpu_s = [], 0.0
+    for i in range(4):
+        orbit_camera(np, rsc, pos0, target, REYES_RIG_RAD_PER_FRAME * i, 1.0)
+        outs = []
+        for k, d in enumerate((dev, "cpu")):
+            t0 = time.perf_counter()
+            outs.append(sfr(bufs[k], make_view(*rsc.camera_matrices(
+                aspect=1.0), device=d), FrameParams.default(d)))
+            if k == 1:
+                cpu_s += time.perf_counter() - t0
+        agree = float((outs[0]["vis"].cpu() == outs[1]["vis"]).float().mean())
+        err = rmse(outs[0]["image"].cpu().numpy(), outs[1]["image"].numpy())
+        check(agree == 1.0 and err < 0.1, f"Reyes rig frame {i} card vs CPU:"
+              f" vis agreement {agree}, RMSE {err}")
+        d_lines.append(f"{agree:.5f}/{err:.4f}")
+    d_line = (f"(d) Reyes rig (tests/test_reyes.py's displaced plane) at "
+              f"1920x1080: {n_diced} parents diced, {changed:.4f} of the "
+              f"pixels differ from the undisplaced frame | 256x256, 4 frames "
+              f"orbiting {REYES_RIG_RAD_PER_FRAME} rad/frame, card vs CPU vis"
+              f" agreement / RMSE {', '.join(d_lines)} (limits 1.0, 0.1), CPU"
+              f" {cpu_s:.1f} s")
+    say(f"phase 15 {d_line} | phase 15 {time.perf_counter() - t_phase:.1f} "
+        f"s | {smi}")
     return recs
 
 

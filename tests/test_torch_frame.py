@@ -96,9 +96,8 @@ def test_frame_with_local_lights_matches_jax():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("enable_texture_streaming", True), ("enable_reyes", True),
+    ("enable_texture_streaming", True),
     ("enable_voxel_rt", True), ("enable_skinning", True),
-    ("debug_view", "normals"), ("wireframe", True),
     ("enable_rt_reflect", True), ("enable_streaming", True),
     ("enable_voxel_fallback", True), ("cut_windows", 2),
 ])

@@ -41,7 +41,11 @@ def test_port_never_imports_jax():
                 "models.clusters", "models.pageblob", "models.scenes",
                 "models.textures", "scene.bridge", "interop",
                 "utils.cuda_build", "models.importers", "models.city",
-                "models.animation", "utils.taskpool"):
+                "models.animation", "utils.taskpool", "ops.reyes",
+                "renderer", "utils.settings", "utils.telemetry",
+                "utils.readback", "utils.profiling", "utils.camera",
+                "utils.input", "utils.ui_server", "utils.png",
+                "tools.clod_cache", "tools.showcase"):
         assert f"basicrenderer_tpu_torch.{mod}" in out["modules"], mod
     assert out["jax"] == []
     assert out["tf32"] == [False, False]
