@@ -74,10 +74,21 @@ the VSM pages' and OIT's) dice large displaced triangles into micro rows
 debug_view ("normals", "depth", "albedo", "material", "clusters", "ao",
 "uv") replaces the image after the post stack, and `wireframe` overlays
 the vis buffer's triangle edges before the tonemap (not under TAAU).
+With enable_skinning a linear-blend prepass (ops/skinning.py) deforms the
+vertex positions and normals first, and the cluster setups read the
+global vertex table instead of the static pages. With cut_windows > 0 the
+cluster cut runs the budgeted window pre-cull (ops/clod.cut_slots_windowed).
+With enable_streaming the frame returns "touched_groups" (the load
+priorities of the groups the ideal cut wants, ops/clod.touched_groups)
+and with enable_texture_streaming "tex_wanted" (each texture's finest
+wanted mip, ops/textures.wanted_mips); models/streaming.py and
+models/texstream.py consume them. enable_voxel_fallback fills uncovered
+pixels from the voxel pyramid under the sky, enable_voxel_rt cone-traces
+it for reflections, and enable_rt_reflect (with enable_clod) traces the
+resident cut's triangles (ops/voxel_rt.py, ops/rt_reflect.py); the three
+reflection tiers composite into the IBL's specular slot under SSR.
 `FrameProgramCache` keeps one frame function per FrameConfig
-(renderer.py's).
-
-Every other structural toggle raises NotImplementedError naming its field.
+(renderer.py's). Every FrameConfig of the JAX package builds here.
 """
 
 from __future__ import annotations
@@ -91,37 +102,26 @@ from ..ops import clod as clod_ops
 from ..ops import culling, ibl, lighting, motion, post, raster_setup
 from ..ops import oit as oit_ops
 from ..ops import brdf_energy
+from ..ops import rt_reflect as rt_ops
 from ..ops import shade as shade_ops
 from ..ops import shadows as shadow_ops
+from ..ops import skinning as skin_ops
 from ..ops import ssr as ssr_ops
 from ..ops import textures as tex_ops
+from ..ops import voxel_rt as vox_ops
 from ..ops import vsm as vsm_ops
 from ..ops.raster import raster_tiles
 from ..ops.shadows import downsample2d
 from ..utils import math3d
 from .framedata import FrameConfig, FrameParams, SceneBuffers, ViewData
 
-# FrameConfig fields that switch on passes this port does not have yet,
-# with the value that leaves the pass off. The voxel and ray-traced
-# branches of the IBL composite stay behind their fields here.
-_UNPORTED_TOGGLES = (
-    ("enable_texture_streaming", False),
-    ("enable_skinning", False),
-    ("enable_voxel_rt", False),
-    ("enable_voxel_fallback", False), ("enable_rt_reflect", False),
-    ("enable_streaming", False), ("cut_windows", 0),
-)
 _TEX_LANE = {"base": 0, "normal": 1, "mr": 2, "emissive": 3}
 
 
 def check_config(config: FrameConfig) -> None:
-    """Raise NotImplementedError for any structural choice outside the
-    ported frames, and ValueError for upscaling without TAA."""
-    for name, off in _UNPORTED_TOGGLES:
-        if getattr(config, name) != off:
-            raise NotImplementedError(
-                f"FrameConfig.{name}={getattr(config, name)!r} is not ported "
-                f"to basicrenderer_tpu_torch yet (supported: {off!r})")
+    """Raise ValueError for upscaling without TAA, NotImplementedError for
+    an output size below the render size (the JAX frame only upscales
+    either)."""
     if _upscaling(config):
         if not config.enable_taa:
             raise ValueError("upscaling (FrameConfig.output_width / "
@@ -184,7 +184,14 @@ def clod_cut(scene: SceneBuffers, view: ViewData, config: FrameConfig,
 def clod_compact(scene: SceneBuffers, view: ViewData, config: FrameConfig,
                  params: FrameParams, frustum: bool = True,
                  max_visible: int = None) -> clod_ops.CompactedTris:
-    """LOD cut + visible-triangle compaction into max_visible slots."""
+    """LOD cut + visible-triangle compaction into max_visible slots. With
+    config.cut_windows > 0 the cut runs the budgeted window pre-cull
+    (ops/clod.cut_slots_windowed: cost tracks the cut, not the table)."""
+    if config.cut_windows > 0:
+        return clod_ops.cut_slots_windowed(
+            scene, view, config, params.clod_error_px,
+            max_visible or config.max_visible_clusters, frustum=frustum,
+            row_filter=_opaque_row_filter(config))
     cut = clod_cut(scene, view, config, params, frustum=frustum)
     return clod_ops.compact_visible_tris(
         cut=cut, scene=scene,
@@ -294,6 +301,14 @@ def _render_body(scene: SceneBuffers, view: ViewData, params: FrameParams,
     num_lights = int(scene.num_lights)
     num_dir = int(scene.num_dir_lights) if config.enable_clustered else 0
     use_vsm = config.enable_vsm and vsm_state is not None
+
+    if config.enable_skinning:
+        # Linear-blend skinning prepass: every path below (the soup setup,
+        # the cluster setups through the vertex table) reads the deformed
+        # positions and normals.
+        stage("skinning")
+        scene = skin_ops.apply_skinning(scene, scene.joint_palette,
+                                        scene.vert_joints, scene.vert_weights)
 
     if config.enable_occlusion and config.enable_clod \
             and prev_depth is not None:
@@ -440,10 +455,13 @@ def _render_body(scene: SceneBuffers, view: ViewData, params: FrameParams,
     gb = shade_ops.gbuffer_from_channels(
         channels[:, :H, :W], depth, vis, view, scene.material_table,
         config.width, config.height)
+    feedback = {}
     if config.enable_textures:
         stage("textures")
-        smp = _sample_material_textures(scene, view, config, gb, channels,
-                                         depth, vis)
+        smp, tex_wanted = _sample_material_textures(scene, view, config, gb,
+                                                    channels, depth, vis)
+        if tex_wanted is not None:
+            feedback["tex_wanted"] = tex_wanted
         stage("normal_map")
         gb = _apply_textures(gb, smp, config.tex_channels,
                              config.enable_vertex_tangents)
@@ -502,6 +520,13 @@ def _render_body(scene: SceneBuffers, view: ViewData, params: FrameParams,
         hdr = _local_shadow_pass(hdr, gb, scene, view, params, config, depth,
                                  shadow_casters, terms, stage)
     sky = shade_ops.procedural_sky(view, H, W, params.sky_intensity)
+    if config.enable_voxel_fallback:
+        # Voxel LOD fallback: pixels the cut or the streaming residency
+        # left uncovered march the voxel pyramid instead of showing sky
+        # (reference: VoxelGroupBuilder.cpp + voxelSoftwareRaster.hlsl).
+        stage("voxel_primary")
+        vox_col, vox_tr = vox_ops.voxel_primary(scene, view, config, H, W)
+        sky = vox_col + vox_tr[..., None] * sky
     hdr = torch.where(gb.valid[..., None], hdr, sky)
     hdr, ao = _post_composite(hdr, depth, gb, scene, view, params, config,
                               stage)
@@ -574,7 +599,7 @@ def _render_body(scene: SceneBuffers, view: ViewData, params: FrameParams,
             "bin_overflow": pairs.overflow, "num_pairs": pairs.num_pairs,
             "cluster_overflow": cluster_overflow,
             "light_overflow": light_overflow, "taa_out": hdr,
-            **vsm_out,
+            **vsm_out, **feedback,
         }
     if config.wireframe and hdr.shape[:2] == vis.shape:
         # Triangle-edge overlay from the visibility buffer: a covered pixel
@@ -585,10 +610,17 @@ def _render_body(scene: SceneBuffers, view: ViewData, params: FrameParams,
     ldr = shade_ops.aces_tonemap(hdr * exposure)
     srgb = shade_ops.linear_to_srgb(ldr)
     image = (srgb * 255.0 + 0.5).to(torch.uint8)
+    if config.enable_streaming:
+        # Geometry streaming feedback: the groups the ideal cut wants,
+        # with load priorities (models/streaming.py reads it back).
+        stage("touched_groups")
+        feedback["touched_groups"] = clod_ops.touched_groups(
+            scene, view, config, params.clod_error_px)
     stage("end")
     return {
         "image": image,
         "hdr": hdr,
+        **feedback,
         "depth": depth,
         "depth_padded": depth_p,   # next frame's occlusion HZB source
         "vis": vis,
@@ -646,12 +678,13 @@ def _vis_edges(vis: torch.Tensor) -> torch.Tensor:
 def _sample_ds_planes(scene: SceneBuffers, view: ViewData,
                       config: FrameConfig, depth: torch.Tensor,
                       channels: torch.Tensor, vis: torch.Tensor,
-                      lanes) -> torch.Tensor:
+                      lanes):
     """(K, H, W, 4) samples at texture_downscale ds: u, v (divided by the
     depth's inverse w) and the material's texture ids of `lanes` of the
     material table are point-sampled at ds from the raster's depth,
     channels and vis (padded or not), ids -1 where uncovered; one sampler
-    call over the ds-rate planes, bilinearly upsampled to (H, W)."""
+    call over the ds-rate planes, bilinearly upsampled to (H, W). Returns
+    (samples, tids_ds, u_ds, v_ds)."""
     H, W = config.height, config.width
     ds = config.texture_downscale
     mt = scene.material_table
@@ -670,30 +703,42 @@ def _sample_ds_planes(scene: SceneBuffers, view: ViewData,
     smp = tex_ops.sample_pyramid_blocked_planes(
         scene.tex_strips, scene.tex_flags, tids_ds, u_ds, v_ds, H, W, ds,
         config.texture_filter, upsample=False, fmt=config.tex_format)
-    return halo_upsample(smp, ds, H, W, row_axis=1)
+    return halo_upsample(smp, ds, H, W, row_axis=1), tids_ds, u_ds, v_ds
 
 
 def _sample_material_textures(scene: SceneBuffers, view: ViewData,
                               config: FrameConfig, gb: shade_ops.GBuffer,
                               channels: torch.Tensor, depth: torch.Tensor,
-                              vis: torch.Tensor) -> torch.Tensor:
+                              vis: torch.Tensor):
     """(K, H, W, 4) samples of the K texture channels of
-    config.tex_channels, all in one sampler call (one window geometry).
+    config.tex_channels, all in one sampler call (one window geometry),
+    and the texture-streaming feedback (ops/textures.wanted_mips) or None.
     With texture_downscale ds > 1 dividing the frame, the sampler takes
     ds-rate planes (u, v and the texture ids point-sampled from the raster
-    channels) and its result is bilinearly upsampled; otherwise it samples
-    every ds-th pixel of the G-buffer's uv."""
+    channels) and its result is bilinearly upsampled; with
+    enable_texture_streaming the feedback comes from those planes.
+    Otherwise the sampler reads every ds-th pixel of the G-buffer's uv
+    and there is no feedback, as in the JAX frame."""
     H, W = config.height, config.width
     ds, filt = config.texture_downscale, config.texture_filter
     chans = config.tex_channels
     if ds > 1 and H % ds == 0 and W % ds == 0:
-        return _sample_ds_planes(scene, view, config, depth, channels, vis,
-                                 [_TEX_LANE[c] for c in chans])
+        smp, tids_ds, u_ds, v_ds = _sample_ds_planes(
+            scene, view, config, depth, channels, vis,
+            [_TEX_LANE[c] for c in chans])
+        wanted = None
+        if config.enable_texture_streaming:
+            wanted = tex_ops.wanted_mips(
+                scene.tex_flags, tids_ds, u_ds, v_ds,
+                tex_ops.infer_strip_resolution(
+                    scene.tex_strips.shape[0] // scene.tex_flags.shape[0],
+                    config.tex_format))
+        return smp, wanted
     id_of = {"base": gb.base_tex, "normal": gb.normal_tex, "mr": gb.mr_tex,
              "emissive": gb.emissive_tex}
     return tex_ops.sample_pyramid_blocked(
         scene.tex_strips, scene.tex_flags, torch.stack([id_of[c] for c in chans]),
-        gb.uv, ds, filt, fmt=config.tex_format)
+        gb.uv, ds, filt, fmt=config.tex_format), None
 
 
 def _apply_textures(gb: shade_ops.GBuffer, smp: torch.Tensor, chans,
@@ -841,12 +886,16 @@ def _post_composite(hdr: torch.Tensor, depth: torch.Tensor,
                     gb: shade_ops.GBuffer, scene: SceneBuffers,
                     view: ViewData, params: FrameParams, config: FrameConfig,
                     stage: Callable[[str], None]) -> torch.Tensor:
-    """Screen-space reflections, GTAO and the IBL ambient composite on the
-    lit frame (sky included). SSR marches the direct-lit frame; with IBL
-    its hits replace the prefiltered environment in the env-specular slot
-    and AO scales the ambient term; without IBL the reflection is added
-    with the Fresnel-at-normal tint and AO darkens the lit frame. Returns
-    (hdr, ao), ao None without GTAO."""
+    """Screen-space reflections, the voxel and triangle ray-traced
+    reflections, GTAO and the IBL ambient composite on the lit frame (sky
+    included). SSR marches the direct-lit frame. With IBL the reflections
+    fill the env-specular slot in tiers: the voxel cone trace replaces the
+    prefiltered environment by 1 - its transmittance, triangle hits
+    (enable_rt_reflect, with enable_clod) override both, and SSR hits
+    override everything; AO scales the ambient term. Without IBL the
+    voxel and SSR reflections are added with the Fresnel-at-normal tint
+    (triangle hits need the IBL slot, as in the JAX frame) and AO darkens
+    the lit frame. Returns (hdr, ao), ao None without GTAO."""
     valid3 = gb.valid[..., None]
     H = depth.shape[0]
     ssr_col = ssr_wgt = None
@@ -854,6 +903,22 @@ def _post_composite(hdr: torch.Tensor, depth: torch.Tensor,
         stage("ssr")
         ssr_col, ssr_wgt = ssr_ops.ssr(hdr, depth, gb.normal, gb.roughness,
                                        gb.metallic, view, config, full_h=H)
+    vox_ref = vox_ref_tr = None
+    if config.enable_voxel_rt:
+        # Off-screen reflections: cone-trace the voxel pyramid along the
+        # reflected view ray (reference: RayTracedReflectionsPass over the
+        # cluster BLAS, CLodRayTracingSystem.h:16-75).
+        stage("voxel_reflect")
+        vox_ref, vox_ref_tr = vox_ops.voxel_reflections(
+            scene, depth, gb.normal, view, config, full_h=H)
+    rt_col = rt_hit = None
+    if config.enable_rt_reflect and config.enable_clod:
+        # Triangle-accurate reflections over the resident cut (the
+        # opaque pass's compaction, made again as the JAX frame does).
+        stage("rt_reflect")
+        comp_rt = clod_compact(scene, view, config, params)
+        rt_col, rt_hit = rt_ops.trace_reflections(
+            scene, comp_rt, depth, gb.normal, view, config, full_h=H)
     ao = None
     if config.enable_gtao:
         stage("gtao")
@@ -875,6 +940,11 @@ def _post_composite(hdr: torch.Tensor, depth: torch.Tensor,
         prefiltered = ibl.runtime_specular_ibl(
             gb.normal, v, gb.roughness, scene.env_specular,
             downscale=config.ibl_specular_downscale)
+        if vox_ref is not None:
+            prefiltered = vox_ref + prefiltered * vox_ref_tr[..., None]
+        if rt_col is not None:
+            prefiltered = prefiltered * (1.0 - rt_hit[..., None]) \
+                + rt_col * rt_hit[..., None]
         if ssr_col is not None:
             prefiltered = prefiltered * (1.0 - ssr_wgt[..., None]) \
                 + ssr_col * ssr_wgt[..., None]
@@ -908,9 +978,12 @@ def _post_composite(hdr: torch.Tensor, depth: torch.Tensor,
         hdr = hdr + torch.where(valid3, ambient, 0.0)
     elif ao is not None:
         hdr = hdr * (0.5 + 0.5 * ao[..., None])
-    if config.enable_ssr and not config.enable_ibl:
+    if (config.enable_ssr or vox_ref is not None) and not config.enable_ibl:
         f0 = 0.04 * (1 - metal3) + gb.albedo * metal3
-        refl = ssr_col * ssr_wgt[..., None]
+        refl = vox_ref if vox_ref is not None else torch.zeros_like(hdr)
+        if config.enable_ssr:
+            refl = refl * (1.0 - ssr_wgt[..., None]) \
+                + ssr_col * ssr_wgt[..., None]
         hdr = hdr + torch.where(valid3, refl * f0, 0.0)
     return hdr, ao
 
@@ -935,7 +1008,7 @@ def _mask_alpha_keep(scene: SceneBuffers, view: ViewData, config: FrameConfig,
     factor_a = mrow[:, 3].reshape(H, W)
     if ds > 1 and H % ds == 0 and W % ds == 0:
         smp_a = _sample_ds_planes(scene, view, config, dm, chm, vm,
-                                  [_TEX_LANE["base"]])[0]
+                                  [_TEX_LANE["base"]])[0][0]
     else:
         iwm_p = shade_ops.inv_w_from_depth(dm, view.proj)
         iwm = torch.where(torch.abs(iwm_p) > 1e-12, iwm_p, 1.0)
@@ -953,8 +1026,7 @@ def build_frame_fn(config: FrameConfig) -> Callable[..., Dict[str, torch.Tensor]
     """Returns the frame function `frame(scene, view, params,
     prev_depth=None, taa_history=None, *, vsm_state=None,
     prev_viewproj=None, moving_rel=None, moving_ids=None, stage_hook=None)`
-    for `config`,
-    after checking that every structural choice of `config` is ported.
+    for `config`, after check_config.
     With enable_occlusion the frame takes the previous frame's padded depth
     (its "depth_padded" output; graph/temporal.py carries it); the first
     frame passes None and takes the single-phase path. With enable_taa it takes the previous
@@ -965,11 +1037,15 @@ def build_frame_fn(config: FrameConfig) -> Callable[..., Dict[str, torch.Tensor]
     these inputs. With enable_vsm the frame takes the previous frame's
     "vsm_state" (ops/vsm.init_states on the first frame; without a state
     the frame renders no VSM) and returns the new "vsm_state" and
-    "vsm_stats". The outputs carry the JAX frame's keys for these paths.
+    "vsm_stats". With enable_streaming it returns "touched_groups" (GR,)
+    f32, with enable_texture_streaming (and texture_downscale > 1 dividing
+    the frame) "tex_wanted" (N,) i32. The outputs carry the JAX frame's
+    keys for these paths.
 
     `frame(..., stage_hook=fn)` calls fn(name) as the frame enters each
-    stage, so a caller can time the stages with CUDA events: "setup",
-    "bin", "raster" on the soup path, with occlusion "setup", "hzb",
+    stage, so a caller can time the stages with CUDA events: "skinning"
+    first (enable_skinning), then "setup", "bin", "raster" on the soup
+    path, with occlusion "setup", "hzb",
     "bin", "raster", "hzb2", "bin2", "raster2"; "cut", "setup", "bin",
     "raster" on the cluster path, with occlusion "cut", "hzb", "setup",
     "bin", "raster", "hzb2", "cut2", "setup2", "bin2", "raster2"; then "mask"
@@ -977,11 +1053,13 @@ def build_frame_fn(config: FrameConfig) -> Callable[..., Dict[str, torch.Tensor]
     "gbuffer", "textures" and "normal_map" (enable_textures), "vsm" or
     "shadows" (CSM), "light_cull" and "tiled_shade" (clustered), "shade",
     "cube_shadows" and "spot_shadows" (the shadowed point and spot
-    lights), then the post
-    stages "ssr", "gtao", "ibl" of the enabled passes, OIT's "oit_cut",
+    lights), "voxel_primary" (enable_voxel_fallback), then the post
+    stages "ssr", "voxel_reflect", "rt_reflect", "gtao", "ibl" of the
+    enabled passes, OIT's "oit_cut",
     "oit_setup", "oit_bin", "oit_peel0", ... (one per layer rastered),
     "oit_accum", "oit_shade", "oit_composite", then "upscale" (TAAU),
-    "motion", "taa", "bloom", "exposure", and "end".
+    "motion", "taa", "bloom", "exposure", "touched_groups"
+    (enable_streaming) and "end".
 
     With FrameConfig.output_width / output_height (TAAU, enable_taa
     required) the frame renders at (height, width), resizes the HDR frame

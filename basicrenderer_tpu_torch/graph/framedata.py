@@ -4,11 +4,11 @@ consumes, and the static frame configuration.
 Port of basicrenderer_tpu/graph/framedata.py. `FrameConfig` is copied field
 for field, so that the same keyword arguments describe the same frame in
 both packages. The buffer types are dataclasses of tensors with an explicit
-`.to(device)`; `SceneBuffers` holds the triangle-soup, cluster-LOD,
-texture-atlas and environment fields the ported frames read (later slices
-add the skinning and voxel fields). Words that the JAX package keeps
-as uint32 (quantized vertex pages, packed RGBA8 texels) are int32 tensors
-here holding the same bits.
+`.to(device)`; `SceneBuffers` holds the JAX package's fields but its
+(V, 10) `vertex_table`, which repeats the positions, normals, uvs and
+object ids the skinned setup reads from their own fields. Words that the
+JAX package keeps as uint32 (quantized vertex pages, packed RGBA8 texels,
+voxel and SGGX words) are int32 tensors here holding the same bits.
 """
 
 from __future__ import annotations
@@ -99,6 +99,24 @@ class SceneBuffers:
     # FrameConfig.enable_vertex_tangents; size-1 placeholder otherwise.
     cluster_tangents: torch.Tensor = dataclasses.field(
         default_factory=lambda: torch.zeros((1, 512), dtype=torch.float32))
+    # Skinning (ops/skinning.py): zero weights = unskinned vertex. The
+    # bridge always fills them; the defaults are size-1 placeholders.
+    vert_joints: torch.Tensor = dataclasses.field(       # (V, 4) i32
+        default_factory=lambda: torch.zeros((1, 4), dtype=torch.int32))
+    vert_weights: torch.Tensor = dataclasses.field(      # (V, 4) f32
+        default_factory=lambda: torch.zeros((1, 4), dtype=torch.float32))
+    joint_palette: torch.Tensor = dataclasses.field(     # (Jcap, 16) f32
+        default_factory=lambda: torch.eye(4).reshape(1, 16))
+    # Voxel scene pyramid (models/voxels.py: the voxel reflection and
+    # primary fallback tiers; size-1 placeholders until the bridge builds
+    # one).
+    voxel_grid: torch.Tensor = dataclasses.field(        # (Ncells,) u32 bits
+        default_factory=lambda: torch.zeros(1, dtype=torch.int32))
+    voxel_meta: torch.Tensor = dataclasses.field(        # origin3, cell, n,
+        default_factory=lambda: torch.zeros(8, dtype=torch.float32))
+    #                                          levels, radiance scale, pad
+    voxel_sggx: torch.Tensor = dataclasses.field(        # (2*Ncells,) SGGX
+        default_factory=lambda: torch.zeros(2, dtype=torch.int32))
 
     def to(self, device) -> "SceneBuffers":
         return _to(self, device)

@@ -27,7 +27,7 @@ from .textures import resize_bilinear
 from ..utils.math3d import sqrt_rn
 
 
-def face_directions(res: int, device="cpu") -> torch.Tensor:
+def face_directions(res: int, device="cuda") -> torch.Tensor:
     """(6, res, res, 3) unit direction of each cubemap texel centre."""
     t = (torch.arange(res, dtype=torch.float32, device=device) + 0.5) \
         / res * 2.0 - 1.0
@@ -216,7 +216,7 @@ def env_brdf_karis(n_dot_v: torch.Tensor, roughness: torch.Tensor
 
 
 def make_procedural_environment(res: int = 128, intensity: float = 1.0,
-                                sun_dir=(-0.45, -1.0, -0.3), device="cpu"
+                                sun_dir=(-0.45, -1.0, -0.3), device="cuda"
                                 ) -> torch.Tensor:
     """The procedural gradient sky (ops/shade.procedural_sky) plus a sun
     disk baked into a (6, res, res, 3) cubemap."""

@@ -596,12 +596,54 @@ def _dequantized_corner_cols(q6, dq, meshlet_tris: int):
 
 def setup_from_compacted(scene, comp, viewproj: torch.Tensor,
                          config: FrameConfig):
-    """Setup of a CompactedTris: the cluster-page path (the JAX package's
-    vertex-table path exists for skinning, which is not ported)."""
+    """Setup of a CompactedTris: from the cluster pages, or with
+    enable_skinning from the global vertex table (ops/skinning.py rewrites
+    the vertex positions and normals; the static pages would be stale)."""
     if config.enable_skinning:
-        raise NotImplementedError(
-            "skinned setup is not ported yet (FrameConfig.enable_skinning)")
+        return triangle_setup_compacted(
+            scene.positions, scene.normals, scene.uvs, scene.object_mats,
+            scene.object_normal_mats, viewproj, comp.indices, comp.valid,
+            config, comp.material, comp.object)
     return triangle_setup_clustered(scene, comp, viewproj, config)
+
+
+def triangle_setup_compacted(positions: torch.Tensor, normals: torch.Tensor,
+                             uvs: torch.Tensor, object_mats: torch.Tensor,
+                             object_normal_mats: torch.Tensor,
+                             viewproj: torch.Tensor, indices: torch.Tensor,
+                             tri_valid: torch.Tensor, config: FrameConfig,
+                             tri_material: torch.Tensor,
+                             tri_object: torch.Tensor):
+    """Setup of the compacted visible triangles from the global vertex
+    table: each corner's position, normal and uv gathered by its vertex id
+    and transformed with the owning object's matrices (`tri_object`, from
+    the cluster rows: instances share vertex data). The JAX package reads
+    a (V, 10) vertex table [pos3, nrm3, uv2, objid] that repeats these
+    fields; the port reads the fields themselves. No Reyes dicing and no
+    tangent lane, as in the JAX package's vertex-table path. Returns
+    (lanes, bbox, valid, overflow) like triangle_setup_packed."""
+    O = object_mats.shape[0]
+    mat_table = torch.cat([object_mats.reshape(O, 16),
+                           object_normal_mats.reshape(O, 9)], dim=-1)
+    mm = mat_table[tri_object.long()]
+    m_cols = [mm[:, i] for i in range(25)]
+    gs = []
+    for corner in range(3):
+        vid = indices[:, corner].long()
+        p, n, uv = positions[vid], normals[vid], uvs[vid]
+        gs.append(_transform_corner_cols(p[:, 0], p[:, 1], p[:, 2], n[:, 0],
+                                         n[:, 1], n[:, 2], uv[:, 0], uv[:, 1],
+                                         m_cols, viewproj))
+    setup = _setup_from_corners(gs[0], gs[1], gs[2], tri_valid, config,
+                                has_normals=True, has_uvs=True)
+    lanes = pack_setup_lanes(setup, tri_material, tri_object)
+    bbox, valid = setup.bbox, setup.valid
+    ovf = torch.zeros((), dtype=torch.int32, device=tri_valid.device)
+    if config.near_clip_tris > 0:
+        lanes, bbox, valid, ovf = _append_clipped(
+            lanes, bbox, valid, gs, tri_valid, config, tri_material,
+            tri_object, True, True)
+    return lanes, bbox, valid, ovf
 
 
 def triangle_setup_clustered(scene, comp, viewproj: torch.Tensor,

@@ -5,8 +5,8 @@ Port of basicrenderer_tpu/ops/textures.py (`mip_layout`, `layer_words`,
 `strip_layout`, `strip_layout_bc`, `infer_strip_resolution`,
 `compute_mip`, `_min_abs_grad`, `_blockify`, `_unblockify`,
 `sample_pyramid_blocked`, `sample_pyramid_blocked_planes`,
-`bc3_decode_rows`, `_ddx`, `_ddy`, `apply_normal_map_sampled` and the
-Pallas `_tex_block_kernel`, RGBA8 and BC3 windows).
+`bc3_decode_rows`, `_ddx`, `_ddy`, `apply_normal_map_sampled`,
+`wanted_mips` and the Pallas `_tex_block_kernel`, RGBA8 and BC3 windows).
 
 Pixels are sampled in 16x16 screen blocks. Each block makes one sampling
 JOB per (channel, layer rank) -- rank 0 = the block's dominant layer, plus
@@ -31,8 +31,8 @@ as the reference does. An optional `live` mask (JN, P) makes the result
 0 at dead pixels (the sampler passes its job masks, so that the kernel
 skips the jobs a frame masks away; it zeroes those pixels anyway).
 
-Not ported: the per-pixel `sample_pyramid` reference and `wanted_mips`
-(texture streaming).
+Not ported: the per-pixel `sample_pyramid` reference (no frame calls
+it).
 """
 
 from __future__ import annotations
@@ -504,6 +504,28 @@ def apply_normal_map_sampled(normal: torch.Tensor, world_pos: torch.Tensor,
 # ---------------------------------------------------------------------------
 # The window evaluator: K4
 # ---------------------------------------------------------------------------
+
+def wanted_mips(tex_flags: torch.Tensor, tids: torch.Tensor,
+                u_ds: torch.Tensor, v_ds: torch.Tensor,
+                resolution: int) -> torch.Tensor:
+    """Texture-streaming feedback: (N,) i32 FINEST mip each texture wants
+    this frame (not clamped by residency: the streamer compares it with
+    the resident level). tids (K, h, w) at the sampling rate, u/v (h, w);
+    M (the mip count) means "not sampled". The JAX package reduces by a
+    broadcast-compare masked min over the texture axis; this is one
+    `scatter_reduce("amin")`, which is order-free and so gives the same
+    integers."""
+    N = tex_flags.shape[0]
+    M = len(mip_layout(resolution)[0])
+    mipf = compute_mip(torch.stack([u_ds, v_ds], -1), resolution, M)
+    mip_i = torch.round(mipf).to(torch.int32)
+    flat_m = mip_i[None].expand(tids.shape).reshape(-1)
+    flat_t = tids.reshape(-1).long()
+    ok = (flat_t >= 0) & (flat_t < N)
+    out = torch.full((N + 1,), M, dtype=torch.int32, device=tids.device)
+    out.scatter_reduce_(0, torch.where(ok, flat_t, N), flat_m, "amin")
+    return out[:N]
+
 
 def _check_inputs(strips, rows, x_hat, yf, fmt="rgba8", live=None):
     if strips.dtype != torch.int32 or strips.dim() != 2 or strips.shape[1] != 128:

@@ -20,15 +20,28 @@ SetEnvironment):
   function (the reference's render-graph rebuild, Renderer.cpp:1794).
 
 Tensors live on `device` ("cuda" unless the caller names another).
-Settings of passes the port does not have yet (geometry and texture
-streaming, voxels, ray-traced reflections, skinning) raise
-NotImplementedError naming the setting.
+Every setting of the JAX package's catalog reaches the FrameConfig as
+there. The per-frame host work of the JAX Renderer is here too: the
+geometry streamer's bring-up (enableStreaming: models/streaming.py over
+the packed pages or a page-blob container) and the texture streamer's
+(enableTextureStreaming: models/texstream.py over a strip container,
+written once under the port's `_build/texstream` when none is given);
+their feedback ticks are pipelined, one in flight each: a frame's
+"touched_groups" / "tex_wanted" are copied to the host through
+utils/readback.py and the streamer runs on its worker, and a completed
+tick's tables are spliced into the scene buffers before the next frame
+(a failed tick raises there). Skinning is switched on when a packed
+instance is skinned, and its palette follows the animation clock; the
+voxel pyramid is rebuilt when the lights, the object transforms or
+voxelResolution change.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+import hashlib
+import os
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -40,39 +53,20 @@ from .graph.temporal import TemporalState
 from .models.animation import SkeletonRegistry
 from .models.materials import MaterialRegistry
 from .models.mesh import MeshRegistry
+from .models.pageblob import PageBlobContainer
+from .models.streaming import GeometryStreamer
 from .models.texprocess import ProcessedTextureCache
+from .models.texstream import (TextureStreamContainer, TextureStreamer,
+                               save_strip_container)
 from .models.textures import TextureRegistry
+from .models.voxels import static_level_offsets
 from .scene.bridge import BridgeCapacities, SceneRenderBridge
 from .scene.components import Light, LightType, Renderable
 from .scene.scene import Scene
 from .utils.cuda_build import BUILD_DIR
+from .utils.readback import ReadbackManager
 from .utils.settings import SettingsManager, make_default_settings
 from .utils.telemetry import FrameTelemetry
-
-# Settings that switch on passes the port does not have yet, with the
-# value that leaves them off (ROADMAP Queue 1: streaming, voxels, RT
-# reflections, skinning).
-_UNPORTED_SETTINGS = (
-    ("enableStreaming", False), ("enableTextureStreaming", False),
-    ("enableVoxelRT", False), ("enableVoxelFallback", False),
-    ("enableRTReflections", False), ("enableSkinning", False),
-)
-
-
-def static_level_offsets(n: int, levels: int = 5) -> Tuple[int, ...]:
-    """Flat offset of each mip level in the packed voxel grid, from (n,
-    levels) alone (a copy of basicrenderer_tpu/models/voxels.py's, for
-    FrameConfig.voxel_level_offsets)."""
-    offs = []
-    off = 0
-    nl = n
-    for _ in range(min(levels, int(np.log2(n)) + 1)):
-        offs.append(off)
-        off += nl ** 3
-        if nl == 1:
-            break
-        nl //= 2
-    return tuple(offs)
 
 
 def kernel_sources():
@@ -107,6 +101,14 @@ class Renderer:
         self._settings_generation = -1
         self._config: Optional[FrameConfig] = None
         self._readback = None
+        # Streaming feedback: the streamers, their in-flight ticks and the
+        # readback service that fetches the feedback and runs the ticks.
+        self._streamer = None
+        self._tex_streamer = None
+        self._stream_future = None
+        self._tex_future = None
+        self._feedback: Optional[ReadbackManager] = None
+        self._voxel_hash = None
         # Scene-update <-> render overlap (reference: the worker-thread
         # snapshot pipeline, Renderer.cpp:597-741, 1755-1769).
         self._update_pool = None
@@ -118,7 +120,7 @@ class Renderer:
         self._scene = scene
         self._bridge = SceneRenderBridge(
             scene, self.meshes, self.materials, self.caps,
-            textures=self.textures,
+            skeletons=self.skeletons, textures=self.textures,
             tex_format=self.settings.get("textureFormat", "rgba8"))
         if self.settings.get("textureFormat") == "bc3" and \
                 self.settings.get("enableTextureStreaming"):
@@ -160,16 +162,7 @@ class Renderer:
         return self._scene
 
     # -- config ------------------------------------------------------------
-    def _check_ported_settings(self) -> None:
-        for name, off in _UNPORTED_SETTINGS:
-            value = self.settings.get(name, off)
-            if value != off:
-                raise NotImplementedError(
-                    f"setting {name}={value!r} is not ported to "
-                    f"basicrenderer_tpu_torch yet (supported: {off!r})")
-
     def _build_config(self) -> FrameConfig:
-        self._check_ported_settings()
         s = self.settings
         w, h = s.get("renderResolution")
         mats = self.materials.materials
@@ -321,9 +314,9 @@ class Renderer:
                 max_workers=1, thread_name_prefix="scene-update")
         cfg = self.current_config()
         self._update_future = self._update_pool.submit(
-            self._scene_update_task, cfg.width / cfg.height)
+            self._scene_update_task, self._time + dt, cfg.width / cfg.height)
 
-    def _scene_update_task(self, aspect: float):
+    def _scene_update_task(self, t_anim: float, aspect: float):
         """Worker-thread scene sync for the NEXT frame: deferred-edit
         flush, transform propagation, the dynamic fields uploaded (a plain
         synchronous copy on the default stream, ordered before every later
@@ -339,6 +332,7 @@ class Renderer:
         def t(x, dtype=None):
             return torch.as_tensor(np.asarray(x, dtype), device=self.device)
         fields = dict(
+            joint_palette=t(self._bridge.snapshot_joint_palette(t_anim)),
             object_mats=t(mats), object_normal_mats=t(nmats),
             object_bounds=t(bounds), object_valid=t(ovalid),
             lights=t(lights), num_lights=t(num_lights, np.int32),
@@ -364,18 +358,75 @@ class Renderer:
                 self._buffers = self._bridge.build_scene_buffers(
                     device=self.device)
         else:
-            self._buffers = self._bridge.update_dynamic(self._buffers)
+            self._buffers = self._bridge.update_dynamic(self._buffers,
+                                                        self._time)
         self._post_snapshot_update()
 
+    def _replace_buffers(self, **fields) -> None:
+        self._buffers = dataclasses.replace(self._buffers, **fields)
+
     def _post_snapshot_update(self) -> None:
-        """Main-thread per-frame work on the committed snapshot. Geometry
-        and texture streaming and the voxel rebuild are not ported (ROADMAP
-        Queue 1 items 21 and 20): their settings raise here. Skinning's
-        auto-enable has nothing to find: the bridge refuses skinned
-        instances when it packs them (item 30). The VSM page invalidation
-        of moved objects and changed lights is graph/temporal's, done when
-        render() takes the frame's inputs."""
-        self._check_ported_settings()
+        """Main-thread per-frame work on the committed snapshot (no worker
+        in flight, so reading the scene here is race-free): the streamers'
+        bring-up, skinning's auto-enable and the voxel rebuild. The VSM
+        page invalidation of moved objects and changed lights is
+        graph/temporal's, done when render() takes the frame's inputs."""
+        s = self.settings
+        # Geometry streaming: page pool + feedback loop.
+        if s.get("enableStreaming", False) and \
+                self._bridge.packed is not None and self._streamer is None:
+            container = None
+            cpath = s.get("streamingContainer", "")
+            if cpath:
+                container = PageBlobContainer(cpath)
+            self._streamer = GeometryStreamer(
+                self._bridge.packed, self.caps.max_groups,
+                s.get("streamingSlots"), container=container,
+                device=self.device)
+            sv, sdq, gs, gr = self._streamer.update(
+                np.zeros(self.caps.max_groups, bool))
+            self._replace_buffers(cluster_verts=sv, cluster_dequant=sdq,
+                                  geom_slot=gs, group_resident=gr)
+        # Texture streaming: disk container + feedback streamer. Without a
+        # container path the registry's atlas is written once under the
+        # port's build directory (keyed by its hash): the memmapped file
+        # is the streaming source either way.
+        if s.get("enableTextureStreaming", False) and len(self.textures) \
+                and self._tex_streamer is None:
+            cpath = s.get("textureStreamContainer", "")
+            if not cpath:
+                strips_np, flags_np = self.textures.strip_pyramid()
+                h = hashlib.sha1(np.asarray(strips_np).tobytes())
+                cdir = BUILD_DIR / "texstream"
+                cdir.mkdir(parents=True, exist_ok=True)
+                cpath = str(cdir / (h.hexdigest()[:16] + ".brts"))
+                if not os.path.exists(cpath):
+                    save_strip_container(cpath, np.asarray(strips_np),
+                                         np.asarray(flags_np),
+                                         self.textures.resolution)
+            self._tex_streamer = TextureStreamer(
+                TextureStreamContainer(cpath),
+                fine_row_budget=s.get("textureFineRowBudget"),
+                device=self.device)
+            self._replace_buffers(tex_strips=self._tex_streamer.strips,
+                                  tex_flags=self._tex_streamer.flags_device())
+        # Skinning switches on when any packed instance is skinned.
+        if self._bridge.packed and self._bridge.packed.skin_instances:
+            s.set("enableSkinning", True)
+        # Voxel ray tier: (re)build the radiance pyramid when it is on and
+        # the lights or object transforms it baked are stale (the
+        # reference's BLAS/TLAS refresh, Renderer.cpp:2001-2007).
+        if s.get("enableVoxelRT", False) or \
+                s.get("enableVoxelFallback", False):
+            mats, _n, _b, _v = self._bridge.snapshot_objects()
+            lights, _, _ = self._bridge.snapshot_lights()
+            vh = hash((lights.tobytes(), mats.tobytes(),
+                       s.get("voxelResolution", 64)))
+            if vh != self._voxel_hash:
+                self._bridge.build_voxel_scene(n=s.get("voxelResolution", 64))
+                self._voxel_hash = vh
+                self._replace_buffers(
+                    **self._bridge._voxel_fields(self.device))
 
     def render(self) -> Dict[str, Any]:
         """Run the frame function (reference Renderer::Render,
@@ -398,12 +449,72 @@ class Renderer:
             self.scene, self._bridge, camera=camera, objects=objects,
             lights=lights)
         frame_fn = self._programs.get(config)
+        self._splice_ticks(config)
         with self.telemetry.stage("dispatch"):
             out = frame_fn(self._buffers, view, params, **kwargs)
+        self._submit_ticks(config, out)
         self.telemetry.record_frame_outputs(out)
         self.telemetry.end_frame()
         temporal.carry(out)
         return out
+
+    # -- streaming feedback ticks -------------------------------------------
+    def _splice_ticks(self, config: FrameConfig) -> None:
+        """Splice the tables of each COMPLETED feedback tick into the scene
+        buffers (a tick that loaded nothing returns None; a failed tick
+        raises here, as fut.result() does in the JAX package)."""
+        if config.enable_texture_streaming and self._tex_future is not None \
+                and self._tex_future.done():
+            fut, self._tex_future = self._tex_future, None
+            res = fut.result()
+            if res is not None:
+                self._replace_buffers(tex_strips=res[0], tex_flags=res[1])
+        if config.enable_streaming and self._stream_future is not None \
+                and self._stream_future.done():
+            fut, self._stream_future = self._stream_future, None
+            res = fut.result()
+            if res is not None:
+                sv, sdq, gs, gr = res
+                self._replace_buffers(cluster_verts=sv, cluster_dequant=sdq,
+                                      geom_slot=gs, group_resident=gr)
+
+    def _submit_ticks(self, config: FrameConfig, out) -> None:
+        """Start a feedback tick per streamer with none in flight: the
+        frame's feedback is copied to the host without blocking this
+        thread, and the streamer's update runs on the readback worker
+        (ticks land every ~copy-latency frames, the reference's
+        frames-in-flight feedback cadence, CLodStreamingSystem.cpp:
+        1091-1195)."""
+        if self._feedback is None:
+            self._feedback = ReadbackManager(max_in_flight=2)
+        if config.enable_streaming and self._streamer is not None \
+                and self._stream_future is None \
+                and out.get("touched_groups") is not None:
+            self._stream_future = self._feedback.request(
+                out["touched_groups"], post=self._stream_tick)
+        if config.enable_texture_streaming and self._tex_streamer is not None \
+                and self._tex_future is None \
+                and out.get("tex_wanted") is not None:
+            self._tex_future = self._feedback.request(
+                out["tex_wanted"], post=self._tex_tick)
+
+    def _stream_tick(self, touched: np.ndarray):
+        """Worker-side geometry tick: the page pool's update; new device
+        tables only when residency changed."""
+        st = self._streamer
+        loads0, ev0 = st.loads, st.evictions
+        res = st.update(touched)
+        if st.loads == loads0 and st.evictions == ev0:
+            return None
+        return res
+
+    def _tex_tick(self, wanted: np.ndarray):
+        st = self._tex_streamer
+        loads0 = st.loads
+        res = st.update(wanted)
+        if st.loads == loads0:
+            return None
+        return res
 
     def render_to_numpy(self) -> np.ndarray:
         """Render + sync: returns the (H, W, 3) uint8 image."""

@@ -12,13 +12,18 @@ Port of basicrenderer_tpu/scene/bridge.py:
   + lights as small numpy arrays.
 - `build_scene_buffers(env_sh, env_specular, env_brdf_lut, device)` /
   `update_dynamic`: the tensor upload, with the texture strip atlas
-  (models/textures.py; RGBA8 or, with `tex_format="bc3"`, BC3 block rows)
-  and the environment (models/environment.py).
+  (models/textures.py; RGBA8 or, with `tex_format="bc3"`, BC3 block rows),
+  the environment (models/environment.py), the skinning palette and,
+  once `build_voxel_scene` ran, the voxel pyramid (models/voxels.py).
+- `save_page_container`: the packed pages as a page-blob container
+  (models/pageblob.py) the geometry streamer can read from disk.
 
-Skinned meshes are refused (the skinning slice is not ported). As in
-the JAX package, the soup fields (positions ... tri_object) carry each
-mesh once, tagged with the object of its first instance; the cluster
-fields carry every instance.
+As in the JAX package, the soup fields (positions ... tri_object) carry
+each mesh once, tagged with the object of its first instance; the cluster
+fields carry every instance. A skinned instance (a Renderable with a
+skeleton, on a mesh with joints) is packed on its own (it deforms
+uniquely), with its vertices' palette slots offset to its skeleton's
+block of the joint palette.
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ from ..graph.framedata import (LIGHT_STRIDE, MAX_SHADOW_CUBE_SLOTS,
 from ..models.clusters import CLUSTER_STRIDE, MESHLET_TRIS, SLAB_VERTS
 from ..models.materials import MaterialRegistry
 from ..models.mesh import MeshRegistry, compute_tangents
-from ..models.pageblob import DEQUANT_LANES, quantize_page
+from ..models.pageblob import DEQUANT_LANES, quantize_page, write_container
 from ..ops.textures import strip_layout
 from .components import Light, LightType, Renderable, WorldMatrix
 from .scene import Scene
@@ -78,6 +83,12 @@ class PackedGeometry:
     #                               tangent + w, plane-major
     cluster_feeds: np.ndarray    # (C,) i32 streaming group of c
     cluster_made: np.ndarray     # (C,) i32 group c was built from
+    geom_group: np.ndarray       # (G,) i32 owning group per page (-1
+    #                              pinned, -2 unused capacity)
+    num_groups: int
+    vert_joints: np.ndarray      # (V, 4) i32 global palette slots
+    vert_weights: np.ndarray     # (V, 4) f32
+    skin_instances: list         # [(skeleton_id, palette_offset, J)]
 
 
 def pack_cluster_windows(cluster_table: np.ndarray,
@@ -156,18 +167,41 @@ def _page(mesh, lo: int, cnt: int):
     return quantize_page(rows10, SLAB_VERTS)
 
 
+def _tensor(x, device, dtype=None) -> torch.Tensor:
+    """Host array -> tensor on `device` (u32 as int32 bits)."""
+    a = np.asarray(x, dtype)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.as_tensor(a, device=device)
+
+
 class SceneRenderBridge:
     def __init__(self, scene: Scene, meshes: MeshRegistry,
                  materials: MaterialRegistry,
-                 caps: Optional[BridgeCapacities] = None, textures=None,
-                 tex_format: str = "rgba8"):
+                 caps: Optional[BridgeCapacities] = None, skeletons=None,
+                 textures=None, tex_format: str = "rgba8"):
         self.scene = scene
         self.meshes = meshes
         self.materials = materials
         self.caps = caps or BridgeCapacities()
+        self.skeletons = skeletons  # models.animation.SkeletonRegistry
         self.textures = textures    # models.textures.TextureRegistry
         self.tex_format = tex_format  # atlas-at-rest format (FrameConfig)
         self.packed: Optional[PackedGeometry] = None
+        self._voxel = None          # models.voxels.VoxelSceneGrid
+
+    def snapshot_joint_palette(self, t: float = 0.0) -> np.ndarray:
+        """(max_joints, 16) object-space skinning palette of every skinned
+        instance at time t (the SkeletonManager upload); identity rows
+        elsewhere."""
+        c = self.caps
+        pal = np.tile(np.eye(4, dtype=np.float32).reshape(1, 16),
+                      (c.max_joints, 1))
+        if self.packed and self.packed.skin_instances and self.skeletons:
+            for sk_id, off, nj in self.packed.skin_instances:
+                p = self.skeletons.palette(sk_id, t)
+                pal[off:off + nj] = p.reshape(nj, 16)
+        return pal
 
     # -- cold path ---------------------------------------------------------
     def pack_geometry(self) -> PackedGeometry:
@@ -192,20 +226,27 @@ class SceneRenderBridge:
                                     np.float32)
         cluster_feeds = np.full((c.max_clusters,), -1, np.int32)
         cluster_made = np.full((c.max_clusters,), -1, np.int32)
+        # -2 = unused capacity, -1 = live pinned page, >= 0 = group
+        geom_group = np.full((c.max_geom_clusters,), -2, np.int32)
+        vjoints = np.zeros((c.max_vertices, 4), np.int32)
+        vweights = np.zeros((c.max_vertices, 4), np.float32)
+        skin_instances = []
+        joint_off = 0
         local_bounds = np.zeros((c.max_objects, 4), np.float32)
         ent2obj: Dict[int, int] = {}
         v_off = t_off = g_off = cl_off = grp_off = obj = 0
-        mesh_pack: Dict[int, tuple] = {}   # mesh_id -> (template, feeds, made)
+        # pack key (the mesh id, or ("skin", entity)) -> (template, feeds,
+        # made)
+        mesh_pack: Dict[object, tuple] = {}
         for eid, (r,) in self.scene.world.query(Renderable):
             mesh = self.meshes.get(r.mesh_id)
             nv, nt = mesh.num_vertices, mesh.num_triangles
             if obj >= c.max_objects:
                 raise ValueError("object capacity exceeded")
-            if r.skeleton_id >= 0 and mesh.joints is not None:
-                raise NotImplementedError(
-                    "skinned meshes are not ported yet "
-                    "(FrameConfig.enable_skinning)")
-            if r.mesh_id not in mesh_pack:
+            skinned = r.skeleton_id >= 0 and mesh.joints is not None
+            # Skinned instances deform uniquely: they never share vertices.
+            pack_key = ("skin", eid) if skinned else r.mesh_id
+            if pack_key not in mesh_pack:
                 if mesh.tangents is None or len(mesh.tangents) != nv:
                     mesh.tangents = compute_tangents(
                         mesh.positions, mesh.normals, mesh.uvs, mesh.indices)
@@ -249,14 +290,26 @@ class SceneRenderBridge:
                     n_grp = 0
                 if grp_off + n_grp > c.max_groups:
                     raise ValueError("streaming group capacity exceeded")
+                # Page g belongs to the group its cluster FEEDS (the unit
+                # the streamer loads and evicts together).
+                geom_group[g_off:g_off + ncl_g] = feeds_t
                 grp_off += n_grp
                 g_off += ncl_g
                 template[:, 7] += t_off  # mesh-local -> global tri offsets
                 tcl[t_off:t_off + nt] = mesh.tri_cluster + cl_off  # first inst
-                mesh_pack[r.mesh_id] = (template, feeds_t, made_t)
+                if skinned:
+                    nj = (len(self.skeletons.skeletons[r.skeleton_id].parents)
+                          if self.skeletons else int(mesh.joints.max()) + 1)
+                    if joint_off + nj > c.max_joints:
+                        raise ValueError("joint palette capacity exceeded")
+                    vjoints[v_off:v_off + nv] = mesh.joints + joint_off
+                    vweights[v_off:v_off + nv] = mesh.weights
+                    skin_instances.append((r.skeleton_id, joint_off, nj))
+                    joint_off += nj
+                mesh_pack[pack_key] = (template, feeds_t, made_t)
                 v_off += nv
                 t_off += nt
-            template, feeds_t, made_t = mesh_pack[r.mesh_id]
+            template, feeds_t, made_t = mesh_pack[pack_key]
             ncl = len(template)
             if cl_off + ncl > c.max_clusters:
                 raise ValueError("cluster capacity exceeded")
@@ -285,8 +338,17 @@ class SceneRenderBridge:
             pos, nrm, tan, uv, vobj, idx, tmat, tobj, v_off, t_off, ent2obj,
             local_bounds, tcl, cluster_table, cluster_object, cl_off,
             cluster_verts, cluster_dequant, cluster_tangents, cluster_feeds,
-            cluster_made)
+            cluster_made, geom_group, grp_off, vjoints, vweights,
+            skin_instances)
         return self.packed
+
+    def save_page_container(self, path: str) -> None:
+        """Write the packed scene's quantized pages as a page-blob container
+        the geometry streamer can cold-start from (reference: CLodCache.h
+        page blobs + locators)."""
+        p = self.packed if self.packed is not None else self.pack_geometry()
+        write_container(path, p.cluster_verts, p.geom_group,
+                        p.cluster_dequant, p.num_groups)
 
     # -- hot path ----------------------------------------------------------
     def snapshot_objects(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
@@ -385,10 +447,7 @@ class SceneRenderBridge:
             tex_flags = np.zeros((1,), np.int32)
 
         def t(x, dtype=None):
-            a = np.asarray(x, dtype)
-            if a.dtype == np.uint32:    # the same bits as i32
-                a = a.view(np.int32)
-            return torch.as_tensor(a, device=device)
+            return _tensor(x, device, dtype)
 
         return SceneBuffers(
             positions=t(p.positions), normals=t(p.normals),
@@ -417,22 +476,57 @@ class SceneRenderBridge:
             env_sh=t(env_sh, np.float32),
             env_specular=t(env_specular, np.float32),
             env_brdf_lut=t(env_brdf_lut, np.float32),
+            vert_joints=t(p.vert_joints), vert_weights=t(p.vert_weights),
+            joint_palette=t(self.snapshot_joint_palette()),
+            **self._voxel_fields(device),
         )
 
-    def update_dynamic(self, buffers: SceneBuffers) -> SceneBuffers:
-        """Per-frame refresh of matrices/lights (geometry untouched), on the
-        device `buffers` live on."""
+    def _voxel_fields(self, device) -> dict:
+        """The voxel pyramid's SceneBuffers fields on `device` ({} until
+        build_voxel_scene ran: the placeholders stay)."""
+        v = self._voxel
+        if v is None:
+            return {}
+        sggx = v.sggx if v.sggx is not None else np.zeros(2, np.uint32)
+        return {"voxel_grid": _tensor(v.grid, device),
+                "voxel_meta": _tensor(v.meta(), device),
+                "voxel_sggx": _tensor(sggx, device)}
+
+    def build_voxel_scene(self, n: int = 64, **kw):
+        """Voxelize the packed world geometry and bake the current lights
+        into the ray-fallback pyramid (models/voxels.py). Rebuild when
+        lights or object transforms change (the reference's BLAS/TLAS
+        refresh, Renderer.cpp:2001-2007). Returns the VoxelSceneGrid;
+        build_scene_buffers embeds it (or splice `_voxel_fields`)."""
+        from ..models.voxels import build_voxel_scene as _build
+        if self.packed is None:
+            self.pack_geometry()
+        p = self.packed
+        mats, _, _, _ = self.snapshot_objects()
+        lights, _, num_dir = self.snapshot_lights()
+        mat_table = self.materials.packed_table(self.caps.max_materials)
+        self._voxel = _build(
+            p.positions[:p.num_verts], p.indices[:p.num_tris],
+            p.tri_material[:p.num_tris], p.tri_object[:p.num_tris],
+            mats, mat_table, lights, num_dir, n=n, **kw)
+        return self._voxel
+
+    def update_dynamic(self, buffers: SceneBuffers,
+                       t: float = 0.0) -> SceneBuffers:
+        """Per-frame refresh of matrices, lights and the joint palette at
+        animation time `t` (geometry untouched), on the device `buffers`
+        live on."""
         mats, nmats, bounds, ovalid = self.snapshot_objects()
         lights, num_lights, num_dir = self.snapshot_lights()
         device = buffers.positions.device
 
-        def t(x, dtype=None):
-            return torch.as_tensor(np.asarray(x, dtype), device=device)
+        def up(x, dtype=None):
+            return _tensor(x, device, dtype)
 
         return dataclasses.replace(
-            buffers,
-            object_mats=t(mats), object_normal_mats=t(nmats),
-            object_bounds=t(bounds), object_valid=t(ovalid),
-            lights=t(lights), num_lights=t(num_lights, np.int32),
-            num_dir_lights=t(num_dir, np.int32),
+            buffers, joint_palette=up(self.snapshot_joint_palette(t)),
+            object_mats=up(mats), object_normal_mats=up(nmats),
+            object_bounds=up(bounds), object_valid=up(ovalid),
+            lights=up(lights), num_lights=up(num_lights, np.int32),
+            num_dir_lights=up(num_dir, np.int32),
         )

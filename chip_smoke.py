@@ -7,6 +7,8 @@ NVIDIA GPU (written for an H100).
     python3 chip_smoke.py --profile  # every phase, then a torch.profiler
                                      # trace of 5 frames of slices 2, 3,
                                      # 3b and 4
+    python3 chip_smoke.py --phase16  # phases 1-2, 13 and 16 only (no
+                                     # kernels line and no result)
 
 Run from the root of a checkout. Phases, one line each:
  1. the card and toolchain;
@@ -160,7 +162,23 @@ Run from the root of a checkout. Phases, one line each:
     to the plain version and timed alone against their bound; (d)
     tests/test_reyes.py's displaced plane at 1920x1080 (the share of
     pixels the dicing changes) and 4 orbiting frames at 256x256 on the
-    card against the CPU (vis equal, RMSE < 0.1).
+    card against the CPU (vis equal, RMSE < 0.1);
+16. streaming, the voxel tiers, RT reflections and skinning: (a)
+    city-1080p-streaming, bench.py's full_streaming settings through the
+    Renderer on phase 13's city, phase 14's shadow-casting spot and
+    point lights removed (warm until 12 frames load no page,
+    capped at 60; the slope of 24 frames over 12; page loads, resident
+    groups, launches a frame), one frame's K2 launches held to the plain
+    version and timed alone, and a small LOD scene card against CPU with
+    synchronous ticks; (b) the same with enableTextureStreaming
+    (promotions, demotions); (c) g512_voxel_rt against its golden, the
+    city's voxel build and its `full` frame with both voxel tiers, the
+    voxel scenes card against CPU; (d) the city's `full` frame with RT
+    reflections (the hit share), the mirror scene card against CPU,
+    argmin's ties on the card; (e) tests/test_skinning.py's cylinder bent
+    over 4 frames at 1920x1080 (its K1 launches held to the plain version
+    and timed alone) and at 256x256 card against CPU on the soup and
+    cluster paths.
 Each kernel timed alone is timed twice: by CUDA events around
 back-to-back launches (cuda_ms, the kernels line's `ms`) and by the device
 time of its launches in a torch.profiler trace (device_ms, the kernels
@@ -1321,6 +1339,14 @@ def main():
         f"taa_warp_kernel<3> {k5_occ} blocks/SM on 32x128 tiles | K6 at "
         f"1080p: {k6_occ}")
 
+    if "--phase16" in sys.argv[1:]:
+        # Phase 16 alone, over phase 13's city (no kernels line, no
+        # result): the short drive for changes to slice 13's paths.
+        city_recs, city_built = slice10_city(np, torch, dev, kernels, smi)
+        recs = slice13_streaming(np, torch, dev, kernels, smi, city_built)
+        say("phase 16 records: " + json.dumps(recs))
+        return 0
+
     # -- 3. kernels vs plain on the card -----------------------------------
     res = []
     for seed in (0, 5):
@@ -1684,6 +1710,8 @@ def main():
     del soup
     records.update(slice12_renderer(np, torch, dev, kernels, smi,
                                     city_built))
+    records.update(slice13_streaming(np, torch, dev, kernels, smi,
+                                     city_built))
     del city_built
 
     print(json.dumps({"kernels": [records[k] for k in
@@ -1694,7 +1722,8 @@ def main():
                                    "K2-tangent", "K2-peel-tangent",
                                    "K6-tangent", "K4-city", "K5-taau",
                                    "K2-CSM", "K2-spot", "K2-cube",
-                                   "K1-CSM", "K2-reyes")]}),
+                                   "K1-CSM", "K2-reyes", "K2-stream",
+                                   "K1-skin")]}),
           flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4537,6 +4566,641 @@ def slice12_renderer(np, torch, dev, kernels, smi, city_built):
               f" {cpu_s:.1f} s")
     say(f"phase 15 {d_line} | phase 15 {time.perf_counter() - t_phase:.1f} "
         f"s | {smi}")
+    return recs
+
+
+# Phase 16: geometry and texture streaming, the voxel tiers, RT
+# reflections and skinning.
+# (a) bench.py::_bench_streaming (bench.py:92-175): the city through the
+# Renderer at `full` + enableStreaming, streamingSlots 6144, the bench's
+# capacities; warm until the streamer stops loading (12 quiet frames),
+# capped; then the slope of 24 frames over 12.
+STREAM_SETTINGS = dict(
+    renderResolution=(1920, 1080), tileSize=(32, 128),
+    maxTrianglePairs=1 << 18, enableClod=True, maxVisibleClusters=3072,
+    enableClusteredLighting=True, enableOcclusionCulling=True,
+    enableIBL=True, enableTextures=True, enableVSM=True, enableGTAO=True,
+    enableBloom=True, enableTAA=True, enableAutoExposure=True,
+    enableSSR=True, enableStreaming=True, streamingSlots=6144)
+STREAM_WARM_MAX = 60
+STREAM_QUIET = 12
+STREAM_RUNS = (3, 12, 24)
+TEXSTREAM_FRAMES = (20, 12)     # (b): warm, timed
+VOXEL_CITY_RES = 64             # (c): the city's voxelResolution
+TIER_FRAMES = (2, 5)            # (c), (d): warm, timed
+SKIN_FRAMES = 4                 # (e): the cylinder bent over 4 frames
+SMALL = dict(width=256, height=256, tile_h=16, tile_w=128)
+G512_BASE = dict(width=512, height=512, tile_h=16, tile_w=128,
+                 max_pairs=1 << 15, enable_clod=True,
+                 max_visible_clusters=1024)     # tests/test_goldens_512.py
+SMALL_TICKS = 6                 # (a) card vs CPU: synchronous ticks
+
+
+def lod_spheres_scene(np):
+    """tests/test_torch_streaming.py's scene: two instances of a
+    cluster-LOD sphere (39 streaming groups). Returns (scene, bridge)."""
+    from basicrenderer_tpu_torch.models import clusters, procedural
+    from basicrenderer_tpu_torch.models.materials import MaterialRegistry
+    from basicrenderer_tpu_torch.models.mesh import MeshRegistry
+    from basicrenderer_tpu_torch.scene.bridge import (BridgeCapacities,
+                                                      SceneRenderBridge)
+    from basicrenderer_tpu_torch.scene.scene import Scene
+    lod = clusters.build_cluster_lod(
+        procedural.make_uv_sphere(1.0, rings=48, sectors=96), use_cache=False)
+    meshes, mats = MeshRegistry(), MaterialRegistry()
+    mid = meshes.add(clusters.to_mesh_data(lod))
+    sc = Scene()
+    sc.create_renderable(mid, 0)
+    sc.create_renderable(mid, 0, position=(2.5, 0.0, -2.0))
+    sc.create_directional_light(direction=(-0.3, -1, -0.2), intensity=3.0)
+    sc.set_camera(position=(0, 0.4, 3.0), target=(0, 0, 0), aspect=1.0)
+    sc.propagate_transforms()
+    caps = BridgeCapacities(max_vertices=1 << 16, max_triangles=1 << 16,
+                            max_objects=8, max_materials=4, max_lights=4,
+                            max_clusters=1 << 12, max_geom_clusters=1 << 10,
+                            max_groups=1 << 10)
+    bridge = SceneRenderBridge(sc, meshes, mats, caps)
+    bridge.pack_geometry()
+    return sc, bridge
+
+
+def voxel_scene(np, variant):
+    """tests/test_torch_voxels.py's scenes with their 32^3 pyramid:
+    "offscreen" (a mirror floor under an emissive slab above the frustum)
+    or "fallback" (a large cube, to be drawn with no triangle rastered).
+    Returns (scene, bridge, VoxelSceneGrid)."""
+    from basicrenderer_tpu_torch.models import procedural
+    from basicrenderer_tpu_torch.models.materials import (Material,
+                                                          MaterialRegistry)
+    from basicrenderer_tpu_torch.models.mesh import MeshRegistry
+    from basicrenderer_tpu_torch.scene.bridge import (BridgeCapacities,
+                                                      SceneRenderBridge)
+    from basicrenderer_tpu_torch.scene.scene import Scene
+    meshes, mats = MeshRegistry(), MaterialRegistry()
+    sc = Scene()
+    if variant == "offscreen":
+        plane = meshes.add(procedural.make_plane(20.0, 16))
+        slab = meshes.add(procedural.make_cube(1.0))
+        mirror = mats.add(Material(base_color=np.array([0.9, 0.9, 0.9, 1],
+                                                       np.float32),
+                                   metallic=1.0, roughness=0.05))
+        red = mats.add(Material(base_color=np.array([0.9, 0.05, 0.05, 1],
+                                                    np.float32),
+                                emissive=np.array([6.0, 0.2, 0.2],
+                                                  np.float32)))
+        sc.create_renderable(plane, mirror)
+        sc.create_renderable(slab, red, position=(0, 6.0, -3.0),
+                             scale=(6.0, 0.5, 6.0))
+        sc.set_camera(position=(0, 2.0, 5.0), target=(0, 0.0, 1.0),
+                      aspect=1.0)
+    else:
+        cube = meshes.add(procedural.make_cube(1.0))
+        red = mats.add(Material(base_color=np.array([0.9, 0.1, 0.1, 1],
+                                                    np.float32),
+                                emissive=np.array([2.0, 0.1, 0.1],
+                                                  np.float32)))
+        sc.create_renderable(cube, red, position=(0, 0, 0), scale=(4, 4, 4))
+        sc.set_camera(position=(0, 0, 9), target=(0, 0, 0), aspect=1.0)
+    sc.create_directional_light(direction=(-0.3, -1.0, -0.2), intensity=2.0)
+    sc.propagate_transforms()
+    bridge = SceneRenderBridge(sc, meshes, mats, BridgeCapacities(
+        max_vertices=1 << 11, max_triangles=1 << 11, max_objects=8,
+        max_materials=4, max_lights=4, max_clusters=16))
+    return sc, bridge, bridge.build_voxel_scene(n=32)
+
+
+def mirror_scene(np):
+    """tests/test_torch_rt_reflect.py's scene: a mirror floor and a
+    cluster-LOD red sphere only reflected rays see, with a 32^3 pyramid.
+    Returns (scene, bridge, VoxelSceneGrid)."""
+    from basicrenderer_tpu_torch.models import clusters, procedural
+    from basicrenderer_tpu_torch.models.materials import (Material,
+                                                          MaterialRegistry)
+    from basicrenderer_tpu_torch.models.mesh import MeshRegistry
+    from basicrenderer_tpu_torch.scene.bridge import (BridgeCapacities,
+                                                      SceneRenderBridge)
+    from basicrenderer_tpu_torch.scene.scene import Scene
+    meshes, mats = MeshRegistry(), MaterialRegistry()
+    plane = meshes.add(procedural.make_plane(20.0, 8))
+    sphere = meshes.add(clusters.to_mesh_data(clusters.build_cluster_lod(
+        procedural.make_uv_sphere(1.5, rings=16, sectors=32),
+        use_cache=False)))
+    mirror = mats.add(Material(base_color=np.array([0.9, 0.9, 0.9, 1],
+                                                   np.float32),
+                               metallic=1.0, roughness=0.05))
+    red = mats.add(Material(base_color=np.array([0.9, 0.05, 0.05, 1],
+                                                np.float32)))
+    sc = Scene()
+    sc.create_renderable(plane, mirror)
+    sc.create_renderable(sphere, red, position=(0.0, 4.0, -1.0))
+    sc.create_directional_light(direction=(-0.3, -1.0, -0.2), intensity=3.0)
+    sc.set_camera(position=(0, 2.0, 6.0), target=(0, 0.0, 0.0), aspect=1.0)
+    sc.propagate_transforms()
+    bridge = SceneRenderBridge(sc, meshes, mats, BridgeCapacities(
+        max_vertices=1 << 14, max_triangles=1 << 14, max_objects=8,
+        max_materials=4, max_lights=4, max_clusters=256,
+        max_geom_clusters=128, max_groups=128))
+    return sc, bridge, bridge.build_voxel_scene(n=32)
+
+
+def skin_rig(np):
+    """tests/test_skinning.py's two-bone cylinder (bone 1 at mid-height,
+    bent 90 degrees about z by its clip over one second) on a floor, from
+    the port's modules. Returns (scene, bridge)."""
+    from basicrenderer_tpu_torch.models import animation, procedural
+    from basicrenderer_tpu_torch.models.materials import (Material,
+                                                          MaterialRegistry)
+    from basicrenderer_tpu_torch.models.mesh import MeshData, MeshRegistry
+    from basicrenderer_tpu_torch.scene.bridge import (BridgeCapacities,
+                                                      SceneRenderBridge)
+    from basicrenderer_tpu_torch.scene.scene import Scene
+    height, segs, rings = 2.0, 8, 9
+    pos, jnts, wts = [], [], []
+    for y in np.linspace(0, height, rings):
+        for a in np.linspace(0, 2 * np.pi, segs, endpoint=False):
+            pos.append([0.3 * np.cos(a), y, 0.3 * np.sin(a)])
+            w1 = np.clip((y - height * 0.25) / (height * 0.5), 0, 1)
+            jnts.append([0, 1, 0, 0])
+            wts.append([1 - w1, w1, 0, 0])
+    idx = []
+    for r in range(rings - 1):
+        for k in range(segs):
+            a, b = r * segs + k, r * segs + (k + 1) % segs
+            idx += [[a, a + segs, b], [b, a + segs, b + segs]]
+    nrm = np.zeros((len(pos), 3), np.float32)
+    nrm[:, 0] = 1.0
+    mesh = MeshData(np.array(pos, np.float32), nrm,
+                    np.zeros((len(pos), 2), np.float32),
+                    np.array(idx, np.int32), joints=np.array(jnts, np.int32),
+                    weights=np.array(wts, np.float32))
+    reg = animation.SkeletonRegistry()
+    inv_bind = np.stack([np.eye(4, dtype=np.float32),
+                         np.eye(4, dtype=np.float32)])
+    inv_bind[1, 1, 3] = -height / 2
+    sid = reg.add(animation.Skeleton(
+        np.array([-1, 0], np.int32), inv_bind,
+        np.array([[0, 0, 0], [0, height / 2, 0]], np.float32),
+        np.tile(np.array([0, 0, 0, 1], np.float32), (2, 1)),
+        np.ones((2, 3), np.float32)))
+    q90 = np.array([0, 0, np.sin(np.pi / 4), np.cos(np.pi / 4)], np.float32)
+    reg.add_clip(sid, animation.AnimationClip("bend", [animation.Channel(
+        1, "rotation", np.array([0.0, 1.0], np.float32),
+        np.stack([np.array([0, 0, 0, 1], np.float32), q90]))]))
+    reg.play(sid, 0)
+    meshes, mats = MeshRegistry(), MaterialRegistry()
+    mid = meshes.add(mesh)
+    floor = meshes.add(procedural.make_plane(6.0, 2))
+    red = mats.add(Material(base_color=np.array([0.8, 0.2, 0.2, 1],
+                                                np.float32)))
+    sc = Scene()
+    sc.create_renderable(mid, red, skeleton_id=sid)
+    sc.create_renderable(floor, 0)
+    sc.create_directional_light(direction=(-0.4, -1, -0.3), intensity=3.0)
+    sc.set_camera(position=(0.5, 1.6, 3.2), target=(-0.3, 0.9, 0),
+                  aspect=1.0)
+    sc.propagate_transforms()
+    bridge = SceneRenderBridge(sc, meshes, mats, BridgeCapacities(
+        max_vertices=1 << 10, max_triangles=1 << 10, max_objects=4,
+        max_materials=4, max_lights=2, max_clusters=128, max_joints=16,
+        max_geom_clusters=64), skeletons=reg)
+    return sc, bridge
+
+
+def card_vs_cpu(torch, outs, label, share=1.0):
+    """(vis agreement, RMSE) of a card frame against its CPU frame, held
+    to `share` and 0.1."""
+    agree = float((outs[0]["vis"].cpu() == outs[1]["vis"]).float().mean())
+    err = rmse(outs[0]["image"].cpu().numpy(), outs[1]["image"].numpy())
+    check(agree >= share and err <= 0.1, f"{label} card vs CPU: vis "
+          f"agreement {agree}, RMSE {err}")
+    return agree, err
+
+
+def both(build_fn, dev):
+    """build_fn(device) on the card and on the CPU."""
+    return [build_fn(d) for d in (dev, "cpu")]
+
+
+def k_launch_record(torch, raster, calls, cuda_fn, plain_fn, cfg_of, label,
+                    k1):
+    """Hold captured K1 / K2 launches to their plain version and time them
+    alone. Returns (max abs err, ms, device ms, plain ms, bound ms, bound
+    by)."""
+    err, plain_ms, b_sum, b_big, by = 0.0, 0.0, 0.0, 0.0, "bytes"
+    for k, (_n, a, kw, kout) in enumerate(calls):
+        pout, p_ms = host_ms(torch, lambda: plain_fn(*a, **kw))
+        err = max(err, compare_raster(torch, kout, pout, f"{label} {k}"))
+        plain_ms += p_ms
+        cfg = cfg_of(a, kw)
+        init = a[3] if len(a) > 3 else kw.get("init")
+        if k1:
+            walked = k1_walked(torch, a[0], cfg)
+            b_ms, b_by = bound(
+                walked * cfg.tile_h * cfg.tile_w * RASTER_FLOPS_PER_ROW_PIXEL,
+                walked * 128 + cfg.padded_height * cfg.padded_width * 40
+                * (2 if init is not None else 1))
+        else:
+            b_ms, b_by, _w = k2_bound(raster, a[0], a[1],
+                                      a[2] if len(a) > 2 else 0, init)
+        b_sum += b_ms
+        if b_ms > b_big:
+            b_big, by = b_ms, b_by
+
+    def run():
+        for _n, a, kw, _o in calls:
+            cuda_fn(*a, **kw)
+    return err, cuda_ms(torch, run, 5), device_ms(torch, run, 5), \
+        plain_ms, b_sum, by
+
+
+def slice13_streaming(np, torch, dev, kernels, smi, city_built):
+    """Phase 16: (a) city-1080p-streaming through the Renderer, K2's
+    launches of a streamed frame held to the plain version and timed
+    alone, and 6 frames of a small LOD scene card against CPU with
+    synchronous ticks; (b) the same city with enableTextureStreaming; (c)
+    the voxel tiers: g512_voxel_rt against its golden, the city's `full`
+    frame with both voxel tiers, the voxel scenes card against CPU; (d)
+    the city's `full` frame with RT reflections and the mirror scene card
+    against CPU; (e) the skinned cylinder at 1920x1080 (its K1 launches
+    held to the plain version and timed alone) and at 256x256 card
+    against CPU on the soup and cluster paths. Returns the kernels-line
+    records of K2 on the streamed frame and K1 on the skinned frame."""
+    import dataclasses
+    import gc
+    from basicrenderer_tpu_torch.graph.frame import build_frame_fn
+    from basicrenderer_tpu_torch.graph.framedata import (FrameConfig,
+                                                         FrameParams, make_view)
+    from basicrenderer_tpu_torch.graph.temporal import TemporalState
+    from basicrenderer_tpu_torch.models.streaming import GeometryStreamer
+    from basicrenderer_tpu_torch.models.voxels import static_level_offsets
+    from basicrenderer_tpu_torch.ops import raster
+    from basicrenderer_tpu_torch.ops import rt_reflect
+    from basicrenderer_tpu_torch.renderer import Renderer
+    from basicrenderer_tpu_torch.scene.bridge import BridgeCapacities
+    from basicrenderer_tpu_torch.scene.components import Light, LightType
+    from basicrenderer_tpu_torch.utils.png import read_png
+    t_phase = time.perf_counter()
+    built, bridge = city_built
+    recs = {}
+    names = ("K1", "K2", "K3", "K4", "K5")
+    # bench.py's city: without the shadow-casting spot and point lights
+    # phase 14 added, when it ran (the Renderer would give each a map).
+    added = [e for e, (light,) in built.scene.world.query(Light)
+             if light.cast_shadows
+             and light.type in (LightType.SPOT, LightType.POINT)]
+    check(len(added) in (0, len(CITY_SPOTS) + len(CITY_POINTS)),
+          f"city: {len(added)} shadow-casting local lights")
+    for e in added:
+        built.scene.world.destroy(e)
+    built.scene.propagate_transforms()
+
+    # -- (a) city-1080p-streaming through the Renderer -----------------------
+    r = Renderer(caps=BridgeCapacities(**CITY_CAPS), device=dev)
+    r.meshes, r.materials, r.textures = (built.meshes, built.materials,
+                                         bridge.textures)
+    for k, v in STREAM_SETTINGS.items():
+        r.settings.set(k, v)
+    r.set_current_scene(built.scene)
+    cfg = r.current_config()
+    check(cfg.enable_streaming and cfg.enable_clod and cfg.enable_vsm
+          and cfg.enable_taa and cfg.max_shadow_lights == 0
+          and cfg.max_shadow_cubes == 0, f"streaming Renderer config {cfg}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    prev_loads, quiet, warm = -1, 0, 0
+    for warm in range(1, STREAM_WARM_MAX + 1):
+        r.update()
+        out = r.render()
+        out["image"][0, 0, 0].item()       # frame pacing for the ticks
+        loads = r._streamer.loads
+        quiet = quiet + 1 if loads == prev_loads else 0
+        prev_loads = loads
+        if quiet >= STREAM_QUIET:
+            break
+    settled = quiet >= STREAM_QUIET
+    warm_s = time.perf_counter() - t0
+    st = r._streamer
+    loads_warm = st.loads
+
+    def run(n):
+        t = time.perf_counter()
+        o = None
+        for _ in range(n):
+            r.update()
+            o = r.render()
+        o["image"][0, 0, 0].item()
+        return time.perf_counter() - t, o
+
+    run(STREAM_RUNS[0])
+    reset_launches(kernels)
+    t1, _o = run(STREAM_RUNS[1])
+    t2, out = run(STREAM_RUNS[2])
+    n_timed = STREAM_RUNS[1] + STREAM_RUNS[2]
+    per_frame = [kernels[i].launches / n_timed for i in range(5)]
+    slope = (t2 - t1) / (STREAM_RUNS[2] - STREAM_RUNS[1]) * 1e3
+    steady = (st.loads - loads_warm) / sum(STREAM_RUNS)
+    check(bool(torch.isfinite(out["hdr"]).all())
+          and 0.1 < float((out["vis"] > 0).float().mean()) < 1.0,
+          "city streaming: non-finite HDR or bad coverage")
+    check(st.loads > 0 and st.resident_groups > 0, f"city streaming: "
+          f"{st.loads} page loads, {st.resident_groups} resident groups")
+    check(all(per_frame[i] > 0 for i in (1, 2, 3, 4)), "city streaming: "
+          f"launches a frame {per_frame}: K2, K3, K4 and K5 expected")
+    k2_launches = kernels[1].launches
+    with Capture(raster, ["raster_groups_cuda"]) as rc:
+        r.update()
+        o = r.render()
+        torch.cuda.synchronize()
+        del o
+    check(len(rc.calls) >= 3, f"city streaming: a frame launched K2 "
+          f"{len(rc.calls)} times")
+    err, k2_ms, k2_dev, plain_ms, b_ms, by = k_launch_record(
+        torch, raster, rc.calls, raster.raster_groups_cuda,
+        raster.raster_groups_plain, lambda a, kw: a[1], "streamed K2 launch",
+        k1=False)
+    recs["K2-stream"] = {
+        "name": "raster_groups (K2 on city-1080p-streaming's frame: the "
+                "residency-patched cut set up from the 6144-slot page pool, "
+                "through the Renderer)",
+        "route": "cuda", "source": "basicrenderer_tpu_torch/csrc/raster.cu",
+        "replaces": "basicrenderer_tpu/ops/raster_pallas.py:252",
+        "launches": k2_launches, "max_abs_err": err, "ms": k2_ms,
+        "device_ms": k2_dev, "plain_ms": plain_ms, "bound_ms": b_ms,
+        "bound_by": by, "library_ms": None}
+    n_k2 = len(rc.calls)
+    del rc
+    a_line = (f"(a) city-1080p-streaming (bench.py's full_streaming settings "
+              f"through the Renderer: full + enableStreaming, 6144 slots, "
+              f"the bench's caps) 1920x1080: warm {warm} frames in "
+              f"{warm_s:.1f} s, settled {settled} (12 frames without a load,"
+              f" capped at {STREAM_WARM_MAX}) | {slope:.3f} ms/frame (slope "
+              f"of {STREAM_RUNS[2]} frames over {STREAM_RUNS[1]}) | "
+              f"page_loads_total {st.loads} page_loads_warm {loads_warm} "
+              f"loads_per_frame_steady {steady:.2f} resident_groups "
+              f"{st.resident_groups} evictions {st.evictions} | launches a "
+              f"frame " + " ".join(f"{n} {x:.2f}" for n, x in
+                                   zip(names, per_frame))
+              + f" | one frame's {n_k2} K2 launches {k2_ms:.4f} ms (device "
+              f"{k2_dev:.4f}; bound {b_ms:.4f}, the largest by {by}; plain "
+              f"{plain_ms:.0f} ms; vis, depth and channels exact)")
+    say(f"phase 16 streaming, voxels, RT, skinning: {a_line}")
+
+    # -- (b) + enableTextureStreaming -----------------------------------------
+    r.settings.set("enableTextureStreaming", True)
+    check(r.current_config().enable_texture_streaming,
+          "texture streaming did not reach the FrameConfig")
+    r.update()
+    tst = r._tex_streamer
+    check(tst is not None, "texture streamer not brought up")
+    loads0, dem0 = tst.loads, tst.demotions
+    for _ in range(TEXSTREAM_FRAMES[0]):
+        r.update()
+        r.render()["image"][0, 0, 0].item()
+    tb, out = run(TEXSTREAM_FRAMES[1])
+    check(bool(torch.isfinite(out["hdr"]).all()) and "tex_wanted" in out,
+          "texture streaming: non-finite HDR or no tex_wanted")
+    check(tst.loads > loads0, "texture streaming: no mip was promoted")
+    b_line = (f"(b) + enableTextureStreaming (RGBA8, the atlas written to "
+              f"a strip container under _build/texstream): "
+              f"{tb / TEXSTREAM_FRAMES[1] * 1e3:.3f} ms/frame over "
+              f"{TEXSTREAM_FRAMES[1]} after {TEXSTREAM_FRAMES[0]} warm | "
+              f"promotions {tst.loads} (in (b) {tst.loads - loads0}) "
+              f"demotions {tst.demotions} (in (b) {tst.demotions - dem0}) of "
+              f"{tst.c.num_layers} textures, fine rows {tst.fine_rows} of "
+              f"{tst.budget}")
+    say(f"phase 16 {b_line}")
+    tst.stop()
+    st.stop()
+    r._feedback.close()
+    del r, out, _o, st, tst
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (a) card against CPU: synchronous ticks on a small LOD scene.
+    sc_s, br_s = lod_spheres_scene(np)
+    scfg = FrameConfig(**SMALL, max_pairs=1 << 14, enable_clod=True,
+                       enable_streaming=True)
+    sfr = build_frame_fn(scfg)
+    GR = br_s.caps.max_groups
+    bufs, strs = [], []
+    for d in (dev, "cpu"):
+        buf = br_s.build_scene_buffers(device=d)
+        s_ = GeometryStreamer(br_s.packed, GR, 96, loads_per_update=6,
+                              device=d)
+        sv, sdq, gs, gr = s_.update(np.zeros(GR, bool))
+        bufs.append(dataclasses.replace(buf, cluster_verts=sv,
+                                        cluster_dequant=sdq, geom_slot=gs,
+                                        group_resident=gr))
+        strs.append(s_)
+    tick_lines = []
+    for i in range(SMALL_TICKS):
+        outs = [sfr(bufs[k], make_view(*sc_s.camera_matrices(aspect=1.0),
+                                       device=d), FrameParams.default(d))
+                for k, d in enumerate((dev, "cpu"))]
+        agree, err = card_vs_cpu(torch, outs, f"streaming tick {i}")
+        touched = outs[1]["touched_groups"].numpy()
+        t_eq = float((outs[0]["touched_groups"].cpu().numpy()
+                      == touched).mean())
+        for k in range(2):
+            sv, sdq, gs, gr = strs[k].update(touched)
+            bufs[k] = dataclasses.replace(bufs[k], cluster_verts=sv,
+                                          cluster_dequant=sdq, geom_slot=gs,
+                                          group_resident=gr)
+        check(np.array_equal(strs[0].geom_slot, strs[1].geom_slot),
+              f"streaming tick {i}: card and CPU streamers diverged")
+        tick_lines.append(f"{agree:.5f}/{err:.4f}/{t_eq:.4f}")
+    check(strs[0].loads > 0, "small LOD scene: no page loads")
+    say(f"phase 16 (a) card vs CPU, two LOD spheres at 256x256 with "
+        f"synchronous ticks fed the CPU frame's touched groups (96 slots): "
+        f"vis agreement / RMSE / touched_groups equal share per frame "
+        f"{', '.join(tick_lines)} (limits 1.0, 0.1); loads {strs[0].loads}, "
+        f"evictions {strs[0].evictions}")
+    del bufs, strs
+
+    # -- (c) the voxel tiers -----------------------------------------------
+    gsc, gbr = g512_scene(np)
+    gbr.build_voxel_scene(n=32)
+    gcfg = FrameConfig(**G512_BASE, enable_voxel_rt=True, enable_ibl=True,
+                       voxel_n=32, voxel_level_offsets=static_level_offsets(32))
+    go = build_frame_fn(gcfg)(gbr.build_scene_buffers(device=dev),
+                              make_view(*gsc.camera_matrices(aspect=1.0),
+                                        device=dev), FrameParams.default(dev))
+    g_rmse = rmse(go["image"].cpu().numpy(), read_png(
+        os.path.join(REPO, "tests", "goldens", "g512_voxel_rt.png")))
+    check(g_rmse <= GOLDEN_RMSE_MAX, f"g512_voxel_rt: RMSE {g_rmse} > "
+          f"{GOLDEN_RMSE_MAX}")
+    del go
+    t0 = time.perf_counter()
+    vox = bridge.build_voxel_scene(n=VOXEL_CITY_RES)
+    vox_s = time.perf_counter() - t0
+    buf = bridge.build_scene_buffers(device=dev)
+    full = dataclasses.replace(FrameConfig(**CONFIG1_MINIMAL), **FULL)
+    tier_rows = {}
+    for name, flags in (
+            ("voxel", dict(enable_voxel_rt=True, enable_voxel_fallback=True,
+                           voxel_n=vox.n,
+                           voxel_level_offsets=vox.level_offsets)),
+            ("rt", dict(enable_rt_reflect=True))):
+        tcfg = dataclasses.replace(full, **flags)
+        reset_launches(kernels)
+        with Capture(rt_reflect, ["trace_reflections"]) as tc:
+            o, ms, _in, stages = timed_frames(
+                torch, np, build_frame_fn(tcfg), buf, built.scene, bridge,
+                TemporalState(tcfg, device=dev), *TIER_FRAMES)
+        check(bool(torch.isfinite(o["hdr"]).all()), f"city {name}: "
+              "non-finite HDR")
+        hit = None
+        if name == "rt":
+            check(len(tc.calls) == sum(TIER_FRAMES), f"city rt: "
+                  f"{len(tc.calls)} traces in {sum(TIER_FRAMES)} frames")
+            covered = (o["vis"] > 0).float()
+            hitmap = tc.calls[-1][3][1]
+            hit = float((hitmap * covered).sum() / covered.sum())
+        tier_rows[name] = (statistics.median(ms), stages,
+                           [kernels[i].launches for i in range(5)], hit)
+        del o, tc
+    del buf
+    gc.collect()
+    torch.cuda.empty_cache()
+    tiers_line = []
+    for name, (ms, stages, launches, hit) in tier_rows.items():
+        keep = {k: v for k, v in stages.items()
+                if k in ("voxel_primary", "voxel_reflect", "rt_reflect",
+                         "ssr", "ibl", "raster")}
+        tiers_line.append(
+            f"{name}: {ms:.3f} ms/frame (median of {TIER_FRAMES[1]} after "
+            f"{TIER_FRAMES[0]} warm; stage ms " + " ".join(
+                f"{k} {v:.3f}" for k, v in keep.items())
+            + f"; launches K1-K5 {launches}"
+            + (f"; hit share of the covered pixels' reflection map "
+               f"{hit:.4f}" if hit is not None else "") + ")")
+    v_lines = []
+    for variant, flags in (("offscreen", dict(enable_voxel_rt=True,
+                                              enable_ibl=True,
+                                              voxel_sggx=True)),
+                           ("fallback", dict(enable_voxel_fallback=True,
+                                             voxel_primary_steps=24))):
+        vsc, vbr, vv = voxel_scene(np, variant)
+        vcfg = FrameConfig(**SMALL, max_pairs=1 << 12, voxel_n=vv.n,
+                           voxel_level_offsets=vv.level_offsets,
+                           voxel_rt_downscale=2, voxel_rt_steps=20, **flags)
+        outs = []
+        for d in (dev, "cpu"):
+            vb = vbr.build_scene_buffers(device=d)
+            if variant == "fallback":
+                vb = dataclasses.replace(vb, tri_object=torch.full_like(
+                    vb.tri_object, -1))
+            outs.append(build_frame_fn(vcfg)(
+                vb, make_view(*vsc.camera_matrices(aspect=1.0), device=d),
+                FrameParams.default(d)))
+        agree, err = card_vs_cpu(torch, outs, f"voxel {variant}")
+        v_lines.append(f"{variant} {agree:.5f}/{err:.4f}")
+    say(f"phase 16 (c) voxel tiers: g512_voxel_rt RMSE {g_rmse:.4f} (limit "
+        f"{GOLDEN_RMSE_MAX}) | the city's full frame with enableVoxelRT + "
+        f"enableVoxelFallback at voxelResolution {VOXEL_CITY_RES}: voxel "
+        f"build {vox_s:.2f} s on the host ({vox.grid.size} cells in "
+        f"{vox.levels} levels) | {tiers_line[0]} | 256x256 card vs CPU "
+        f"(vis agreement / RMSE, limits 1.0, 0.1): {', '.join(v_lines)}")
+
+    # -- (d) RT reflections ---------------------------------------------------
+    msc, mbr, mv = mirror_scene(np)
+    r_lines = []
+    for label, flags in (("rt", dict()),
+                         ("rt + voxel + ssr + windows", dict(
+                             enable_voxel_rt=True, enable_ssr=True,
+                             cut_windows=2, voxel_n=mv.n,
+                             voxel_level_offsets=mv.level_offsets,
+                             voxel_rt_downscale=2))):
+        mcfg = FrameConfig(**SMALL, max_pairs=1 << 12, enable_clod=True,
+                           max_visible_clusters=64, enable_ibl=True,
+                           enable_rt_reflect=True, rt_downscale=2, **flags)
+        outs = [build_frame_fn(mcfg)(
+            mbr.build_scene_buffers(device=d),
+            make_view(*msc.camera_matrices(aspect=1.0), device=d),
+            FrameParams.default(d)) for d in (dev, "cpu")]
+        agree, err = card_vs_cpu(torch, outs, f"mirror {label}")
+        r_lines.append(f"{label} {agree:.5f}/{err:.4f}")
+    ties = torch.tensor([[3.0, 1.0, 1.0, 2.0], [float("inf")] * 4,
+                         [0.5, 0.5, 0.5, 0.5]], device=dev)
+    check(torch.min(ties, dim=1).indices.tolist() == [1, 0, 0]
+          and torch.argmin(ties, dim=1).tolist() == [1, 0, 0],
+          "argmin on the card does not take the first of ties")
+    say(f"phase 16 (d) RT reflections: the city's full frame with "
+        f"enableRTReflections: {tiers_line[1]} | 256x256 mirror scene card "
+        f"vs CPU (vis agreement / RMSE, limits 1.0, 0.1): "
+        f"{', '.join(r_lines)} | argmin takes the first of ties on the card")
+
+    # -- (e) skinning -----------------------------------------------------------
+    ksc, kbr = skin_rig(np)
+    kcfg = FrameConfig(width=1920, height=1080, tile_h=32, tile_w=128,
+                       max_pairs=1 << 16, enable_skinning=True)
+    kfr = build_frame_fn(kcfg)
+    kview = make_view(*ksc.camera_matrices(aspect=16 / 9), device=dev)
+    kbuf = kbr.build_scene_buffers(device=dev)
+    times = np.linspace(0.0, 1.0 - 1e-4, SKIN_FRAMES)
+    kbuf = kbr.update_dynamic(kbuf, float(times[0]))
+    kfr(kbuf, kview, FrameParams.default(dev))          # warm
+    reset_launches(kernels)
+    k_ms, vis_first = [], None
+    for i, t in enumerate(times):
+        kbuf = kbr.update_dynamic(kbuf, float(t))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == len(times) - 1:
+            with Capture(raster, ["raster_tiles_cuda"]) as kc:
+                o = kfr(kbuf, kview, FrameParams.default(dev))
+        else:
+            o = kfr(kbuf, kview, FrameParams.default(dev))
+        torch.cuda.synchronize()
+        k_ms.append((time.perf_counter() - t0) * 1e3)
+        if vis_first is None:
+            vis_first = o["vis"]
+    k1_launches = kernels[0].launches
+    moved = float((o["vis"] != vis_first).float().mean())
+    check(k1_launches == SKIN_FRAMES and moved > 0.001, f"skinned 1080p: K1 "
+          f"{k1_launches} launches in {SKIN_FRAMES} frames, {moved} of the "
+          f"pixels moved")
+    err, k1_ms, k1_dev, plain_ms, b_ms, by = k_launch_record(
+        torch, raster, kc.calls, raster.raster_tiles_cuda,
+        raster.raster_tiles_plain, lambda a, kw: a[1], "skinned K1 launch",
+        k1=True)
+    recs["K1-skin"] = {
+        "name": "raster_tiles (K1 on the skinned soup frame: the two-bone "
+                "cylinder bent by the linear-blend prepass, 1920x1080)",
+        "route": "cuda", "source": "basicrenderer_tpu_torch/csrc/raster.cu",
+        "replaces": "basicrenderer_tpu/ops/raster_pallas.py:135",
+        "launches": k1_launches, "max_abs_err": err, "ms": k1_ms,
+        "device_ms": k1_dev, "plain_ms": plain_ms, "bound_ms": b_ms,
+        "bound_by": by, "library_ms": None}
+    del o, kc, kbuf
+    s_lines = []
+    for path, flags in (("soup", dict()), ("cluster", dict(
+            enable_clod=True, max_visible_clusters=64))):
+        pcfg = FrameConfig(**SMALL, max_pairs=1 << 12, enable_skinning=True,
+                           **flags)
+        pfr = build_frame_fn(pcfg)
+        bufs = [kbr.build_scene_buffers(device=d) for d in (dev, "cpu")]
+        lines = []
+        for t in times:
+            outs = []
+            for k, d in enumerate((dev, "cpu")):
+                bufs[k] = kbr.update_dynamic(bufs[k], float(t))
+                outs.append(pfr(bufs[k], make_view(
+                    *ksc.camera_matrices(aspect=1.0), device=d),
+                    FrameParams.default(d)))
+            agree, err = card_vs_cpu(torch, outs, f"skinned {path} t={t:.2f}",
+                                     share=0.999)
+            lines.append(f"{agree:.5f}/{err:.4f}")
+        s_lines.append(f"{path} {', '.join(lines)}")
+    say(f"phase 16 (e) skinning: tests/test_skinning.py's two-bone cylinder "
+        f"bent over {SKIN_FRAMES} frames at 1920x1080 (soup path): ms/frame "
+        f"{', '.join(f'{x:.2f}' for x in k_ms)}, {moved:.4f} of the pixels "
+        f"moved; K1 {k1_launches} launches; the last frame's K1 "
+        f"{k1_ms:.4f} ms (device {k1_dev:.4f}; bound {b_ms:.4f}, {by}; plain "
+        f"{plain_ms:.0f} ms; exact) | 256x256 card vs CPU per frame (vis "
+        f"agreement / RMSE, limits 0.999, 0.1): {' | '.join(s_lines)} | "
+        f"phase 16 {time.perf_counter() - t_phase:.1f} s | {smi}")
     return recs
 
 

@@ -255,21 +255,17 @@ def test_downsample2d_matches_jax(ds):
 
 
 def test_unported_cluster_options_raise(rig):
+    """Every cluster option of the JAX frame builds in the port now: the
+    windowed cut, the masked peels with OIT, the soup frame's occlusion,
+    the full-rate mask pass and texture streaming."""
     import dataclasses
-    cfg = dataclasses.replace(rig["pc"], cut_windows=4)
-    with pytest.raises(NotImplementedError, match="cut_windows"):
-        pframe.build_frame_fn(cfg)
-    # The masked peels and OIT are ported.
+    pframe.build_frame_fn(dataclasses.replace(rig["pc"], cut_windows=4))
     pframe.build_frame_fn(dataclasses.replace(
         rig["pc"], enable_alpha_mask=True, mask_peels=2, enable_oit=True))
-    # So is the soup frame's occlusion (enable_occlusion without clod).
     pframe.build_frame_fn(dataclasses.replace(rig["pc"], enable_clod=False,
                                               enable_occlusion=True))
-    # The full-rate alpha-MASK pass is ported; texture streaming is not.
     pframe.build_frame_fn(dataclasses.replace(
         rig["pc"], enable_alpha_mask=True, texture_downscale=1))
-    cfg = dataclasses.replace(rig["pc"], enable_alpha_mask=True,
-                              enable_textures=True,
-                              enable_texture_streaming=True)
-    with pytest.raises(NotImplementedError, match="enable_texture_streaming"):
-        pframe.build_frame_fn(cfg)
+    pframe.build_frame_fn(dataclasses.replace(
+        rig["pc"], enable_alpha_mask=True, enable_textures=True,
+        enable_texture_streaming=True))

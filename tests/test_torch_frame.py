@@ -102,9 +102,16 @@ def test_frame_with_local_lights_matches_jax():
     ("enable_voxel_fallback", True), ("cut_windows", 2),
 ])
 def test_unported_toggles_raise(field, value):
+    """The toggles the port once refused build now, through the frame
+    function and the program cache, the config keeping the value."""
+    from basicrenderer_tpu_torch.graph.frame import (FrameProgramCache,
+                                                     check_config)
     cfg = dataclasses.replace(FrameConfig(**CFG_KW), **{field: value})
-    with pytest.raises(NotImplementedError, match=field):
-        build_frame_fn(cfg)
+    check_config(cfg)
+    assert callable(build_frame_fn(cfg))
+    assert getattr(cfg, field) == value
+    cache = FrameProgramCache()
+    assert cache.get(cfg) is cache.get(dataclasses.replace(cfg))
 
 
 def test_png_reader_matches_imageio():
@@ -117,11 +124,12 @@ def test_png_reader_matches_imageio():
     assert read_png(GOLDEN).shape == (128, 128, 3)
 
 
-def flagship_scene():
-    """__graft_entry__._build_small_inputs(full=False)'s scene from the
+def flagship_scene(full=False):
+    """__graft_entry__._build_small_inputs(full=full)'s scene from the
     port's modules: a floor, a checkered red cube, a gold sphere and a
     glass cube (the cube mesh instanced twice), a directional and a point
-    light, 256x128; its bridge carries no textures, as there."""
+    light, 256x128; its bridge carries the textures only with `full`, as
+    there."""
     from basicrenderer_tpu_torch.models import procedural
     from basicrenderer_tpu_torch.models.materials import (Material,
                                                           MaterialRegistry)
@@ -131,7 +139,8 @@ def flagship_scene():
                                                       SceneRenderBridge)
     from basicrenderer_tpu_torch.scene.scene import Scene
     meshes, mats = MeshRegistry(), MaterialRegistry()
-    checker = TextureRegistry(resolution=64).checkerboard()
+    tex = TextureRegistry(resolution=64)
+    checker = tex.checkerboard()
     cube = meshes.add(procedural.make_cube(1.0))
     sphere = meshes.add(procedural.make_uv_sphere(0.5, rings=8, sectors=16))
     plane = meshes.add(procedural.make_plane(10.0, 2))
@@ -157,7 +166,8 @@ def flagship_scene():
     caps = BridgeCapacities(max_vertices=1 << 12, max_triangles=1 << 12,
                             max_objects=16, max_materials=8, max_lights=8,
                             max_clusters=256)
-    return sc, SceneRenderBridge(sc, meshes, mats, caps)
+    return sc, SceneRenderBridge(sc, meshes, mats, caps,
+                                 textures=tex if full else None)
 
 
 def test_flagship_frame_matches_jax():

@@ -148,8 +148,9 @@ def _to_jax_state(pst):
 
 @pytest.fixture(scope="module")
 def environment():
-    env = Environment.precompute(make_procedural_environment(16).numpy(),
-                                 use_cache=False, device="cpu")
+    env = Environment.precompute(
+        make_procedural_environment(16, device="cpu").numpy(),
+        use_cache=False, device="cpu")
     return dict(env_sh=env.sh, env_specular=env.spec_mips)
 
 
@@ -264,6 +265,6 @@ def test_full_toggles_build_and_unported_ones_raise():
     # Vertex tangents and the soup frame's occlusion are ported now.
     build_frame_fn(FrameConfig(**BASE, **FULL, enable_vertex_tangents=True))
     build_frame_fn(FrameConfig(**{**BASE, **FULL, "enable_clod": False}))
-    with pytest.raises(NotImplementedError, match="enable_texture_streaming"):
-        build_frame_fn(FrameConfig(**BASE, **FULL,
-                                   enable_texture_streaming=True))
+    # So is texture streaming, the `full_streaming` row's feedback.
+    build_frame_fn(FrameConfig(**BASE, **FULL, enable_texture_streaming=True,
+                               enable_streaming=True))

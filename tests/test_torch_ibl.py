@@ -48,7 +48,7 @@ def _mostly_close(p, j, share=0.995, atol=1e-5):
 
 @pytest.mark.parametrize("res", [4, 16])
 def test_face_directions_and_basis_match_jax(res):
-    p = pibl.face_directions(res)
+    p = pibl.face_directions(res, "cpu")
     j = jax.jit(jibl.face_directions, static_argnums=0)(res)
     np.testing.assert_allclose(p.numpy(), np.asarray(j), **TIGHT)
     np.testing.assert_allclose(
@@ -106,7 +106,7 @@ def test_env_brdf_and_procedural_match_jax():
         np.testing.assert_allclose(a.numpy(), np.asarray(b), **TIGHT)
     for kw in ({}, dict(intensity=2.0, sun_dir=(0.3, -1.0, 0.2))):
         np.testing.assert_allclose(
-            pibl.make_procedural_environment(16, **kw).numpy(),
+            pibl.make_procedural_environment(16, **kw, device="cpu").numpy(),
             np.asarray(jax.jit(jibl.make_procedural_environment,
                                static_argnums=0, static_argnames=tuple(kw))(
                 16, **kw)), **TIGHT)

@@ -45,7 +45,9 @@ def test_port_never_imports_jax():
                 "renderer", "utils.settings", "utils.telemetry",
                 "utils.readback", "utils.profiling", "utils.camera",
                 "utils.input", "utils.ui_server", "utils.png",
-                "tools.clod_cache", "tools.showcase"):
+                "tools.clod_cache", "tools.showcase", "models.streaming",
+                "models.texstream", "models.voxels", "ops.voxel_rt",
+                "ops.rt_reflect", "ops.skinning"):
         assert f"basicrenderer_tpu_torch.{mod}" in out["modules"], mod
     assert out["jax"] == []
     assert out["tf32"] == [False, False]

@@ -65,8 +65,9 @@ def environment():
     """One precomputed procedural environment (16^2 cubemap) for both:
     the port's precompute, which tests/test_torch_ibl.py holds to the JAX
     package's."""
-    env = Environment.precompute(make_procedural_environment(16).numpy(),
-                                 use_cache=False, device="cpu")
+    env = Environment.precompute(
+        make_procedural_environment(16, device="cpu").numpy(),
+        use_cache=False, device="cpu")
     return dict(env_sh=env.sh, env_specular=env.spec_mips)
 
 

@@ -346,8 +346,8 @@ def test_frame_program_cache():
     a = cache.get(FrameConfig(width=64, height=64))
     assert cache.get(FrameConfig(width=64, height=64)) is a
     assert cache.get(FrameConfig(width=64, height=64, wireframe=True)) is not a
-    with pytest.raises(NotImplementedError, match="enable_streaming"):
-        cache.get(FrameConfig(enable_streaming=True))
+    # Every toggle of the JAX package builds (enable_streaming among them).
+    assert cache.get(FrameConfig(enable_streaming=True)) is not a
 
 
 @pytest.mark.parametrize("setting", ["enableStreaming",
@@ -356,12 +356,32 @@ def test_frame_program_cache():
                                      "enableRTReflections",
                                      "enableSkinning"])
 def test_unported_settings_raise(setting):
-    r = overlap_scene(PORT_PKG, False, **CHEAP_SHADOWS)[0]
-    r.settings.set(setting, True)
-    with pytest.raises(NotImplementedError, match=setting):
-        r.update()
-    with pytest.raises(NotImplementedError, match=setting):
-        r.current_config()
+    """The settings the port once refused (streaming, the voxel tiers, RT
+    reflections, skinning) are ported: each one reaches the FrameConfig
+    as the JAX Renderer's current_config() gives it, and update() runs
+    its host work (the streamers' bring-up, the voxel bake)."""
+    configs = []
+    for root in (JAX_PKG, PORT_PKG):
+        r = overlap_scene(root, False, **CHEAP_SHADOWS)[0]
+        r.settings.set(setting, True)
+        configs.append(r.current_config())
+    jc, pc = configs
+    differ = {f.name for f in dataclasses.fields(jc)
+              if f.name != "use_pallas_raster"
+              and getattr(pc, f.name) != getattr(jc, f.name)}
+    assert not differ
+    field = {"enableStreaming": "enable_streaming",
+             "enableTextureStreaming": "enable_texture_streaming",
+             "enableVoxelRT": "enable_voxel_rt",
+             "enableVoxelFallback": "enable_voxel_fallback",
+             "enableRTReflections": "enable_rt_reflect",
+             "enableSkinning": "enable_skinning"}[setting]
+    assert getattr(pc, field) is True
+    r.update()
+    if setting == "enableStreaming":
+        assert r._streamer is not None
+    if setting in ("enableVoxelRT", "enableVoxelFallback"):
+        assert r._buffers.voxel_grid.numel() > 1
 
 
 def test_profile_fn_stage_rows():
