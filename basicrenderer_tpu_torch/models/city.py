@@ -8,7 +8,9 @@ missing) is a multi-MB binary glTF with embedded PNG textures, alpha-MASK
 foliage and instanced prototypes; load_city imports it through
 models/importers.py, builds a cluster-LOD DAG for every mesh of at least
 `min_lod_tris` triangles (models/clusters.py), and adds the sun, the 12
-lamp lights and an optional seeded field of point lights.
+lamp lights and an optional seeded field of point lights. finish_city is
+those last steps alone, for the city's meshes imported another way (a USD
+crate written by models/usdc.export_meshes_usdc, chip_smoke.py phase 17).
 """
 
 from __future__ import annotations
@@ -84,6 +86,18 @@ def load_city(path: str = DEFAULT_PATH, lod: bool = True,
                 m.displacement_scale = 0.12
                 m.displacement_texture = m.base_color_texture
 
+    return finish_city(scene, meshes, materials, lod, num_point_lights,
+                       min_lod_tris, seed)
+
+
+def finish_city(scene: Scene, meshes: MeshRegistry,
+                materials: MaterialRegistry, lod: bool = True,
+                num_point_lights: int = 0, min_lod_tris: int = 4096,
+                seed: int = 9) -> BuiltScene:
+    """load_city's steps after the import, for the city's meshes however
+    they were imported (the glb, or a USD crate export of it): the LOD
+    DAGs of the heavy meshes, the sun, the 12 lamps, the optional light
+    field and the hero camera."""
     if lod:
         from . import clusters
         for i, m in enumerate(meshes.meshes):

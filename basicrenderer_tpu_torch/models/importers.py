@@ -1,8 +1,9 @@
-"""Asset importers: glTF 2.0 (.gltf/.glb) and Wavefront OBJ.
+"""Asset importers: glTF 2.0 (.gltf/.glb), Wavefront OBJ, and the dispatch
+to every other format.
 
-Port of the glTF and OBJ branches of basicrenderer_tpu/models/importers.py,
-copied with their behaviour unchanged (host numpy, no external
-dependencies besides PIL for PNG/JPEG). Loads geometry, PBR
+Port of basicrenderer_tpu/models/importers.py, copied with its
+behaviour unchanged (host numpy, no external dependencies besides PIL
+for PNG/JPEG). Loads geometry, PBR
 metallic-roughness material factors and the KHR material extensions, the
 node hierarchy (TRS or matrix), skins (inverse bind + joint hierarchy),
 keyframe animations, and texture images (from file URIs, data URIs or GLB
@@ -13,9 +14,11 @@ textures register sRGB; normal and metallic-roughness data register
 linear; an alpha-MASK material's base colour registers with its cutoff
 (coverage-preserving mips, models/textures.py).
 
-`load_model` dispatches on the file extension. USD, FBX, DAE, PLY, STL
-and NIF are not ported yet and raise NotImplementedError naming the
-format; an unknown extension raises ValueError.
+`load_model` dispatches on the file extension as the JAX package does:
+glTF and OBJ here; USD (.usda/.usd/.usdc, a crate sniffed by its magic,
+and .usdz) in models/usd.py and models/usdc.py; FBX in models/fbx.py;
+PLY, STL and DAE in models/meshformats.py; NIF in models/nif.py. An
+unknown extension raises ValueError.
 """
 
 from __future__ import annotations
@@ -456,16 +459,36 @@ def load_model(path: str, scene: Scene, meshes: MeshRegistry,
                          textures=textures)
     if ext == ".obj":
         return load_obj(path, scene, meshes, materials, parent)
-    if ext in _UNPORTED_FORMATS:
-        raise NotImplementedError(
-            f"{_UNPORTED_FORMATS[ext]} import ({ext}) is not ported to "
-            f"basicrenderer_tpu_torch yet (ported: .gltf, .glb, .obj)")
+    if ext == ".usdz":
+        from .usdc import load_usdz
+        return load_usdz(path, scene, meshes, materials, parent)
+    if ext in (".usda", ".usd", ".usdc"):
+        # .usd can be either ASCII or crate: sniff the magic.
+        with open(path, "rb") as f:
+            head = f.read(8)
+        if head == b"PXR-USDC":
+            from .usdc import load_usdc
+            return load_usdc(path, scene, meshes, materials, parent)
+        from .usd import load_usda
+        return load_usda(path, scene, meshes, materials, parent)
+    if ext == ".fbx":
+        from .fbx import load_fbx
+        return load_fbx(path, scene, meshes, materials, skeletons, parent,
+                        textures=textures)
+    if ext == ".dae":
+        from .meshformats import load_dae
+        return load_dae(path, scene, meshes, materials, parent)
+    if ext == ".ply":
+        from .meshformats import load_ply
+        return load_ply(path, scene, meshes, materials, parent)
+    if ext == ".stl":
+        from .meshformats import load_stl
+        return load_stl(path, scene, meshes, materials, parent)
+    if ext == ".nif":
+        from .nif import load_nif
+        return load_nif(path, scene, meshes, materials, skeletons, parent,
+                        textures=textures)
     raise ValueError(f"unsupported model format: {ext} (supported: .gltf, "
                      ".glb, .obj, .usda, .usdc, .usdz, .fbx, .dae, .ply, "
                      ".stl, .nif)")
 
-
-# Formats the JAX package imports that the port does not yet.
-_UNPORTED_FORMATS = {".usda": "USD", ".usd": "USD", ".usdc": "USD",
-                     ".usdz": "USD", ".fbx": "FBX", ".dae": "DAE",
-                     ".ply": "PLY", ".stl": "STL", ".nif": "NIF"}

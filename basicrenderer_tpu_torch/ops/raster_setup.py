@@ -26,7 +26,6 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 
 from ..graph.framedata import FrameConfig
-from ..utils import math3d
 
 # Triangle payload lane layout, row-per-triangle (P, SETUP_LANES):
 #  0-2: edge0 A,B,C   (normalized: E_i(x,y) IS the barycentric weight of v_i;
@@ -67,7 +66,9 @@ def fma(a, b, c):
     if not isinstance(c, torch.Tensor):
         c = torch.full_like(a if isinstance(a, torch.Tensor) else b, c)
     if not isinstance(b, torch.Tensor):
-        b = torch.tensor(b, dtype=torch.float32, device=c.device)
+        # A fill on the tensor's own device: torch.tensor(b, device=...)
+        # would be a blocking host-to-device copy on the card.
+        b = torch.full_like(c, b)
     return torch.addcmul(c, a, b)
 
 
@@ -128,18 +129,34 @@ def rotate_cols_3x3(m_cols, idx, x, y, z):
 _MODEL3 = (0, 1, 2, 4, 5, 6, 8, 9, 10)
 
 
+def _affine_rows(m: torch.Tensor, x, y, z):
+    """World (x, y, z) of per-row row-major 4x4s (V, 16): each output as
+    the sequential chain fma(m3, 1, fma(m2, z, fma(m1, y, m0 * x))) that
+    XLA's CPU backend evaluates a batched dot with (the JAX package's
+    einsum "vij,vj->vi"). m3 * 1 is exact, so its fma rounds as m3 + c."""
+    return tuple(m[:, 4 * r + 3] + fma(m[:, 4 * r + 2], z,
+                                       fma(m[:, 4 * r + 1], y, m[:, 4 * r] * x))
+                 for r in range(3))
+
+
+def _clip_columns(viewproj: torch.Tensor, wx, wy, wz) -> torch.Tensor:
+    """(V, 4) clip of world columns: math3d.mat4_columns with w = 1 as XLA
+    contracts it, fma(m2, z, fma(m0, x, m1 * y)) + m3 (setup.dot3)."""
+    return torch.stack([dot3(viewproj[r, 0], wx, viewproj[r, 1], wy,
+                             viewproj[r, 2], wz) + viewproj[r, 3]
+                        for r in range(4)], dim=-1)
+
+
 def transform_vertices(positions: torch.Tensor, vert_object: torch.Tensor,
                        object_mats: torch.Tensor, viewproj: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Object-space verts -> (clip (V, 4), world (V, 3)), in column math
-    (the shadow passes need no normals)."""
+    (the shadow passes need no normals). Bit-equal to the JAX package's
+    jitted transform on the CPU."""
     m = object_mats.reshape(-1, 16)[vert_object.long()]   # (V, 16)
-    px, py, pz = positions[:, 0], positions[:, 1], positions[:, 2]
-    wx = m[:, 0] * px + m[:, 1] * py + m[:, 2] * pz + m[:, 3]
-    wy = m[:, 4] * px + m[:, 5] * py + m[:, 6] * pz + m[:, 7]
-    wz = m[:, 8] * px + m[:, 9] * py + m[:, 10] * pz + m[:, 11]
-    clip = torch.stack(math3d.mat4_columns(viewproj, wx, wy, wz), dim=-1)
-    return clip, torch.stack([wx, wy, wz], dim=-1)
+    wx, wy, wz = _affine_rows(m, positions[:, 0], positions[:, 1],
+                              positions[:, 2])
+    return _clip_columns(viewproj, wx, wy, wz), torch.stack([wx, wy, wz], -1)
 
 
 def transform_geometry(positions: torch.Tensor, normals: torch.Tensor,
@@ -147,15 +164,15 @@ def transform_geometry(positions: torch.Tensor, normals: torch.Tensor,
                        object_normal_mats: torch.Tensor, viewproj: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Object-space verts+normals -> (clip (V,4), world (V,3), wnormal (V,3)).
-    Column math throughout: no matmul, so every product is a true f32
-    product whatever the device."""
+    Column math throughout, no matmul: every lane is the fused chain XLA's
+    CPU dot evaluates, so the lanes equal the JAX package's bit for bit."""
     clip, world = transform_vertices(positions, vert_object, object_mats,
                                      viewproj)
     nm = object_normal_mats.reshape(-1, 9)[vert_object.long()]   # (V, 9)
     nx, ny, nz = normals[:, 0], normals[:, 1], normals[:, 2]
-    wn = torch.stack([nm[:, 0] * nx + nm[:, 1] * ny + nm[:, 2] * nz,
-                      nm[:, 3] * nx + nm[:, 4] * ny + nm[:, 5] * nz,
-                      nm[:, 6] * nx + nm[:, 7] * ny + nm[:, 8] * nz], dim=-1)
+    wn = torch.stack([fma(nm[:, 3 * r + 2], nz,
+                          fma(nm[:, 3 * r + 1], ny, nm[:, 3 * r] * nx))
+                      for r in range(3)], dim=-1)
     return clip, world, wn
 
 
@@ -378,7 +395,8 @@ def clip_near_tris(g0: torch.Tensor, g1: torch.Tensor, g2: torch.Tensor,
         wu, wv = u[:, 3], v[:, 3]
         t = (eps - wu) / torch.where(torch.abs(wv - wu) > 1e-12, wv - wu, 1.0)
         t = torch.clamp(t, 0.0, 1.0)[:, None]
-        return u + t * (v - u)
+        # u + t * (v - u) as XLA fuses it: one rounding of the product-sum.
+        return fma(t, v - u, u)
 
     i_bc = lerp(B, C)       # two-inside case
     i_ca = lerp(C, A)       # shared: C->A crossing (both cases)

@@ -7,8 +7,10 @@ NVIDIA GPU (written for an H100).
     python3 chip_smoke.py --profile  # every phase, then a torch.profiler
                                      # trace of 5 frames of slices 2, 3,
                                      # 3b and 4
-    python3 chip_smoke.py --phase16  # phases 1-2, 13 and 16 only (no
-                                     # kernels line and no result)
+    python3 chip_smoke.py --only 6,14  # phases 1-2 and the named ones
+                                       # of 6-17, with the phases whose
+                                       # scenes they reuse (no kernels
+                                       # line and no result)
 
 Run from the root of a checkout. Phases, one line each:
  1. the card and toolchain;
@@ -178,7 +180,19 @@ Run from the root of a checkout. Phases, one line each:
     argmin's ties on the card; (e) tests/test_skinning.py's cylinder bent
     over 4 frames at 1920x1080 (its K1 launches held to the plain version
     and timed alone) and at 256x256 card against CPU on the soup and
-    cluster paths.
+    cluster paths;
+17. every import format: (a) the fixtures of
+    basicrenderer_tpu_torch/tools/format_fixtures.py (a textured binary
+    FBX, USDA, modern and legacy USDC, USDZ, a textured NIF, binary PLY
+    and STL, DAE) through load_model and the Renderer at 256x256 on the
+    card and on the CPU (vis equal, RMSE <= 1.0; K1 on every card frame,
+    K4 on the textured ones); (b) city-1080p-usdc: assets/city.glb
+    exported with export_meshes_usdc and read back with load_usdc (host
+    seconds of each, the file's size; every mesh array bit-equal, world
+    matrices within f32), models/city.finish_city's LOD and lights, and
+    config1_minimal at 1920x1080 (3 warm, 8 timed frames), one captured
+    frame's K2 launches (exact) and K3 launch held to the plain versions
+    and timed alone.
 Each kernel timed alone is timed twice: by CUDA events around
 back-to-back launches (cuda_ms, the kernels line's `ms`) and by the device
 time of its launches in a torch.profiler trace (device_ms, the kernels
@@ -1339,12 +1353,10 @@ def main():
         f"taa_warp_kernel<3> {k5_occ} blocks/SM on 32x128 tiles | K6 at "
         f"1080p: {k6_occ}")
 
-    if "--phase16" in sys.argv[1:]:
-        # Phase 16 alone, over phase 13's city (no kernels line, no
-        # result): the short drive for changes to slice 13's paths.
-        city_recs, city_built = slice10_city(np, torch, dev, kernels, smi)
-        recs = slice13_streaming(np, torch, dev, kernels, smi, city_built)
-        say("phase 16 records: " + json.dumps(recs))
+    only = only_phases(sys.argv[1:])
+    if only is not None:
+        recs = later_phases(np, torch, dev, kernels, smi, only)
+        say(f"phases {sorted(only)} records: " + json.dumps(recs))
         return 0
 
     # -- 3. kernels vs plain on the card -----------------------------------
@@ -1687,32 +1699,7 @@ def main():
         say(f"quick run: phases 6-14 skipped; {time.perf_counter() - t_start:.1f} s")
         return 0
 
-    records = {}
-    soup = []     # phase 6's scene, kept for phases 12 and 14
-    records.update(slice1(np, torch, dev, kernels, soup))
-    yard = list(courtyard(np, torch, dev))   # phase 9 drops its buffers
-    records.update(slice2(np, torch, dev, kernels, smi, yard,
-                          profile="--profile" in sys.argv[1:]))
-    records.update(slice3(np, torch, dev, kernels, smi, yard,
-                          profile="--profile" in sys.argv[1:]))
-    records.update(slice3b(np, torch, dev, kernels, smi, yard,
-                           profile="--profile" in sys.argv[1:]))
-    records.update(slice4(np, torch, dev, kernels, smi, yard,
-                          profile="--profile" in sys.argv[1:]))
-    records.update(slice5_tangents(np, torch, dev, kernels, smi, yard))
-    records.update(slice5_occlusion(np, torch, dev, kernels, smi, soup,
-                                    yard))
-    del yard
-    city_recs, city_built = slice10_city(np, torch, dev, kernels, smi)
-    records.update(city_recs)
-    records.update(slice11_shadows(np, torch, dev, kernels, smi, city_built,
-                                   soup))
-    del soup
-    records.update(slice12_renderer(np, torch, dev, kernels, smi,
-                                    city_built))
-    records.update(slice13_streaming(np, torch, dev, kernels, smi,
-                                     city_built))
-    del city_built
+    records = later_phases(np, torch, dev, kernels, smi)
 
     print(json.dumps({"kernels": [records[k] for k in
                                   ("K1", "K2", "K2-VSM", "K3", "K4", "K4-BC3",
@@ -1723,7 +1710,7 @@ def main():
                                    "K6-tangent", "K4-city", "K5-taau",
                                    "K2-CSM", "K2-spot", "K2-cube",
                                    "K1-CSM", "K2-reyes", "K2-stream",
-                                   "K1-skin")]}),
+                                   "K1-skin", "K2-usdc", "K3-usdc")]}),
           flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1732,6 +1719,72 @@ def main():
     return 0
 
 
+# The earlier phases whose scenes a phase of 6-17 reuses.
+PHASE_NEEDS = {12: {6}, 14: {6, 13}, 15: {13}, 16: {13}}
+
+
+def only_phases(argv):
+    """The phases that `--only N,M,...` names, with those whose scenes
+    they reuse; None (every phase) without the flag."""
+    if "--only" not in argv:
+        return None
+    only = {int(p) for p in argv[argv.index("--only") + 1].split(",")}
+    for p in list(only):
+        only |= PHASE_NEEDS.get(p, set())
+    check(only <= set(range(6, 18)), f"--only takes phases 6-17, not {only}")
+    return only
+
+
+def later_phases(np, torch, dev, kernels, smi, only=None):
+    """Phases 6-17 in order, or those in `only`: the records of every
+    kernel they time."""
+    def want(*phases):
+        return only is None or any(p in only for p in phases)
+
+    profile = "--profile" in sys.argv[1:]
+    records = {}
+    soup = []     # phase 6's scene, kept for phases 12 and 14
+    if want(6):
+        records.update(slice1(np, torch, dev, kernels, soup))
+    if want(7, 8, 9, 10, 11, 12):
+        yard = list(courtyard(np, torch, dev))   # phase 9 drops its buffers
+        if want(7):
+            records.update(slice2(np, torch, dev, kernels, smi, yard,
+                                  profile=profile))
+        if want(8):
+            records.update(slice3(np, torch, dev, kernels, smi, yard,
+                                  profile=profile))
+        if want(9):
+            records.update(slice3b(np, torch, dev, kernels, smi, yard,
+                                   profile=profile))
+        if want(10):
+            records.update(slice4(np, torch, dev, kernels, smi, yard,
+                                  profile=profile))
+        if want(11):
+            records.update(slice5_tangents(np, torch, dev, kernels, smi,
+                                           yard))
+        if want(12):
+            records.update(slice5_occlusion(np, torch, dev, kernels, smi,
+                                            soup, yard))
+        del yard
+    city_built = None
+    if want(13):
+        city_recs, city_built = slice10_city(np, torch, dev, kernels, smi)
+        records.update(city_recs)
+    if want(14):
+        records.update(slice11_shadows(np, torch, dev, kernels, smi,
+                                       city_built, soup))
+    del soup
+    if want(15):
+        records.update(slice12_renderer(np, torch, dev, kernels, smi,
+                                        city_built))
+    if want(16):
+        records.update(slice13_streaming(np, torch, dev, kernels, smi,
+                                         city_built))
+    del city_built
+    if want(17):
+        records.update(slice14_formats(np, torch, dev, kernels, smi))
+    return records
 
 
 def slice1(np, torch, dev, kernels, soup):
@@ -5201,6 +5254,254 @@ def slice13_streaming(np, torch, dev, kernels, smi, city_built):
         f"{plain_ms:.0f} ms; exact) | 256x256 card vs CPU per frame (vis "
         f"agreement / RMSE, limits 0.999, 0.1): {' | '.join(s_lines)} | "
         f"phase 16 {time.perf_counter() - t_phase:.1f} s | {smi}")
+    return recs
+
+
+# Phase 17: every format's fixture through the Renderer, card against CPU.
+FORMAT_CAPS = dict(max_vertices=1 << 10, max_triangles=1 << 10, max_objects=16,
+                   max_materials=8, max_lights=4)
+FORMAT_SETTINGS = dict(renderResolution=(256, 256))
+# The city exported to USDC imports one mesh per instance (114, where the
+# glb shares 24 among them): the geometry capacities grow to hold them.
+CITY_INSTANCED_TRIANGLES = 2_438_472   # the glb's instances, before LOD
+CITY_USDC_CAPS = dict(CITY_CAPS, max_triangles=1 << 23,
+                      max_geom_clusters=1 << 16, max_groups=1 << 14)
+
+
+def format_frames(np, torch, dev, kernels):
+    """Phase 17 (a): each fixture of tools/format_fixtures.py through
+    load_model and the Renderer at 256x256 at its default settings, on the
+    card and on the CPU: vis equal, RMSE <= 1.0; K1 launched on every card
+    frame, K4 on the textured ones (FBX, NIF). Returns the line's parts."""
+    import tempfile
+    from basicrenderer_tpu_torch.renderer import Renderer
+    from basicrenderer_tpu_torch.scene.bridge import BridgeCapacities
+    from basicrenderer_tpu_torch.tools import format_fixtures as ff
+    parts = []
+    with tempfile.TemporaryDirectory() as d:
+        for name in ff.FORMATS:
+            sub = os.path.join(d, name)
+            os.makedirs(sub)
+            path = ff.write_fixture(name, sub)
+            outs, launches, cpu_s = [], None, 0.0
+            for device in (dev, "cpu"):
+                t0 = time.perf_counter()
+                r = Renderer(caps=BridgeCapacities(**FORMAT_CAPS), device=device)
+                sc, _ = ff.fixture_scene(path, r.meshes, r.materials,
+                                         r.textures, r.skeletons)
+                for k, v in FORMAT_SETTINGS.items():
+                    r.settings.set(k, v)
+                r.set_current_scene(sc)
+                if device is dev:
+                    reset_launches(kernels)
+                r.update()
+                out = r.render()
+                if device is dev:
+                    torch.cuda.synchronize()
+                    launches = [k.launches for k in kernels[:4]]
+                    textured = len(r.textures)
+                else:
+                    cpu_s = time.perf_counter() - t0
+                outs.append(out)
+            check(launches[0] > 0, f"{name}: the card frame launched K1 "
+                  f"{launches[0]} times")
+            check(textured == (1 if name in ("fbx", "nif") else 0) and
+                  (launches[3] > 0) == bool(textured), f"{name}: "
+                  f"{textured} textures, K4 launched {launches[3]} times")
+            agree = float((outs[0]["vis"].cpu() == outs[1]["vis"]).float().mean())
+            err = rmse(outs[0]["image"].cpu().numpy(), outs[1]["image"].numpy())
+            cover = float((outs[1]["vis"] > 0).float().mean())
+            check(agree == 1.0 and err <= 1.0 and 0.1 < cover < 1.0,
+                  f"{name} card vs CPU: vis agreement {agree}, RMSE {err}, "
+                  f"coverage {cover}")
+            parts.append(f"{name} vis {agree:.5f} RMSE {err:.4f} (K1 "
+                         f"{launches[0]}, K3 {launches[2]}, K4 {launches[3]};"
+                         f" CPU {cpu_s:.1f} s)")
+    return parts
+
+
+def slice14_formats(np, torch, dev, kernels, smi):
+    """Phase 17: (a) format_frames; (b) city-1080p-usdc: assets/city.glb
+    through the glTF importer, its renderables written with
+    export_meshes_usdc (an instance each: mesh, material, world matrix),
+    read back with load_usdc (the whole crate through the native LZ4
+    codec), every mesh array bit-equal to the export and every world
+    matrix within f32, then models/city.finish_city (the LOD DAGs, the
+    lights, the hero camera) and bench.py's config1_minimal at 1920x1080;
+    one captured frame's K2 launches held to the plain version (exact)
+    and its K3 launch (within SHADE_RTOL / SHADE_ATOL), each timed alone.
+    Returns the kernels-line records K2-usdc and K3-usdc."""
+    import gc
+    import tempfile
+    from basicrenderer_tpu_torch.graph.frame import build_frame_fn
+    from basicrenderer_tpu_torch.graph.framedata import FrameConfig
+    from basicrenderer_tpu_torch.graph.temporal import TemporalState
+    from basicrenderer_tpu_torch.models import city, usdc
+    from basicrenderer_tpu_torch.models.materials import MaterialRegistry
+    from basicrenderer_tpu_torch.models.mesh import MeshRegistry
+    from basicrenderer_tpu_torch.ops import lighting, raster
+    from basicrenderer_tpu_torch.scene.bridge import (BridgeCapacities,
+                                                      SceneRenderBridge)
+    from basicrenderer_tpu_torch.scene.components import Renderable, WorldMatrix
+    from basicrenderer_tpu_torch.scene.scene import Scene
+    t_phase = time.perf_counter()
+    a_parts = format_frames(np, torch, dev, kernels)
+    a_s = time.perf_counter() - t_phase
+    say("phase 17 formats: (a) the fixtures of tools/format_fixtures.py "
+        "through load_model and the Renderer (256x256, default settings) "
+        f"card vs CPU (limits: vis equal, RMSE 1.0) in {a_s:.1f} s: "
+        + "; ".join(a_parts))
+
+    # -- (b) city-1080p-usdc -------------------------------------------------
+    t0 = time.perf_counter()
+    src = city.load_city(lod=False, textures=None)
+    glb_s = time.perf_counter() - t0
+    inst = [(r.mesh_id, r.material_id,
+             np.asarray(src.scene.world.get(e, WorldMatrix).value, np.float64))
+            for e, (r,) in src.scene.world.query(Renderable)]
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "city.usdc")
+        t0 = time.perf_counter()
+        usdc.export_meshes_usdc(path, src.meshes, src.materials, inst)
+        export_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        with open(path, "rb") as f:
+            head = f.read(11)
+        check(head[:8] == b"PXR-USDC" and tuple(head[8:]) == (0, 8, 0),
+              f"city.usdc header {head!r}")
+        t0 = time.perf_counter()
+        sc, meshes, mats = Scene(), MeshRegistry(), MaterialRegistry()
+        usdc.load_usdc(path, sc, meshes, mats)
+        import_s = time.perf_counter() - t0
+    check(len(meshes) == len(inst), f"city.usdc: {len(meshes)} meshes for "
+          f"{len(inst)} instances")
+    sc.propagate_transforms()
+    seen, world_err = set(), 0.0
+    for e, (r,) in sc.world.query(Renderable):
+        m = meshes.get(r.mesh_id)
+        k = int(m.name[len("mesh"):])
+        seen.add(k)
+        ref = src.meshes.get(inst[k][0])
+        for field in ("positions", "normals", "uvs", "indices"):
+            a, b = getattr(m, field), np.asarray(getattr(ref, field))
+            check(a.dtype == b.dtype and a.shape == b.shape
+                  and np.array_equal(a, b), f"city.usdc mesh{k} {field}: "
+                  f"{a.dtype}{a.shape} differs from the export's "
+                  f"{b.dtype}{b.shape}")
+        M = inst[k][2]
+        diff = float(np.abs(np.asarray(sc.world.get(e, WorldMatrix).value,
+                                       np.float64) - M).max())
+        world_err = max(world_err, diff / max(1.0, float(np.abs(M).max())))
+    check(seen == set(range(len(inst))), f"city.usdc: renderables of "
+          f"{len(seen)} of {len(inst)} instances")
+    check(world_err <= 1e-5, f"city.usdc world matrices differ by "
+          f"{world_err} (relative to the largest entry)")
+    n_src = src.num_triangles
+    del src
+    t0 = time.perf_counter()
+    built = city.finish_city(sc, meshes, mats, lod=True,
+                             num_point_lights=1000 - 12)
+    lod_s = time.perf_counter() - t0
+    check(n_src == CITY_INSTANCED_TRIANGLES
+          and built.num_triangles == CITY_TRIANGLES, f"city.usdc: {n_src} "
+          f"instanced triangles, {built.num_triangles} with the LOD levels "
+          f"({CITY_INSTANCED_TRIANGLES} and {CITY_TRIANGLES} expected)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    bridge = SceneRenderBridge(sc, meshes, mats,
+                               BridgeCapacities(**CITY_USDC_CAPS))
+    buf = bridge.build_scene_buffers(device=dev)
+    torch.cuda.synchronize()
+    buf_s = time.perf_counter() - t0
+    cfg = FrameConfig(**CONFIG1_MINIMAL)
+    fr = build_frame_fn(cfg)
+    temporal = TemporalState(cfg, device=dev)
+    warm, timed = CITY_FRAMES
+    n = warm + timed
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches(kernels)
+    out, frame_ms, inputs_ms, stages = timed_frames(
+        torch, np, fr, buf, sc, bridge, temporal, warm, timed)
+    launches = [k.launches for k in kernels]
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    check(launches[0] == 0 and launches[1] == 3 * n and launches[2] == n,
+          f"city.usdc: K1 / K2 / K3 launched {launches[:3]} times in {n} "
+          "frames (0, 3 a frame, 1 a frame expected)")
+    img, vis = out["image"], out["vis"]
+    coverage = float((vis > 0).float().mean())
+    check(tuple(img.shape) == (1080, 1920, 3)
+          and img.dtype == torch.uint8
+          and bool(torch.isfinite(out["hdr"]).all())
+          and 0.1 < coverage < 1.0 and float(img.float().std()) > 5.0,
+          f"city.usdc frame: image {tuple(img.shape)} {img.dtype}, coverage "
+          f"{coverage}")
+    counters = {k: int(out[k]) for k in ("bin_overflow", "cluster_overflow",
+                                         "num_pairs", "light_overflow")}
+    del out
+    with Capture(raster, ["raster_groups_cuda"]) as rc, \
+            Capture(lighting, ["tiled_shade_cuda"]) as lc:
+        timed_frames(torch, np, fr, buf, sc, bridge, temporal, 1, 0, first=n)
+    check(len(rc.calls) == 3 and len(lc.calls) == 1, f"city.usdc: the "
+          f"captured frame launched K2 {len(rc.calls)} and K3 "
+          f"{len(lc.calls)} times")
+    k2_err, k2_ms, k2_dev, k2_plain, b2_ms, b2_by = k_launch_record(
+        torch, raster, rc.calls, raster.raster_groups_cuda,
+        raster.raster_groups_plain, lambda a, kw: a[1], "city.usdc K2",
+        k1=False)
+    a3 = lc.calls[0][1]
+    k3_err, k3_ulp = k3_check(torch, a3, "city.usdc K3")
+    k3_ms = cuda_ms(torch, lambda: lighting.tiled_shade_cuda(*a3), 10)
+    k3_dev = device_ms(torch, lambda: lighting.tiled_shade_cuda(*a3), 10)
+    _, k3_plain = host_ms(torch, lambda: lighting.tiled_shade_plain(*a3))
+    shade_in, payload, counts = a3[0], a3[1], a3[2]
+    hw = shade_in.shape[1] * shade_in.shape[2]
+    b3_ms, b3_by = bound(int(counts.long().sum()) * cfg.tile_h * cfg.tile_w
+                         * SHADE_FLOPS_PER_PIXEL_LIGHT
+                         + hw * SHADE_FLOPS_PER_PIXEL,
+                         shade_in.numel() * 4 + payload.numel() * 4
+                         + counts.numel() * 4 + hw * 12)
+    recs = {"K2-usdc": {
+        "name": "raster_groups (K2 on city-1080p-usdc: the city exported to "
+                f"USDC and imported again, {len(inst)} meshes; phase 1, "
+                "phase 2 seeded, mask pass)",
+        "route": "cuda", "source": "basicrenderer_tpu_torch/csrc/raster.cu",
+        "replaces": "basicrenderer_tpu/ops/raster_pallas.py:252",
+        "launches": launches[1], "max_abs_err": k2_err, "ms": k2_ms,
+        "device_ms": k2_dev, "plain_ms": k2_plain, "bound_ms": b2_ms,
+        "bound_by": b2_by, "library_ms": None},
+        "K3-usdc": {
+        "name": "tiled_shade (K3 on city-1080p-usdc, 1000 point lights)",
+        "route": "cuda",
+        "source": "basicrenderer_tpu_torch/csrc/tiled_shade.cu",
+        "replaces": "basicrenderer_tpu/ops/lighting.py:133",
+        "launches": launches[2], "max_abs_err": k3_err, "ms": k3_ms,
+        "device_ms": k3_dev, "plain_ms": k3_plain, "bound_ms": b3_ms,
+        "bound_by": b3_by, "library_ms": None}}
+    order = ["cut", "hzb", "setup", "bin", "raster", "hzb2", "cut2", "setup2",
+             "bin2", "raster2", "mask", "gbuffer", "light_cull", "tiled_shade",
+             "shade"]
+    say(f"phase 17 formats: (b) city-1080p-usdc ({smi}): glb import "
+        f"{glb_s:.2f} s | export_meshes_usdc {export_s:.2f} s host, "
+        f"{size} bytes, crate 0.8.0, {len(inst)} instances | load_usdc "
+        f"{import_s:.2f} s host | every mesh array bit-equal, world matrices "
+        f"within {world_err:.3g} | finish_city (LOD, 1000 point lights) "
+        f"{lod_s:.2f} s, buffers {buf_s:.2f} s | config1_minimal "
+        f"{cfg.width}x{cfg.height}: "
+        f"{statistics.median(frame_ms):.3f} ms/frame (median of {timed}, "
+        f"after {warm} warm; host inputs {statistics.median(inputs_ms):.3f} "
+        f"ms), peak {peak_gib:.2f} GiB, coverage {coverage:.4f}, counters "
+        f"{counters} | stages " + " ".join(
+            f"{k} {stages[k]:.3f}" for k in order if k in stages)
+        + f" | K2 {k2_ms:.4f} ms for the frame's 3 launches (device "
+        f"{k2_dev:.4f}; bound {b2_ms:.4f}, the largest by {b2_by}; plain "
+        f"{k2_plain:.0f} ms; exact) | K3 {k3_ms:.4f} ms (device "
+        f"{k3_dev:.4f}; bound {b3_ms:.4f} by {b3_by}; plain {k3_plain:.0f} "
+        f"ms; max abs err {k3_err:.3g}, max ulp {k3_ulp}) | phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    del buf, bridge, built, fr, temporal
+    gc.collect()
+    torch.cuda.empty_cache()
     return recs
 
 

@@ -1,7 +1,8 @@
 """The port imports torch and never jax, directly or through another
 module: import every module of basicrenderer_tpu_torch in a fresh
-interpreter and check that no jax module was loaded; and the scripts that
-drive it on the card import neither jax nor the JAX package."""
+interpreter and check that no jax module and no module of the JAX package
+was loaded; and the scripts that drive it on the card import neither jax
+nor the JAX package."""
 
 import json
 import os
@@ -21,6 +22,8 @@ for n in names:
 print(json.dumps({"modules": names,
                   "jax": sorted(m for m in sys.modules
                                 if m == "jax" or m.startswith(("jax.", "jaxlib", "flax"))),
+                  "jax_package": sorted(m for m in sys.modules
+                                        if m.split(".")[0] == "basicrenderer_tpu"),
                   "tf32": [__import__("torch").backends.cuda.matmul.allow_tf32,
                            __import__("torch").backends.cudnn.allow_tf32]}))
 """
@@ -47,9 +50,13 @@ def test_port_never_imports_jax():
                 "utils.input", "utils.ui_server", "utils.png",
                 "tools.clod_cache", "tools.showcase", "models.streaming",
                 "models.texstream", "models.voxels", "ops.voxel_rt",
-                "ops.rt_reflect", "ops.skinning"):
+                "ops.rt_reflect", "ops.skinning", "models.crate_codec",
+                "models.usdc", "models.usd", "models.fbx", "models.nif",
+                "models.meshformats", "utils.http_resolver",
+                "tools.format_fixtures"):
         assert f"basicrenderer_tpu_torch.{mod}" in out["modules"], mod
     assert out["jax"] == []
+    assert out["jax_package"] == []
     assert out["tf32"] == [False, False]
 
 

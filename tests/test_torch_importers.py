@@ -9,7 +9,9 @@ bench.py's city (assets/city.glb, without the LOD build) are imported by
 both packages from the same file. Mesh arrays, material fields, texture
 ids, registry layers (images, flags, alpha cutoffs, strip pyramids),
 skeletons, clips and their samples, and every entity's components must be
-equal: both packages run the same numpy code.
+equal: both packages run the same numpy code. The other formats are
+held to the JAX package in tests/test_torch_formats.py, through the same
+helpers.
 """
 
 import base64
@@ -303,17 +305,6 @@ def test_city_scene_matches_jax():
     _equal(jb.meshes.meshes, pb.meshes.meshes, "meshes")
     _equal(jb.materials.materials, pb.materials.materials, "materials")
     _worlds_equal(jb.scene, pb.scene)
-
-
-@pytest.mark.parametrize("ext,fmt", [(".usda", "USD"), (".usdz", "USD"),
-                                     (".fbx", "FBX"), (".dae", "DAE"),
-                                     (".ply", "PLY"), (".stl", "STL"),
-                                     (".nif", "NIF")])
-def test_formats_to_come_raise(tmp_path, ext, fmt):
-    p = str(tmp_path / f"x{ext}")
-    open(p, "w").write("")
-    with pytest.raises(NotImplementedError, match=fmt):
-        _import(PORT_PKG, p)
 
 
 def test_unknown_format_raises(tmp_path):

@@ -11,7 +11,8 @@ the port vs the JAX package on the CPU.
   two forms agree on these scenes.
 - A 3-frame sequence over a walled scene (objects behind a wall that the
   orbiting camera uncovers), each package carrying its own previous depth
-  (the port through graph/temporal.TemporalState): vis equal, image RMSE
+  (the port through graph/temporal.TemporalState): vis equal on every
+  pixel, near-clip rows included, image RMSE
   <= 1.0, counters equal; phase 1 culls occluded objects and phase 2
   rasters objects that a frame uncovers. Occlusion on equals occlusion
   off in vis and image on every frame.
@@ -208,17 +209,12 @@ def phase_verdicts(buf, view, cfg, prev_depth):
 
 
 def test_soup_occlusion_sequence_matches_jax(sequence):
-    """vis agrees on >= 99.9% of the pixels, the soup frame's parity level
-    (tests/test_torch_frame.py): the setups of the near-clip rows round
-    differently from XLA's fused setup, which moves a few pixels on the
-    shared edge of a clipped floor quad's two halves (1-3 of 16,384 here,
-    the same with occlusion off). Every differing pixel belongs to a
-    near-clip row in one package or the other."""
-    T = walled_scene(PORT_PKG)[1].caps.max_triangles
+    """vis equal on every pixel, the soup frame's parity level
+    (tests/test_torch_frame.py), the near-clip rows of the clipped floor
+    quad included: the port's clip lerps as XLA fuses them."""
     for i, (j, p, _off, _v) in enumerate(sequence):
         diff = p["vis"] != j["vis"]
-        assert diff.mean() <= 1e-3, f"frame {i + 1}: {diff.sum()} pixels"
-        assert ((p["vis"][diff] > T) | (j["vis"][diff] > T)).all(), i
+        assert not diff.any(), f"frame {i + 1}: {diff.sum()} pixels"
         err = _rmse(p["image"], j["image"])
         assert err <= 1.0, f"frame {i + 1}: image RMSE {err:.4f}"
         for key in ("bin_overflow", "num_pairs", "cluster_overflow"):

@@ -2,9 +2,14 @@
 (with near-plane clipping) and tile binning.
 
 Tolerances:
-- transform_geometry: allclose at rtol 1e-6, atol 1e-6 (XLA's CPU backend
-  contracts the column sums into fused multiply-adds; PyTorch rounds each
-  product; one f32 ulp of the largest clip coordinate is ~1e-6).
+- transform_geometry, transform_vertices and clip_near_tris: bit-equal.
+  XLA's CPU backend evaluates the JAX einsums as sequential fused chains
+  (world fma(m3, 1, fma(m2, z, fma(m1, y, m0*x))), normal
+  fma(n2, nz, fma(n1, ny, n0*nx))), the clip lanes as
+  fma(m2, z, fma(m0, x, m1*y)) + m3 and the clip lerp as
+  fma(t, v - u, u); the port spells the same. Tested at V = 1,003 and
+  T = 1,003 as well as on a scene: a power of two can hide a wrong
+  contraction.
 - triangle_setup_packed: each plane (A, B, C) of a row, evaluated over
   the screen, agrees to |dA|*W + |dB|*H + |dC| <= 2e-4 * (|A|*W + |B|*H
   + |C|) + 1e-7 (the same contraction differences, amplified by the
@@ -74,7 +79,57 @@ def test_transform_geometry_matches_jax():
         _t(buf.positions), _t(buf.normals), _t(buf.vert_object),
         _t(buf.object_mats), _t(buf.object_normal_mats), _t(vd.viewproj))
     for a, b in zip(p, j):
-        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6, atol=1e-6)
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def _random_transform_inputs(seed, V, O):
+    rng = np.random.default_rng(seed)
+    om = rng.normal(size=(O, 4, 4)).astype(np.float32)
+    om[:, 3] = [0, 0, 0, 1]
+    return (rng.normal(size=(V, 3)).astype(np.float32) * 3,
+            rng.normal(size=(V, 3)).astype(np.float32),
+            rng.integers(0, O, V).astype(np.int32), om,
+            rng.normal(size=(O, 3, 3)).astype(np.float32),
+            rng.normal(size=(4, 4)).astype(np.float32))
+
+
+@pytest.mark.parametrize("seed,V,O", [(0, 1003, 7), (1, 517, 3), (2, 1024, 5)])
+def test_soup_lanes_bit_equal_jax(seed, V, O):
+    """World, normal and clip lanes of transform_geometry, and the lanes of
+    transform_vertices (the shadow passes' form), equal the jitted JAX
+    functions' bit for bit on random matrices."""
+    pos, nrm, vo, om, onm, vp = _random_transform_inputs(seed, V, O)
+    j = jax.jit(jrs.transform_geometry)(pos, nrm, vo, om, onm, vp)
+    p = prs.transform_geometry(_t(pos), _t(nrm), _t(vo), _t(om), _t(onm),
+                               _t(vp))
+    for name, a, b in zip(("clip", "world", "normal"), p, j):
+        b = np.asarray(b)
+        assert a.shape == b.shape, name
+        bad = (a.numpy() != b).sum(axis=0)
+        assert not bad.any(), f"{name} lanes differ on {bad} vertices"
+    jv = jax.jit(jrs.transform_vertices)(pos, vo, om, vp)
+    pv = prs.transform_vertices(_t(pos), _t(vo), _t(om), _t(vp))
+    for a, b in zip(pv, jv):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+@pytest.mark.parametrize("seed,T,cap", [(1, 1003, 301), (2, 517, 600)])
+def test_clip_near_rows_bit_equal_jax(seed, T, cap):
+    """clip_near_tris on random corner rows (about two thirds cross the
+    w = eps plane): the clipped corner rows, the valid mask, the source
+    ids and the overflow equal the jitted JAX function's bit for bit."""
+    rng = np.random.default_rng(seed)
+    g = [rng.normal(size=(T, 9)).astype(np.float32) for _ in range(3)]
+    valid = rng.random(T) < 0.9
+    j = jax.jit(lambda a, b, c, v: jrs.clip_near_tris(a, b, c, v, cap))(
+        *g, valid)
+    p = prs.clip_near_tris(_t(g[0]), _t(g[1]), _t(g[2]), _t(valid), cap)
+    assert int(np.asarray(j[3]).sum()) > cap // 2
+    for name, a, b in zip(("h0", "h1", "h2", "valid", "src", "overflow"),
+                          p, j):
+        b = np.asarray(b)
+        assert a.shape == b.shape, name
+        np.testing.assert_array_equal(a.numpy(), b, err_msg=name)
 
 
 def test_setup_packed_matches_jax_scene():

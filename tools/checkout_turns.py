@@ -11,8 +11,10 @@ ROOT's chip_smoke.py and package, which build ROOT's kernels into ROOT's
 _build/ at first use, and times WORKLOAD:
 
 - `soup`: chip_smoke.py's phase-6 frame (the soup courtyard from its own
-  camera) and its phase-12 frame (the same courtyard with
-  enable_occlusion, the low camera orbiting);
+  camera), its phase-14d frame (the same view with enable_shadows, the
+  soup path's cascades; timed with phase 6's frame counts) and its
+  phase-12 frame (the same courtyard with enable_occlusion, the low
+  camera orbiting);
 - `kernels`: first, in a process of its own, this script's checkout
   captures the inputs into DIR (default: a new temporary directory,
   outside any checkout): K4's launches of one `full` and one `full_bc3`
@@ -332,6 +334,8 @@ def one_soup(cs, root, _scratch):
     cfg = FrameConfig(width=1920, height=1080, tile_h=32, tile_w=128,
                       max_pairs=1 << 22, near_clip_tris=4096)
     runs = (("soup", cfg, cs.SLICE1_FRAMES, None, None),
+            ("soup_shadows", dataclasses.replace(cfg, enable_shadows=True),
+             cs.SLICE1_FRAMES, None, None),
             ("soup_occlusion", dataclasses.replace(cfg, enable_occlusion=True),
              cs.SOUP_OCC_FRAMES,
              (np.asarray(cs.SOUP_OCC_CAMERA["position"], np.float64),
@@ -443,6 +447,12 @@ def _get(*keys):
 WORKLOADS = {
     "soup": (one_soup, None, (
         ("soup ms/frame", _get("soup", "median_ms")),
+        ("soup setup stage ms", _get("soup", "stage_ms", "setup")),
+        ("soup_shadows ms/frame", _get("soup_shadows", "median_ms")),
+        ("soup_shadows setup stage ms", _get("soup_shadows", "stage_ms",
+                                             "setup")),
+        ("soup_shadows shadows stage ms", _get("soup_shadows", "stage_ms",
+                                               "shadows")),
         ("soup_occlusion ms/frame", _get("soup_occlusion", "median_ms")))),
     "kernels": (one_kernels, capture, tuple(
         (f"K4 {fmt} {part} {unit}", _get(f"k4 {fmt} {part} {unit}"))
