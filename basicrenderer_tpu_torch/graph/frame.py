@@ -1,6 +1,6 @@
 """Frame graph: composes the pass functions into one frame function.
 
-Port of basicrenderer_tpu/graph/frame.py, single chip. The JAX package
+Port of basicrenderer_tpu/graph/frame.py. The JAX package
 traces the whole frame into one jit program; here the frame is a plain
 function that queues its work on the device of its inputs (CUDA tensors:
 the card, with the raster, the tiled shading and the texture window
@@ -89,6 +89,21 @@ resident cut's triangles (ops/voxel_rt.py, ops/rt_reflect.py); the three
 reflection tiers composite into the IBL's specular slot under SSR.
 `FrameProgramCache` keeps one frame function per FrameConfig
 (renderer.py's). Every FrameConfig of the JAX package builds here.
+
+The same body renders one screen-row shard of a frame
+(parallel/tile_sharding.py: `_render_body(..., lcfg=, row0_tiles=,
+rows=)`). The geometry, the binning and the shadow and VSM pages are
+replicated on every shard; the raster (on the shard's slice of the tile
+offsets, at its tile-row offset), the G-buffer, the textures, the
+shading, OIT, TAA and the tonemap run on the shard's rows; the passes
+that cross rows (the HZBs, the VSM, cascade and local shadow terms, SSR,
+the voxel and triangle reflections, GTAO, bloom, auto-exposure) gather
+the frame's rows, run on the whole frame and keep their own rows; the
+per-pixel work that reads a neighbouring row (the texture, IBL and
+voxel upsamples, the mip estimate, the normal-map and anisotropy
+derivatives, the TAA clamp) takes one halo row from each neighbour, so
+the shards render the unsharded frame; "tex_wanted" is the minimum over
+the shards.
 """
 
 from __future__ import annotations
@@ -118,10 +133,20 @@ from .framedata import FrameConfig, FrameParams, SceneBuffers, ViewData
 _TEX_LANE = {"base": 0, "normal": 1, "mr": 2, "emissive": 3}
 
 
-def check_config(config: FrameConfig) -> None:
+def check_config(config: FrameConfig, shards: int = None) -> None:
     """Raise ValueError for upscaling without TAA, NotImplementedError for
     an output size below the render size (the JAX frame only upscales
-    either)."""
+    either). With `shards` (a frame whose tile rows are split over that
+    many ranks, parallel/tile_sharding.py): ValueError unless the tile
+    rows divide evenly, or with upscaling (TAAU is single-card, as in the
+    JAX package)."""
+    if shards is not None:
+        if config.tiles_y % shards:
+            raise ValueError(f"tiles_y={config.tiles_y} not divisible by "
+                             f"{shards} shards")
+        if _upscaling(config):
+            raise ValueError("TAAU upscaling (FrameConfig.output_width / "
+                             "output_height) is single-card")
     if _upscaling(config):
         if not config.enable_taa:
             raise ValueError("upscaling (FrameConfig.output_width / "
@@ -266,13 +291,88 @@ def visibility_pass(pairs, lcfg: FrameConfig, init=None, tile_row0: int = 0):
     return raster_tiles(pairs, lcfg, tile_row0=tile_row0, init=init)
 
 
+class _OneCard:
+    """The row helpers of parallel/tile_sharding.RowShards for a frame
+    that is not sharded: each is the identity, and `halo_rows` adds no
+    row."""
+    world = 1
+
+    @staticmethod
+    def gather_rows(x):
+        return x
+
+    local_rows = localize = pmin = gather_rows
+
+    @staticmethod
+    def halo_rows(x, row_axis: int = 0):
+        return x, 0, 0
+
+
+_ONE_CARD = _OneCard()
+
+
 def halo_upsample(img_ds: torch.Tensor, ds: int, out_h: int, out_w: int,
-                  row_axis: int = 1) -> torch.Tensor:
-    """Bilinear ds -> full upsample (single chip: a plain resize, the same
-    as jax.image.resize(..., "bilinear"))."""
+                  row_axis: int = 1, rows=_ONE_CARD) -> torch.Tensor:
+    """Bilinear ds -> full upsample of img_ds (..., h, w, C), `row_axis`
+    its row dim (the same as jax.image.resize(..., "bilinear")). On a
+    shard of `rows` (a parallel/tile_sharding.RowShards) the image takes
+    the neighbours' halo rows, is resized with ds more output rows for
+    each halo row, and is cropped back: the shard's rows equal the whole
+    frame's (bit for bit when ds is a power of two). Unlike the JAX
+    package's, which pads the frame's top and bottom with the shard's own
+    edge row, it adds no row there, so those rows are exact too."""
     if ds == 1:
         return img_ds
-    return tex_ops.resize_bilinear(img_ds, out_h, out_w, row_dim=row_axis)
+    ext, top, bot = rows.halo_rows(img_ds, row_axis)
+    up = tex_ops.resize_bilinear(ext, out_h + (top + bot) * ds, out_w,
+                                 row_dim=row_axis)
+    return up.narrow(row_axis, top * ds, out_h)
+
+
+def _seam_rows(rows, fn: Callable, *imgs: torch.Tensor):
+    """fn(*imgs) for per-pixel work that reads the neighbouring rows of
+    images (H, W, ...) of a shard's rows (screen derivatives, the TAA
+    clamp's 3x3 box): the images take the neighbours' halo rows (one
+    exchange; int32 ids travel as exact f32) and fn's outputs, a tensor
+    or a tuple of them, are cropped back to the shard's rows, so that its
+    seam rows come out as in the whole frame. The JAX package runs this
+    work on the shard's rows alone. Plain fn(*imgs) on one card."""
+    if rows.world == 1:
+        return fn(*imgs)
+    H, W = imgs[0].shape[:2]
+    flat = [x.reshape(H, W, -1) for x in imgs]
+    ext, top, _bot = rows.halo_rows(torch.cat(
+        [x.to(torch.float32) for x in flat], -1))
+    parts, c = [], 0
+    for x, f in zip(imgs, flat):
+        k = f.shape[-1]
+        parts.append(ext[..., c:c + k].to(x.dtype)
+                     .reshape((ext.shape[0],) + x.shape[1:]))
+        c += k
+    out = fn(*parts)
+    if isinstance(out, tuple):
+        return tuple(y[top:top + H] for y in out)
+    return out[top:top + H]
+
+
+def _atlas_resolution(scene: SceneBuffers, config: FrameConfig) -> int:
+    return tex_ops.infer_strip_resolution(
+        scene.tex_strips.shape[0] // scene.tex_flags.shape[0],
+        config.tex_format)
+
+
+def halo_mipf(u_ds: torch.Tensor, v_ds: torch.Tensor, resolution: int,
+              rows=_ONE_CARD) -> Optional[torch.Tensor]:
+    """The sampler's per-pixel mip estimate (h, w) of a shard's u/v
+    planes over an atlas of `resolution`, with seam-exact row
+    derivatives: the min-|grad| ddy of the shard's first and last rows
+    sees the neighbours' halo rows. None on one card, where the sampler
+    computes the same estimate itself."""
+    if rows.world == 1:
+        return None
+    M = len(tex_ops.mip_layout(resolution)[0])
+    ext, top, _bot = rows.halo_rows(torch.stack([u_ds, v_ds], -1))
+    return tex_ops.compute_mip(ext, resolution, M)[top:top + u_ds.shape[0]]
 
 
 def _pad_to(x: torch.Tensor, cfg: FrameConfig) -> torch.Tensor:
@@ -288,8 +388,20 @@ def _render_body(scene: SceneBuffers, view: ViewData, params: FrameParams,
                  prev_viewproj: Optional[torch.Tensor] = None,
                  moving_rel: Optional[torch.Tensor] = None,
                  moving_ids: Optional[torch.Tensor] = None,
-                 vsm_state=None) -> Dict[str, torch.Tensor]:
-    H, W = config.height, config.width
+                 vsm_state=None, *, lcfg: FrameConfig = None,
+                 row0_tiles: int = 0, rows=None) -> Dict[str, torch.Tensor]:
+    """The frame. `config` is the whole frame's; with `rows` (a
+    parallel/tile_sharding.RowShards) the body renders that rank's shard:
+    `lcfg` is `config` at the shard's height, `row0_tiles` its first tile
+    row, `prev_depth` and `taa_history` its own rows (and no
+    `prev_viewproj`: it resolves TAA with the camera jitter), and the
+    image outputs are its rows. The defaults render the whole frame."""
+    if lcfg is None:
+        lcfg = config
+    sh = rows if rows is not None else _ONE_CARD
+    H, W = lcfg.height, config.width
+    full_h = config.height
+    row0_px = row0_tiles * config.tile_h
     dev = scene.positions.device
 
     def stage(name):
@@ -335,26 +447,29 @@ def _render_body(scene: SceneBuffers, view: ViewData, params: FrameParams,
             stage(names[1])
             prs = raster_setup.bin_clustered(lanes, bboxt, valid, bcfg)
             stage(names[2])
-            d, v, ch = visibility_pass(prs, config, init=init)
+            d, v, ch = visibility_pass(sh.localize(prs), lcfg, init=init,
+                                       tile_row0=row0_tiles)
             return d, v, ch, prs, comp.overflow + clip_ovf
 
         stage("cut")
         Kc = config.max_visible_clusters
         comp1 = clod_compact(scene, view, config, params, max_visible=Kc)
         stage("hzb")
-        prev_hzb = culling.build_hzb(prev_depth, config.hzb_levels)
+        prev_hzb = culling.build_hzb(sh.gather_rows(prev_depth),
+                                     config.hzb_levels)
         cw, rw = clod_ops.slot_world_spheres(comp1, scene)
         bb, zn, behind = culling.project_sphere_bounds(
-            view.viewproj, cw, rw, config.width, H)
+            view.viewproj, cw, rw, config.width, full_h)
         live_s = comp1.slot_cluster >= 0
         unocc = culling.occlusion_test_hzb(prev_hzb, bb, zn, behind,
-                                           config.width, H)
+                                           config.width, full_h)
         depth_p, vis_p, channels, pairs, ovf1 = raster_cut(
             None, Kc, comp=comp1, slot_keep=unocc)
         stage("hzb2")
-        hzb_now = culling.build_hzb(depth_p, config.hzb_levels)
+        hzb_now = culling.build_hzb(sh.gather_rows(depth_p),
+                                    config.hzb_levels)
         retest_s = live_s & ~unocc & culling.occlusion_test_hzb(
-            hzb_now, bb, zn, behind, config.width, H)
+            hzb_now, bb, zn, behind, config.width, full_h)
         # Slot verdicts -> (C,) mask for the phase-2 compaction (dead and
         # kept slots scatter past the end and are dropped).
         C = scene.cluster_table.shape[0]
@@ -384,23 +499,26 @@ def _render_body(scene: SceneBuffers, view: ViewData, params: FrameParams,
         cluster_overflow = torch.zeros((), dtype=torch.int32, device=dev)
         stage("hzb")
         centers, radii = scene.object_bounds[:, :3], scene.object_bounds[:, 3]
-        prev_hzb = culling.build_hzb(prev_depth, config.hzb_levels)
+        prev_hzb = culling.build_hzb(sh.gather_rows(prev_depth),
+                                     config.hzb_levels)
         vis1, cand = culling.two_phase_object_cull(
             view.viewproj, centers, radii, scene.object_valid, prev_hzb,
-            config.width, H)
+            config.width, full_h)
         stage("bin")
         pairs = raster_setup.bin_pairs(
             lanes, bbox,
             valid & object_rows_mask(vis1, scene.tri_object, valid.shape[0]),
             config)
         stage("raster")
-        depth_p, vis_p, channels = visibility_pass(pairs, config)
+        depth_p, vis_p, channels = visibility_pass(
+            sh.localize(pairs), lcfg, tile_row0=row0_tiles)
         stage("hzb2")
-        hzb_now = culling.build_hzb(depth_p, config.hzb_levels)
+        hzb_now = culling.build_hzb(sh.gather_rows(depth_p),
+                                    config.hzb_levels)
         bb2, zn2, behind2 = culling.project_sphere_bounds(
-            view.viewproj, centers, radii, config.width, H)
+            view.viewproj, centers, radii, config.width, full_h)
         vis2 = cand & culling.occlusion_test_hzb(hzb_now, bb2, zn2, behind2,
-                                                 config.width, H)
+                                                 config.width, full_h)
         stage("bin2")
         pairs2 = raster_setup.bin_pairs(
             lanes, bbox,
@@ -408,7 +526,8 @@ def _render_body(scene: SceneBuffers, view: ViewData, params: FrameParams,
             config)
         stage("raster2")
         depth_p, vis_p, channels = visibility_pass(
-            pairs2, config, init=(depth_p, vis_p, channels))
+            sh.localize(pairs2), lcfg, init=(depth_p, vis_p, channels),
+            tile_row0=row0_tiles)
         pairs = pairs._replace(
             overflow=pairs.overflow + pairs2.overflow,
             num_pairs=pairs.num_pairs + pairs2.num_pairs)
@@ -417,7 +536,8 @@ def _render_body(scene: SceneBuffers, view: ViewData, params: FrameParams,
         _c, _wp, _wn, cluster_overflow, pairs = geometry_pass(
             scene, view, config, params, stage_hook)
         stage("raster")
-        depth_p, vis_p, channels = visibility_pass(pairs, config)
+        depth_p, vis_p, channels = visibility_pass(
+            sh.localize(pairs), lcfg, tile_row0=row0_tiles)
 
     if config.enable_alpha_mask:
         # Alpha-cutoff (MASK) materials: raster the masked clusters into
@@ -432,9 +552,10 @@ def _render_body(scene: SceneBuffers, view: ViewData, params: FrameParams,
         lanes_m, bbox_m, valid_m, _mask_clip_ovf = \
             raster_setup.setup_from_compacted(scene, comp_m, view.viewproj,
                                               config)
-        pairs_m = raster_setup.bin_clustered(lanes_m, bbox_m, valid_m, config)
+        pairs_m = sh.localize(raster_setup.bin_clustered(
+            lanes_m, bbox_m, valid_m, config))
         depth_pre_mask = depth_p
-        dm, vm, chm = visibility_pass(pairs_m, config)
+        dm, vm, chm = visibility_pass(pairs_m, lcfg, tile_row0=row0_tiles)
         for k in range(config.mask_peels):
             if k > 0:
                 # The next-farther masked layer: the peel band excludes the
@@ -442,9 +563,10 @@ def _render_body(scene: SceneBuffers, view: ViewData, params: FrameParams,
                 # only where every nearer masked texel failed its cutoff.
                 stage(f"mask_peel{k + 1}")
                 dm, vm, chm = raster_tiles(
-                    pairs_m, config,
+                    pairs_m, lcfg, tile_row0=row0_tiles,
                     peel=(depth_pre_mask, dm * (1.0 - oit_ops.PEEL_EPS)))
-            keep = _mask_alpha_keep(scene, view, config, dm, vm, chm, depth_p)
+            keep = _mask_alpha_keep(scene, view, lcfg, dm, vm, chm, depth_p,
+                                    rows=sh)
             depth_p = torch.where(keep, dm, depth_p)
             vis_p = torch.where(keep, vm, vis_p)
             channels = torch.where(keep[None], chm, channels)
@@ -454,19 +576,31 @@ def _render_body(scene: SceneBuffers, view: ViewData, params: FrameParams,
     vis = vis_p[:H, :W]
     gb = shade_ops.gbuffer_from_channels(
         channels[:, :H, :W], depth, vis, view, scene.material_table,
-        config.width, config.height)
+        config.width, config.height, row0=row0_px)
     feedback = {}
     if config.enable_textures:
         stage("textures")
-        smp, tex_wanted = _sample_material_textures(scene, view, config, gb,
-                                                    channels, depth, vis)
+        smp, tex_wanted = _sample_material_textures(scene, view, lcfg, gb,
+                                                    channels, depth, vis, sh)
         if tex_wanted is not None:
-            feedback["tex_wanted"] = tex_wanted
+            # Each shard saw its own rows' samples: the finest wanted mip
+            # is the minimum over the shards.
+            feedback["tex_wanted"] = sh.pmin(tex_wanted)
         stage("normal_map")
         gb = _apply_textures(gb, smp, config.tex_channels,
-                             config.enable_vertex_tangents)
+                             config.enable_vertex_tangents, sh)
 
     casters = []   # the shadow passes' caster cut, made once a frame
+    whole = {}     # the frame's rows of depth and normals, gathered once
+
+    def frame_rows(name):
+        """The whole frame's rows of the shard's "depth" or "normal"
+        image, for the passes that cross rows (the image itself on one
+        card)."""
+        if name not in whole:
+            whole[name] = sh.gather_rows(depth if name == "depth"
+                                         else gb.normal)
+        return whole[name]
 
     def shadow_casters():
         if not casters:
@@ -480,32 +614,39 @@ def _render_body(scene: SceneBuffers, view: ViewData, params: FrameParams,
     if use_vsm:
         stage("vsm")
         shadow_fn, vsm_out = _vsm_pass(scene, view, params, config,
-                                       vsm_state, depth)
+                                       vsm_state, frame_rows("depth"), sh)
     elif config.enable_shadows:
         stage("shadows")
-        shadow_fn = _csm_pass(scene, view, params, config, depth,
+        shadow_fn = _csm_pass(scene, view, params, config,
+                              frame_rows("depth"),
                               shadow_casters() if config.enable_clod
-                              else None)
+                              else None, sh)
     terms = shade_ops.view_terms(gb, view, config.enable_energy_comp,
                                  config.enable_fuzz)
     shade_kw = dict(coat=config.enable_coat, sss=config.enable_sss,
                     aniso=config.enable_aniso, terms=terms)
+    if config.enable_aniso and sh.world > 1:
+        # The anisotropy tangent frame's screen derivatives, seam-exact.
+        shade_kw["aniso_frame"] = _seam_rows(
+            sh, shade_ops.tangent_frame, gb.world_pos, gb.uv, gb.normal,
+            gb.aniso_rotation)
     if config.enable_clustered:
         # Tiled many-light pass: local lights per tile (K3), directional
         # lights full-screen.
         stage("light_cull")
         payload, counts, light_overflow = lighting.cull_lights_tiles(
-            depth_p, scene.lights, scene.num_lights, view, config)
+            depth_p, scene.lights, scene.num_lights, view, config,
+            row0_tiles=row0_tiles)
         stage("tiled_shade")
         shade_in = torch.stack([
-            _pad_to(x, config) for x in (
+            _pad_to(x, lcfg) for x in (
                 gb.normal[..., 0], gb.normal[..., 1], gb.normal[..., 2],
                 gb.albedo[..., 0], gb.albedo[..., 1], gb.albedo[..., 2],
                 gb.metallic, gb.roughness, gb.world_pos[..., 0],
                 gb.world_pos[..., 1], gb.world_pos[..., 2],
                 gb.valid.to(torch.float32))])
         local = lighting.tiled_shade(shade_in, payload, counts,
-                                     view.cam_pos.contiguous(), config)
+                                     view.cam_pos.contiguous(), lcfg)
         stage("shade")
         hdr = shade_ops.shade_deferred(gb, scene, view, num_dir,
                                        shadow_fn=shadow_fn,
@@ -517,23 +658,28 @@ def _render_body(scene: SceneBuffers, view: ViewData, params: FrameParams,
         hdr = shade_ops.shade_deferred(gb, scene, view, num_lights,
                                        shadow_fn=shadow_fn, **shade_kw)
     if config.enable_clustered:
-        hdr = _local_shadow_pass(hdr, gb, scene, view, params, config, depth,
-                                 shadow_casters, terms, stage)
-    sky = shade_ops.procedural_sky(view, H, W, params.sky_intensity)
+        hdr = _local_shadow_pass(hdr, gb, scene, view, params, config,
+                                 frame_rows, sh, shadow_casters, terms, stage)
+    sky = shade_ops.procedural_sky(view, H, W, params.sky_intensity,
+                                   row0=row0_px, full_h=full_h)
     if config.enable_voxel_fallback:
         # Voxel LOD fallback: pixels the cut or the streaming residency
         # left uncovered march the voxel pyramid instead of showing sky
         # (reference: VoxelGroupBuilder.cpp + voxelSoftwareRaster.hlsl).
         stage("voxel_primary")
-        vox_col, vox_tr = vox_ops.voxel_primary(scene, view, config, H, W)
+        ds_v = config.voxel_rt_downscale
+        vox_col, vox_tr = vox_ops.voxel_primary(
+            scene, view, config, H, W, row0=row0_px, full_h=full_h,
+            upsample=lambda x, h, w: halo_upsample(x, ds_v, h, w, 0, sh))
         sky = vox_col + vox_tr[..., None] * sky
     hdr = torch.where(gb.valid[..., None], hdr, sky)
-    hdr, ao = _post_composite(hdr, depth, gb, scene, view, params, config,
-                              stage)
+    hdr, ao = _post_composite(hdr, frame_rows, sh, gb, scene, view, params,
+                              config, stage)
     oit_overflow = torch.zeros((), dtype=torch.int32, device=dev)
     if config.enable_oit and config.enable_clod:
         hdr, oit_overflow = oit_ops.composite_oit(
-            scene, view, config, params, depth_p, hdr, num_lights, stage)
+            scene, view, config, params, depth_p, hdr, num_lights, stage,
+            lcfg=lcfg, row0_tiles=row0_tiles, localize=sh.localize)
 
     if _upscaling(config):
         # TAAU: the jittered render-size frame is resized to the output
@@ -546,7 +692,10 @@ def _render_body(scene: SceneBuffers, view: ViewData, params: FrameParams,
         if prev_viewproj is not None:
             # Motion-vector reprojection: per-pixel motion from depth and
             # object ids, history warped per tile (K5), pixels whose motion
-            # disagrees with their tile's reject history.
+            # disagrees with their tile's reject history. A sharded frame
+            # takes no prev_viewproj and keeps the camera-jitter resolve,
+            # as in the JAX package: its history is the shard's rows, and
+            # the warps cross them.
             stage("motion")
             if moving_rel is None:
                 moving_rel = torch.zeros((motion.MAX_MOVING, 4, 4),
@@ -555,7 +704,7 @@ def _render_body(scene: SceneBuffers, view: ViewData, params: FrameParams,
                                         dtype=torch.int32, device=dev)
             du, dv, mvalid, mds = motion.motion_field(
                 depth_p, channels[4], view, prev_viewproj, moving_rel,
-                moving_ids, config, full_h=H, full_w=config.width)
+                moving_ids, config, full_h=full_h, full_w=config.width)
             tdy, tdx, resid = motion.tile_motion(du, dv, mvalid, config, mds)
             oh, ow = hdr.shape[:2]
             if (oh, ow) != (H, W):
@@ -577,15 +726,20 @@ def _render_body(scene: SceneBuffers, view: ViewData, params: FrameParams,
                                       config.tile_w)
         else:
             stage("taa")
-            hdr = post.taa_resolve(hdr, taa_history, params.taa_blend)
+            hdr = _seam_rows(sh, lambda cur, hist: post.taa_resolve(
+                cur, hist, params.taa_blend), hdr, taa_history)
     taa_out = hdr
+    bloomed = None   # the whole frame's rows after bloom
     if config.enable_bloom:
         stage("bloom")
-        hdr = post.bloom(hdr, params.bloom_threshold, params.bloom_intensity)
+        bloomed = post.bloom(sh.gather_rows(hdr), params.bloom_threshold,
+                             params.bloom_intensity)
+        hdr = sh.local_rows(bloomed)
     exposure = params.exposure
     if config.enable_auto_exposure:
         stage("exposure")
-        exposure = exposure * post.auto_exposure(hdr)
+        exposure = exposure * post.auto_exposure(
+            bloomed if bloomed is not None else sh.gather_rows(hdr))
     if config.debug_view != "none":
         # A debug view replaces the image (reference: the Menu's debug-view
         # selector and its resolve pass); its outputs leave out the
@@ -678,12 +832,14 @@ def _vis_edges(vis: torch.Tensor) -> torch.Tensor:
 def _sample_ds_planes(scene: SceneBuffers, view: ViewData,
                       config: FrameConfig, depth: torch.Tensor,
                       channels: torch.Tensor, vis: torch.Tensor,
-                      lanes):
+                      lanes, rows=_ONE_CARD):
     """(K, H, W, 4) samples at texture_downscale ds: u, v (divided by the
     depth's inverse w) and the material's texture ids of `lanes` of the
     material table are point-sampled at ds from the raster's depth,
     channels and vis (padded or not), ids -1 where uncovered; one sampler
-    call over the ds-rate planes, bilinearly upsampled to (H, W). Returns
+    call over the ds-rate planes, bilinearly upsampled to (H, W). On a
+    shard (`config` at its height, `rows` its RowShards) the mip estimate
+    and the upsample take halo rows from the neighbours. Returns
     (samples, tids_ds, u_ds, v_ds)."""
     H, W = config.height, config.width
     ds = config.texture_downscale
@@ -702,14 +858,17 @@ def _sample_ds_planes(scene: SceneBuffers, view: ViewData,
                     .reshape(covered_ds.shape), -1) for lane in lanes])
     smp = tex_ops.sample_pyramid_blocked_planes(
         scene.tex_strips, scene.tex_flags, tids_ds, u_ds, v_ds, H, W, ds,
-        config.texture_filter, upsample=False, fmt=config.tex_format)
-    return halo_upsample(smp, ds, H, W, row_axis=1), tids_ds, u_ds, v_ds
+        config.texture_filter, upsample=False,
+        mipf=halo_mipf(u_ds, v_ds, _atlas_resolution(scene, config), rows),
+        fmt=config.tex_format)
+    return (halo_upsample(smp, ds, H, W, row_axis=1, rows=rows), tids_ds,
+            u_ds, v_ds)
 
 
 def _sample_material_textures(scene: SceneBuffers, view: ViewData,
                               config: FrameConfig, gb: shade_ops.GBuffer,
                               channels: torch.Tensor, depth: torch.Tensor,
-                              vis: torch.Tensor):
+                              vis: torch.Tensor, rows=_ONE_CARD):
     """(K, H, W, 4) samples of the K texture channels of
     config.tex_channels, all in one sampler call (one window geometry),
     and the texture-streaming feedback (ops/textures.wanted_mips) or None.
@@ -718,47 +877,66 @@ def _sample_material_textures(scene: SceneBuffers, view: ViewData,
     channels) and its result is bilinearly upsampled; with
     enable_texture_streaming the feedback comes from those planes.
     Otherwise the sampler reads every ds-th pixel of the G-buffer's uv
-    and there is no feedback, as in the JAX frame."""
+    and there is no feedback, as in the JAX frame. On a shard, `config`
+    is at its height and `rows` is its RowShards; the feedback is the
+    shard's own."""
     H, W = config.height, config.width
     ds, filt = config.texture_downscale, config.texture_filter
     chans = config.tex_channels
     if ds > 1 and H % ds == 0 and W % ds == 0:
         smp, tids_ds, u_ds, v_ds = _sample_ds_planes(
             scene, view, config, depth, channels, vis,
-            [_TEX_LANE[c] for c in chans])
+            [_TEX_LANE[c] for c in chans], rows)
         wanted = None
         if config.enable_texture_streaming:
             wanted = tex_ops.wanted_mips(
                 scene.tex_flags, tids_ds, u_ds, v_ds,
-                tex_ops.infer_strip_resolution(
-                    scene.tex_strips.shape[0] // scene.tex_flags.shape[0],
-                    config.tex_format))
+                _atlas_resolution(scene, config))
         return smp, wanted
     id_of = {"base": gb.base_tex, "normal": gb.normal_tex, "mr": gb.mr_tex,
              "emissive": gb.emissive_tex}
     return tex_ops.sample_pyramid_blocked(
         scene.tex_strips, scene.tex_flags, torch.stack([id_of[c] for c in chans]),
-        gb.uv, ds, filt, fmt=config.tex_format), None
+        gb.uv, ds, filt, fmt=config.tex_format,
+        mipf=_full_rate_mipf(scene, config, gb.uv, rows)), None
+
+
+def _full_rate_mipf(scene: SceneBuffers, config: FrameConfig,
+                    uv: torch.Tensor, rows) -> Optional[torch.Tensor]:
+    """A shard's seam-exact mip estimate for the full-rate sampler
+    (texture_downscale 1; halo_mipf), else None."""
+    if config.texture_downscale != 1:
+        return None
+    return halo_mipf(uv[..., 0], uv[..., 1],
+                     _atlas_resolution(scene, config), rows)
 
 
 def _apply_textures(gb: shade_ops.GBuffer, smp: torch.Tensor, chans,
-                    vertex_tangents: bool = False) -> shade_ops.GBuffer:
+                    vertex_tangents: bool = False,
+                    rows=_ONE_CARD) -> shade_ops.GBuffer:
     """Texture samples multiply the material factors (glTF semantics:
     base colour and alpha, G = roughness, B = metallic, emissive); the
     normal map perturbs the normals, in the tangent frame decoded from
     the G-buffer's tangent angle with `vertex_tangents`, else in the
-    screen-derivative frame."""
+    screen-derivative frame (on a shard of `rows`, with the neighbours'
+    halo rows: _seam_rows)."""
     s_of = {c: smp[k] for k, c in enumerate(chans)}
     rep = {}
     if "base" in s_of:
         rep["albedo"] = gb.albedo * s_of["base"][..., :3]
         rep["alpha"] = gb.alpha * s_of["base"][..., 3]
-    if "normal" in s_of:
-        tb = (shade_ops.tangent_from_theta(gb.normal, gb.tangent_theta)
-              if vertex_tangents else None)
+    if "normal" in s_of and vertex_tangents:
         rep["normal"] = tex_ops.apply_normal_map_sampled(
             gb.normal, gb.world_pos, gb.uv, s_of["normal"], gb.normal_tex,
-            normal_scale=gb.normal_scale[..., None], frame=tb)
+            normal_scale=gb.normal_scale[..., None],
+            frame=shade_ops.tangent_from_theta(gb.normal, gb.tangent_theta))
+    elif "normal" in s_of:
+        rep["normal"] = _seam_rows(
+            rows, lambda n, wp, uv, smp_n, tex, scale:
+            tex_ops.apply_normal_map_sampled(n, wp, uv, smp_n, tex,
+                                             normal_scale=scale[..., None]),
+            gb.normal, gb.world_pos, gb.uv, s_of["normal"], gb.normal_tex,
+            gb.normal_scale)
     if "mr" in s_of:
         rep["roughness"] = gb.roughness * s_of["mr"][..., 1]
         rep["metallic"] = gb.metallic * s_of["mr"][..., 2]
@@ -768,12 +946,14 @@ def _apply_textures(gb: shade_ops.GBuffer, smp: torch.Tensor, chans,
 
 
 def _vsm_pass(scene: SceneBuffers, view: ViewData, params: FrameParams,
-              config: FrameConfig, vsm_state, depth: torch.Tensor):
+              config: FrameConfig, vsm_state, depth: torch.Tensor, rows):
     """Virtual shadow maps for the first vsm_num_lights directional lights
     (one page cache each; `vsm_state` is one VsmState, or a tuple of them
     with vsm_num_lights > 1). Pages raster through the cluster cut with
-    the camera's LOD selection and the page's frustum. Returns
-    (shadow_fn, {"vsm_state", "vsm_stats"})."""
+    the camera's LOD selection and the page's frustum. `depth` is the
+    whole frame's rows; each term keeps the rows of `rows` (a sharded
+    frame renders the same pages on every shard). Returns (shadow_fn,
+    {"vsm_state", "vsm_stats"})."""
     bounds = []   # the camera's cut, made when the first dirty page needs it
 
     def page_compact(vp):
@@ -792,8 +972,9 @@ def _vsm_pass(scene: SceneBuffers, view: ViewData, params: FrameParams,
     for k in range(nl):
         term, st, st_stats = vsm_ops.update_vsm(
             scene, view, config, params, states_in[k], depth, page_compact,
-            light_row=k)
-        terms.append(torch.where(scene.num_dir_lights > k, term, 1.0))
+            full_h=config.height, light_row=k)
+        terms.append(torch.where(scene.num_dir_lights > k,
+                                 rows.local_rows(term), 1.0))
         states.append(st)
         stats = st_stats if stats is None else {
             key: stats[key] + st_stats[key] for key in stats}
@@ -806,18 +987,21 @@ def _vsm_pass(scene: SceneBuffers, view: ViewData, params: FrameParams,
 
 
 def _csm_pass(scene: SceneBuffers, view: ViewData, params: FrameParams,
-              config: FrameConfig, depth: torch.Tensor, casters):
+              config: FrameConfig, depth: torch.Tensor, casters, rows):
     """Cascaded shadow maps for light 0 (the bridge packs directional
     lights first); the term is 1 when the scene has no directional light.
-    `casters` is the cluster cut (None: the soup). Returns shadow_fn."""
+    `casters` is the cluster cut (None: the soup). The term is sampled
+    from `depth`, the whole frame's rows, and keeps the rows of `rows`.
+    Returns shadow_fn."""
     cascade_vps, _splits = shadow_ops.cascade_matrices(
         view, scene.lights[0, 4:7], config.num_cascades)
     smaps = torch.stack([
         shadow_ops.render_cascade(scene, cascade_vps[k], config,
                                   compacted=casters)
         for k in range(config.num_cascades)])
-    term = shadow_ops.sample_shadow_cascades(depth, view, cascade_vps, smaps,
-                                             params.shadow_bias)
+    term = rows.local_rows(shadow_ops.sample_shadow_cascades(
+        depth, view, cascade_vps, smaps, params.shadow_bias,
+        full_h=config.height))
     term = torch.where(scene.num_dir_lights > 0, term, 1.0)
 
     def shadow_fn(i, world_pos, normal):
@@ -828,7 +1012,7 @@ def _csm_pass(scene: SceneBuffers, view: ViewData, params: FrameParams,
 def _local_shadow_pass(hdr: torch.Tensor, gb: shade_ops.GBuffer,
                        scene: SceneBuffers, view: ViewData,
                        params: FrameParams, config: FrameConfig,
-                       depth: torch.Tensor, casters: Callable, terms,
+                       frame_rows: Callable, rows, casters: Callable, terms,
                        stage: Callable[[str], None]) -> torch.Tensor:
     """Shadow-casting point lights (stage cube_shadows: six perspective
     faces a slot, the face picked per pixel by the dominant axis), then
@@ -837,7 +1021,8 @@ def _local_shadow_pass(hdr: torch.Tensor, gb: shade_ops.GBuffer,
     caster cut `casters()` rendered into each view, the slot's term
     sampled from those maps, and the light's full-screen shade (`terms`
     from shade_ops.view_terms) times the term added where the slot is
-    live."""
+    live. The terms are sampled from the whole frame's depth
+    (`frame_rows("depth")`) and keep the rows of `rows`."""
     v, comp, fuzz = terms
     L = scene.lights.shape[0]
     R = config.point_shadow_resolution
@@ -852,12 +1037,14 @@ def _local_shadow_pass(hdr: torch.Tensor, gb: shade_ops.GBuffer,
         return vps[:, None], idx, live
 
     def cube_term(row, vps, maps):
-        return shadow_ops.sample_point_shadow(depth, view, row[0:3], vps,
-                                              maps[:, :R, :R])
+        return shadow_ops.sample_point_shadow(
+            frame_rows("depth"), view, row[0:3], vps, maps[:, :R, :R],
+            full_h=config.height)
 
     def spot_term(row, vps, maps):
-        return shadow_ops.sample_spot_shadow(depth, view, vps[0], maps[0],
-                                             params.shadow_bias)
+        return shadow_ops.sample_spot_shadow(
+            frame_rows("depth"), view, vps[0], maps[0], params.shadow_bias,
+            full_h=config.height)
 
     for name, slots, res, views, sample in (
             ("cube_shadows", config.max_shadow_cubes, R, cube_views,
@@ -875,14 +1062,14 @@ def _local_shadow_pass(hdr: torch.Tensor, gb: shade_ops.GBuffer,
                                           compacted=casters())
                 for vp in vps[k]])
             row = scene.lights[torch.clamp(idx[k], 0, L - 1).long()]
-            term = sample(row, vps[k], maps)
+            term = rows.local_rows(sample(row, vps[k], maps))
             contrib = shade_ops.shade_one_light(gb, row, v, gb.normal,
                                                 spec_comp=comp, fuzz_e=fuzz)
             hdr = hdr + torch.where(live[k], contrib * term[..., None], 0.0)
     return hdr
 
 
-def _post_composite(hdr: torch.Tensor, depth: torch.Tensor,
+def _post_composite(hdr: torch.Tensor, frame_rows: Callable, rows,
                     gb: shade_ops.GBuffer, scene: SceneBuffers,
                     view: ViewData, params: FrameParams, config: FrameConfig,
                     stage: Callable[[str], None]) -> torch.Tensor:
@@ -895,35 +1082,47 @@ def _post_composite(hdr: torch.Tensor, depth: torch.Tensor,
     override everything; AO scales the ambient term. Without IBL the
     voxel and SSR reflections are added with the Fresnel-at-normal tint
     (triangle hits need the IBL slot, as in the JAX frame) and AO darkens
-    the lit frame. Returns (hdr, ao), ao None without GTAO."""
+    the lit frame. SSR, the reflection tiers and GTAO cross rows: they
+    run on the whole frame's rows (`frame_rows("depth")`,
+    `frame_rows("normal")` and the others gathered by `rows`) and keep
+    the rows of `rows`. Returns (hdr, ao), ao None without GTAO."""
     valid3 = gb.valid[..., None]
-    H = depth.shape[0]
+    full_h = config.height
     ssr_col = ssr_wgt = None
     if config.enable_ssr:
         stage("ssr")
-        ssr_col, ssr_wgt = ssr_ops.ssr(hdr, depth, gb.normal, gb.roughness,
-                                       gb.metallic, view, config, full_h=H)
+        ssr_col, ssr_wgt = (rows.local_rows(x) for x in ssr_ops.ssr(
+            rows.gather_rows(hdr), frame_rows("depth"), frame_rows("normal"),
+            rows.gather_rows(gb.roughness), rows.gather_rows(gb.metallic),
+            view, config, full_h=full_h))
     vox_ref = vox_ref_tr = None
     if config.enable_voxel_rt:
         # Off-screen reflections: cone-trace the voxel pyramid along the
         # reflected view ray (reference: RayTracedReflectionsPass over the
         # cluster BLAS, CLodRayTracingSystem.h:16-75).
         stage("voxel_reflect")
-        vox_ref, vox_ref_tr = vox_ops.voxel_reflections(
-            scene, depth, gb.normal, view, config, full_h=H)
+        vox_ref, vox_ref_tr = (rows.local_rows(x) for x in
+                               vox_ops.voxel_reflections(
+                                   scene, frame_rows("depth"),
+                                   frame_rows("normal"), view, config,
+                                   full_h=full_h))
     rt_col = rt_hit = None
     if config.enable_rt_reflect and config.enable_clod:
         # Triangle-accurate reflections over the resident cut (the
         # opaque pass's compaction, made again as the JAX frame does).
         stage("rt_reflect")
         comp_rt = clod_compact(scene, view, config, params)
-        rt_col, rt_hit = rt_ops.trace_reflections(
-            scene, comp_rt, depth, gb.normal, view, config, full_h=H)
+        rt_col, rt_hit = (rows.local_rows(x) for x in
+                          rt_ops.trace_reflections(
+                              scene, comp_rt, frame_rows("depth"),
+                              frame_rows("normal"), view, config,
+                              full_h=full_h))
     ao = None
     if config.enable_gtao:
         stage("gtao")
-        ao = post.gtao(depth, gb.normal, view, view.near, params.gtao_radius,
-                       params.gtao_intensity, params.frame_index)
+        ao = rows.local_rows(post.gtao(
+            frame_rows("depth"), frame_rows("normal"), view, view.near,
+            params.gtao_radius, params.gtao_intensity, params.frame_index))
         ao = torch.where(gb.valid, ao, 1.0)
     metal3 = gb.metallic[..., None]
     if config.enable_ibl:
@@ -937,9 +1136,13 @@ def _post_composite(hdr: torch.Tensor, depth: torch.Tensor,
         kd = (1.0 - f0) * (1.0 - metal3)
         diffuse_ibl = kd * gb.albedo * irr
         scale, bias = ibl.env_brdf_karis(ndv, gb.roughness)
+        ds_i = config.ibl_specular_downscale
+
+        def upsample(x, h, w):   # seam-exact on a shard
+            return halo_upsample(x, ds_i, h, w, 0, rows)
         prefiltered = ibl.runtime_specular_ibl(
             gb.normal, v, gb.roughness, scene.env_specular,
-            downscale=config.ibl_specular_downscale)
+            downscale=ds_i, upsample=upsample)
         if vox_ref is not None:
             prefiltered = vox_ref + prefiltered * vox_ref_tr[..., None]
         if rt_col is not None:
@@ -969,7 +1172,7 @@ def _post_composite(hdr: torch.Tensor, depth: torch.Tensor,
             cw = gb.coat_weight[..., None]
             coat_pref = ibl.runtime_specular_ibl(
                 gb.normal, v, gb.coat_rough, scene.env_specular,
-                downscale=config.ibl_specular_downscale)
+                downscale=ds_i, upsample=upsample)
             spec_ibl = spec_ibl * (1.0 - cf * cw) + coat_pref * cf * cw
             diffuse_ibl = diffuse_ibl * (1.0 - cf * cw)
         ambient = (diffuse_ibl + spec_ibl) * params.ibl_intensity
@@ -990,13 +1193,15 @@ def _post_composite(hdr: torch.Tensor, depth: torch.Tensor,
 
 def _mask_alpha_keep(scene: SceneBuffers, view: ViewData, config: FrameConfig,
                      dm: torch.Tensor, vm: torch.Tensor, chm: torch.Tensor,
-                     depth_ref_p: torch.Tensor) -> torch.Tensor:
+                     depth_ref_p: torch.Tensor,
+                     rows=_ONE_CARD) -> torch.Tensor:
     """Padded keep mask of the masked raster: covered, nearer than the
     current depth, and the sampled base alpha times the material's alpha
     reaches the material cutoff. With texture_downscale ds > 1 dividing
     the frame, texture coordinates, material ids and coverage are
     point-sampled at ds, sampled, and the alpha bilinearly upsampled;
-    otherwise the full-rate sampler reads every ds-th pixel's uv."""
+    otherwise the full-rate sampler reads every ds-th pixel's uv. On a
+    shard, `config` is at its height and `rows` is its RowShards."""
     H, W = config.height, config.width
     ds, filt = config.texture_downscale, config.texture_filter
     mt = scene.material_table
@@ -1008,7 +1213,7 @@ def _mask_alpha_keep(scene: SceneBuffers, view: ViewData, config: FrameConfig,
     factor_a = mrow[:, 3].reshape(H, W)
     if ds > 1 and H % ds == 0 and W % ds == 0:
         smp_a = _sample_ds_planes(scene, view, config, dm, chm, vm,
-                                  [_TEX_LANE["base"]])[0][0]
+                                  [_TEX_LANE["base"]], rows)[0][0]
     else:
         iwm_p = shade_ops.inv_w_from_depth(dm, view.proj)
         iwm = torch.where(torch.abs(iwm_p) > 1e-12, iwm_p, 1.0)
@@ -1016,7 +1221,8 @@ def _mask_alpha_keep(scene: SceneBuffers, view: ViewData, config: FrameConfig,
         btex = torch.round(mrow[:, 13]).to(torch.int32).reshape(H, W)
         smp_a = tex_ops.sample_pyramid_blocked(
             scene.tex_strips, scene.tex_flags, btex[None], uv_m, ds, filt,
-            fmt=config.tex_format)[0]
+            fmt=config.tex_format,
+            mipf=_full_rate_mipf(scene, config, uv_m, rows))[0]
     alpha_m = _pad_to(smp_a[..., 3] * factor_a, config)
     keep = (vm > 0) & (dm > depth_ref_p)
     return keep & (alpha_m >= _pad_to(cutoff, config))

@@ -17,7 +17,7 @@ Cubemap faces are ordered +X, -X, +Y, -Y, +Z, -Z.
 from __future__ import annotations
 
 import math
-from typing import List, Tuple
+from typing import Callable, List, Tuple
 
 import numpy as np
 import torch
@@ -238,8 +238,11 @@ def make_procedural_environment(res: int = 128, intensity: float = 1.0,
 
 def runtime_specular_ibl(normals: torch.Tensor, view_dirs: torch.Tensor,
                          roughness: torch.Tensor, env_mips: torch.Tensor,
-                         downscale: int = 2) -> torch.Tensor:
-    """Prefiltered radiance at 1/downscale rate, bilinearly upsampled.
+                         downscale: int = 2,
+                         upsample: Callable = None) -> torch.Tensor:
+    """Prefiltered radiance at 1/downscale rate, bilinearly upsampled
+    (by `upsample(img, H, W)` when given: a shard's seam-exact resize,
+    graph/frame.halo_upsample).
 
     normals / view_dirs: (H, W, 3); env_mips: (M, 6, r, r, 3), every mip
     at one resolution, so the mip pick is a lerp between two gathers.
@@ -264,4 +267,6 @@ def runtime_specular_ibl(normals: torch.Tensor, view_dirs: torch.Tensor,
         return flat[(((mi * 6 + face) * res + vi) * res + ui).long()]
 
     c = samp(m0) * (1 - fm) + samp(torch.clamp(m0 + 1, max=M - 1)) * fm
+    if upsample is not None:
+        return upsample(c, H, W)
     return resize_bilinear(c, H, W, row_dim=0)

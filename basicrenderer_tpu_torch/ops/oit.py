@@ -1,6 +1,7 @@
 """Order-independent transparency by K-layer depth peeling.
 
-Port of basicrenderer_tpu/ops/oit.py (`composite_oit`), single card.
+Port of basicrenderer_tpu/ops/oit.py (`composite_oit`), for a whole
+frame or one screen-row shard of it (parallel/tile_sharding.py).
 Clusters whose material has alpha_blend set carry the transparency flag
 (cluster-table lane 10 = 1); the opaque pass leaves them out
 (graph/frame.py) and this pass cuts and compacts them on their own, sets
@@ -19,7 +20,8 @@ Where the JAX package skips a layer with `lax.cond` on the previous
 layer's coverage, the port reads that coverage on the host: one
 synchronisation for each layer after the first and one for the tail.
 A skipped layer is empty and changes nothing, so it is neither
-rastered nor shaded.
+rastered nor shaded. A shard reads its own rows' coverage, as the JAX
+package's `lax.cond` does under `shard_map`.
 """
 
 from __future__ import annotations
@@ -99,7 +101,9 @@ def _layer_terms(gb: shade_ops.GBuffer, col: torch.Tensor,
 def composite_oit(scene: SceneBuffers, view: ViewData, config: FrameConfig,
                   params: FrameParams, opaque_depth_p: torch.Tensor,
                   hdr: torch.Tensor, num_lights: int,
-                  stage_hook: Optional[Callable[[str], None]] = None
+                  stage_hook: Optional[Callable[[str], None]] = None,
+                  lcfg: FrameConfig = None, row0_tiles: int = 0,
+                  localize: Callable = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Renders the K = config.oit_layers nearest transparent layers in
     front of `opaque_depth_p` (the padded opaque depth) onto `hdr`
@@ -110,12 +114,26 @@ def composite_oit(scene: SceneBuffers, view: ViewData, config: FrameConfig,
     with a fragment beyond the K-th layer (0 without the probe).
     `stage_hook(name)` marks "oit_cut", "oit_setup", "oit_bin",
     "oit_peel<k>" for each layer rastered, "oit_accum", "oit_shade" and
-    "oit_composite"."""
+    "oit_composite".
+
+    `lcfg`, `row0_tiles` and `localize` place a screen-row shard in the
+    frame (graph/frame._render_body): `lcfg` is the shard's config (its
+    height), `row0_tiles` its first tile row, `localize(pairs)` slices
+    the full-screen tile offsets to the shard's tiles. The cut, the setup
+    and the binning are full-screen (the same on every shard); the layers
+    raster only the shard's tile rows, and `hdr` and `opaque_depth_p` are
+    the shard's rows."""
+    if lcfg is None:
+        lcfg = config
+    if localize is None:
+        def localize(p):
+            return p
+
     def stage(name):
         if stage_hook is not None:
             stage_hook(name)
 
-    H, W = config.height, config.width
+    H, W = lcfg.height, config.width
     dev = hdr.device
     stage("oit_cut")
     cut, _ = clod_ops.select_cluster_cut(scene, view, config,
@@ -133,9 +151,9 @@ def composite_oit(scene: SceneBuffers, view: ViewData, config: FrameConfig,
     # Transparent binning at its own (smaller) pair capacity.
     bcfg = dataclasses.replace(
         config, max_pairs=min(config.oit_max_pairs, config.max_pairs))
-    pairs = raster_setup.bin_clustered(lanes, bbox, valid, bcfg)
+    pairs = localize(raster_setup.bin_clustered(lanes, bbox, valid, bcfg))
 
-    peel_bound = torch.full((config.padded_height, config.padded_width),
+    peel_bound = torch.full((lcfg.padded_height, lcfg.padded_width),
                             float("inf"), dtype=torch.float32, device=dev)
     layers = []
     live = True          # the previous layer has coverage
@@ -143,8 +161,8 @@ def composite_oit(scene: SceneBuffers, view: ViewData, config: FrameConfig,
         if not live:
             break
         stage(f"oit_peel{k}")
-        d, v, ch = raster_tiles(pairs, config, peel=(opaque_depth_p,
-                                                     peel_bound))
+        d, v, ch = raster_tiles(pairs, lcfg, tile_row0=row0_tiles,
+                                peel=(opaque_depth_p, peel_bound))
         layers.append((d, v, ch))
         peel_bound = torch.where(v > 0, d * (1.0 - PEEL_EPS), 0.0)
         if k + 1 < config.oit_layers or config.oit_overflow_probe:
@@ -153,8 +171,8 @@ def composite_oit(scene: SceneBuffers, view: ViewData, config: FrameConfig,
     acc = None
     if config.oit_overflow_probe and live:
         stage("oit_accum")
-        acc = raster_tiles(pairs, config, peel=(opaque_depth_p, peel_bound),
-                           accum=True)[2]
+        acc = raster_tiles(pairs, lcfg, tile_row0=row0_tiles,
+                           peel=(opaque_depth_p, peel_bound), accum=True)[2]
 
     stage("oit_shade")
     n_lights = (num_lights if config.oit_max_lights <= 0
@@ -163,7 +181,7 @@ def composite_oit(scene: SceneBuffers, view: ViewData, config: FrameConfig,
     for d, v, ch in layers:
         gb = shade_ops.gbuffer_from_channels(
             ch[:, :H, :W], d[:H, :W], v[:H, :W], view, scene.material_table,
-            config.width, config.height)
+            config.width, config.height, row0=row0_tiles * config.tile_h)
         col = shade_ops.shade_deferred(
             gb, scene, view, n_lights,
             transmission=config.enable_transmission)

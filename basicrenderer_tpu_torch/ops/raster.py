@@ -105,7 +105,8 @@ def raster_tiles(pairs: Union[BinnedPairs, GroupBinnedPairs],
     Returns (depth (H', W') f32, vis (H', W') i32,
              channels (NUM_CHANNELS, H', W') f32). `tile_row0` offsets the
     tile grid vertically in global screen space (edge planes are in global
-    pixels). `init` = (depth, vis, channels) seeds a group raster (two-phase
+    pixels); `pairs` then carries the shard's slice of the full-screen
+    tile offsets (parallel/tile_sharding.RowShards.localize). `init` = (depth, vis, channels) seeds a group raster (two-phase
     occlusion replay). `peel` = (seed_depth, peel_depth) (H', W') runs a
     depth-peeling pass: the depth starts at the seed, vis and channels at
     zero, and a fragment must also lie strictly in front of peel_depth
@@ -365,10 +366,11 @@ def expand_group_pairs(pairs: GroupBinnedPairs, config: FrameConfig,
     Bg = pairs.big_ids.shape[0]
     j = torch.arange(GR, dtype=i64, device=dev)
 
-    # Own pairs: tile of pair p is the t with offs[t] <= p < offs[t+1].
+    # Own pairs: tile of pair p is the t with offs[t] <= p < offs[t+1]
+    # (a shard's offsets slice starts past pair 0: tile_row0 > 0).
     p = torch.arange(Pc, dtype=i64, device=dev)
     tile_own = torch.searchsorted(offs[1:], p, right=True)
-    live_own = (p < offs[N])[:, None].expand(Pc, GR)
+    live_own = ((p >= offs[0]) & (p < offs[N]))[:, None].expand(Pc, GR)
     rows_own = pairs.group_ids.long()[:, None] * GR + j
     tile_own = tile_own[:, None].expand(Pc, GR)
     seq_own = p[:, None] * GR + j

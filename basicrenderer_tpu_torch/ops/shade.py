@@ -418,7 +418,8 @@ def shade_deferred(gb: GBuffer, scene: SceneBuffers, view: ViewData,
                    directional_only: bool = False, coat: bool = False,
                    energy: bool = False, fuzz: bool = False,
                    sss: bool = False, aniso: bool = False,
-                   transmission: bool = False, terms=None) -> torch.Tensor:
+                   transmission: bool = False, terms=None,
+                   aniso_frame=None) -> torch.Tensor:
     """Full-screen deferred lighting -> HDR (H, W, 3).
 
     `num_lights` is the light loop's bound as a host integer: the live
@@ -431,7 +432,8 @@ def shade_deferred(gb: GBuffer, scene: SceneBuffers, view: ViewData,
     by the material's angle) and `transmission` (each light's diffuse lobe
     loses the pixel's transmission weight). The light-independent inputs
     are computed once and shared by every light; `terms` hands in
-    view_terms' result when the caller already has it.
+    view_terms' result when the caller already has it, `aniso_frame` the
+    tangent frame's (T, B) (a shard's, made with its neighbours' rows).
     """
     H, W = gb.valid.shape
     n = gb.normal
@@ -440,7 +442,8 @@ def shade_deferred(gb: GBuffer, scene: SceneBuffers, view: ViewData,
     trans_w = gb.trans_weight if transmission else None
     aniso_t = None
     if aniso:
-        T, B = tangent_frame(gb.world_pos, gb.uv, n, gb.aniso_rotation)
+        T, B = aniso_frame or tangent_frame(gb.world_pos, gb.uv, n,
+                                            gb.aniso_rotation)
         aniso_t = (T, B, gb.aniso_strength)
     total = torch.zeros((H, W, 3), dtype=torch.float32, device=gb.valid.device)
     for i in range(num_lights):

@@ -267,19 +267,21 @@ def resize_bilinear(img: torch.Tensor, out_h: int, out_w: int,
 def sample_pyramid_blocked(strips: torch.Tensor, tex_flags: torch.Tensor,
                            tex_ids: torch.Tensor, uv: torch.Tensor,
                            downscale: int = 1, filter: str = "bilinear",
-                           fmt: str = "rgba8") -> torch.Tensor:
+                           fmt: str = "rgba8",
+                           mipf: torch.Tensor = None) -> torch.Tensor:
     """Sample K channel layers sharing one UV image at full resolution
     (downscale 1) or at every downscale-th pixel, bilinearly upsampled.
 
     strips (N * rows_per_layer, 128) i32 atlas words; tex_flags (N,) i32;
-    tex_ids (K, H, W) i32 (-1 = none -> white); uv (H, W, 2). Returns
-    (K, H, W, 4) f32 linear."""
+    tex_ids (K, H, W) i32 (-1 = none -> white); uv (H, W, 2); `mipf`
+    overrides the mip estimate of the sampled pixels. Returns (K, H, W,
+    4) f32 linear."""
     ds = downscale
     st = uv[::ds, ::ds]
     tids = tex_ids[:, ::ds, ::ds]
     return sample_pyramid_blocked_planes(
         strips, tex_flags, tids, st[..., 0], st[..., 1], uv.shape[0],
-        uv.shape[1], ds, filter, fmt=fmt)
+        uv.shape[1], ds, filter, mipf=mipf, fmt=fmt)
 
 
 def sample_pyramid_blocked_planes(strips: torch.Tensor, tex_flags: torch.Tensor,

@@ -139,10 +139,10 @@ def _sggx(scene, config):
     return scene.voxel_sggx if config.voxel_sggx else None
 
 
-def _upsample(col, tr, ds, H, W):
+def _upsample(col, tr, ds, H, W, upsample=None):
     if ds > 1:
-        col = resize_bilinear(col, H, W)
-        tr = resize_bilinear(tr, H, W)
+        up = upsample or resize_bilinear
+        col, tr = up(col, H, W), up(tr, H, W)
     return col, tr
 
 
@@ -186,11 +186,14 @@ def voxel_reflections(scene, depth, normal, view, config, row0=0,
     return _upsample(col, tr, ds, H, W)
 
 
-def voxel_primary(scene, view, config, H, W, row0=0, full_h=None):
+def voxel_primary(scene, view, config, H, W, row0=0, full_h=None,
+                  upsample=None):
     """Primary-visibility fallback: camera rays march the grid at
     config.voxel_rt_downscale (the frame takes it where the cut or the
-    streaming residency left pixels uncovered). Returns (col (H, W, 3),
-    trans (H, W)) at full size."""
+    streaming residency left pixels uncovered); rows row0.. of a frame
+    full_h tall. Returns (col (H, W, 3), trans (H, W)) at full size,
+    resized bilinearly (by `upsample(img, H, W)` when given: a shard's
+    seam-exact resize, graph/frame.halo_upsample)."""
     full_h = full_h or H
     ds = config.voxel_rt_downscale
     h, w = H // ds, W // ds
@@ -222,4 +225,5 @@ def voxel_primary(scene, view, config, H, W, row0=0, full_h=None):
         config.voxel_level_offsets, ox, oy, oz, dx, dy, dz,
         steps=config.voxel_primary_steps, growth=1.22, cone_tan=0.004,
         sggx=_sggx(scene, config))
-    return _upsample(torch.stack([cr, cg, cb], dim=-1), tr, ds, H, W)
+    return _upsample(torch.stack([cr, cg, cb], dim=-1), tr, ds, H, W,
+                     upsample)

@@ -222,18 +222,22 @@ def _put(t: torch.Tensor, idx: torch.Tensor, val) -> None:
 
 def update_vsm(scene: SceneBuffers, view: ViewData, config: FrameConfig,
                params, state: VsmState, depth: torch.Tensor,
-               shadow_compact_fn: Callable, light_row: int = 0,
+               shadow_compact_fn: Callable, row0: int = 0,
+               full_h: int = None, light_row: int = 0,
                ) -> Tuple[torch.Tensor, VsmState, dict]:
     """One VSM frame step for ONE light: mark -> allocate -> render dirty
     -> sample.
 
-    depth: (H, W) reverse-Z NDC. `shadow_compact_fn(vp)` -> the compacted
+    depth: (H, W) reverse-Z NDC, whose first row is screen row `row0` of
+    a frame `full_h` rows tall (default H: the whole frame; a sharded
+    frame passes its gathered rows). `shadow_compact_fn(vp)` -> the compacted
     caster triangles for a page view-projection (the cluster-cut shadow
     set). `light_row` selects the scene light (directional lights come
     first in the table). Returns ((H, W) visibility, new state, stats
     {"dirty", "needed", "rendered"} as i32 tensors)."""
     PAGE_, LEVELS_, PAGES_, SLOTS_, BASE_ = geometry(config)
     H, W = depth.shape
+    full_h = full_h or H
     dev = depth.device
     f32, i32 = torch.float32, torch.int32
     inv_vp = torch.linalg.inv_ex(view.viewproj)[0]
@@ -244,7 +248,7 @@ def update_vsm(scene: SceneBuffers, view: ViewData, config: FrameConfig,
         nx = (torch.arange(w, dtype=f32, device=dev)[None, :].expand(h, w)
               * ds + 0.5) / W * 2.0 - 1.0
         ny = 1.0 - (torch.arange(h, dtype=f32, device=dev)[:, None]
-                    .expand(h, w) * ds + 0.5) / H * 2.0
+                    .expand(h, w) * ds + 0.5 + row0) / full_h * 2.0
         px, py, pz, pw = math3d.mat4_columns(inv_vp, nx, ny, d)
         iw = 1.0 / torch.where(torch.abs(pw) > 1e-12, pw, 1.0)
         return px * iw, py * iw, pz * iw, d > 0.0

@@ -8,7 +8,7 @@ NVIDIA GPU (written for an H100).
                                      # trace of 5 frames of slices 2, 3,
                                      # 3b and 4
     python3 chip_smoke.py --only 6,14  # phases 1-2 and the named ones
-                                       # of 6-17, with the phases whose
+                                       # of 6-18, with the phases whose
                                        # scenes they reuse (no kernels
                                        # line and no result)
 
@@ -192,7 +192,23 @@ Run from the root of a checkout. Phases, one line each:
     matrices within f32), models/city.finish_city's LOD and lights, and
     config1_minimal at 1920x1080 (3 warm, 8 timed frames), one captured
     frame's K2 launches (exact) and K3 launch held to the plain versions
-    and timed alone.
+    and timed alone;
+18. tile sharding (parallel/tile_sharding.py): phase 13's city (built
+    when phase 13 did not run), saved as .npz, which each spawned rank
+    loads through interop; two frames a run (the second takes
+    depth_padded, taa_out and vsm_state back): (a) `full` at 1920x1088,
+    tile_h 32, over one rank and NCCL, bit-equal to the unsharded frame
+    on the card; (b) the same over 2 ranks of 17 tile rows on the one
+    card over gloo (NCCL refuses two ranks on one card; gloo takes the
+    CUDA tensors); (c) config1_minimal at 1920x1152, tile_h 16, over 4
+    ranks of 18 tile rows (each rank's rows whole 16-row sampler blocks
+    at texture_downscale 2), then with group_binning=False (K1); (b) and
+    (c) held to the unsharded card frame within
+    tests/test_parallel.py's _assert_match limits. Every
+    rank holds each K1/K2 launch at tile_row0 > 0 and, past rank 0, each
+    K3 and K4 launch to its plain version; rank 1 times its last frame's
+    such launches alone. Prints ms/frame per rank and world size,
+    launches per rank, the backend and the collectives a rank.
 Each kernel timed alone is timed twice: by CUDA events around
 back-to-back launches (cuda_ms, the kernels line's `ms`) and by the device
 time of its launches in a torch.profiler trace (device_ms, the kernels
@@ -771,17 +787,29 @@ def compare_raster(torch, kernel_out, plain_out, label):
     return max(float((kd - pd).abs().max()), float((kch - pch).abs().max()))
 
 
-def k1_check(torch, pairs, cfg, label):
+def k1_check(torch, pairs, cfg, label, tile_row0=0):
     from basicrenderer_tpu_torch.ops import raster
-    return compare_raster(torch, raster.raster_tiles_cuda(pairs, cfg),
-                          raster.raster_tiles_plain(pairs, cfg), label)
+    return compare_raster(
+        torch, raster.raster_tiles_cuda(pairs, cfg, tile_row0),
+        raster.raster_tiles_plain(pairs, cfg, tile_row0), label)
 
 
-def k2_check(torch, pairs, cfg, label, init=None):
+def k2_check(torch, pairs, cfg, label, init=None, tile_row0=0):
     from basicrenderer_tpu_torch.ops import raster
-    return compare_raster(torch, raster.raster_groups_cuda(pairs, cfg, 0, init),
-                          raster.raster_groups_plain(pairs, cfg, 0, init),
-                          label)
+    return compare_raster(
+        torch, raster.raster_groups_cuda(pairs, cfg, tile_row0, init),
+        raster.raster_groups_plain(pairs, cfg, tile_row0, init), label)
+
+
+def tile_band(pairs, cfg, row0, rows):
+    """A shard's view of binned pairs: the config `rows` tile rows tall
+    and the slice of the tile offsets from tile row `row0`, as
+    parallel/tile_sharding.RowShards.localize cuts it."""
+    import dataclasses
+    t0 = row0 * cfg.tiles_x
+    return (pairs._replace(tile_offsets=pairs.tile_offsets[
+        t0:t0 + rows * cfg.tiles_x + 1]),
+        dataclasses.replace(cfg, height=rows * cfg.tile_h))
 
 
 def mode_check(torch, kernel_out, plain_out, label):
@@ -1381,6 +1409,18 @@ def main():
         raster_setup.bin_groups(lanes2, bbox2, valid2, cfg512), cfg512)
     res.append(("K2 seeded random512", k2_check(
         torch, gpairs, cfg512, "K2 seeded 512x512", init=seed_bufs)))
+    # The same scene on a shard's band of tile rows (from tile row 5, 8
+    # rows: its slice of the tile offsets at tile_row0 5), plain and seeded.
+    band = slice(5 * cfg512.tile_h, 13 * cfg512.tile_h)
+    bpairs, bcfg = tile_band(pairs, cfg512, 5, 8)
+    res.append(("K1 random512 tile row 5", k1_check(
+        torch, bpairs, bcfg, "K1 512x512 band", tile_row0=5)))
+    bgpairs, _ = tile_band(gpairs, cfg512, 5, 8)
+    res.append(("K2 random512 tile row 5", k2_check(
+        torch, bgpairs, bcfg, "K2 512x512 band", tile_row0=5)))
+    res.append(("K2 seeded random512 tile row 5", k2_check(
+        torch, bgpairs, bcfg, "K2 seeded 512x512 band", tile_row0=5,
+        init=tuple(x[..., band, :].contiguous() for x in seed_bufs))))
     gsc, gbridge = golden_scene(np)
     gcfg = FrameConfig(width=128, height=128, tile_h=16, tile_w=128,
                        max_pairs=1 << 12)
@@ -1710,7 +1750,9 @@ def main():
                                    "K6-tangent", "K4-city", "K5-taau",
                                    "K2-CSM", "K2-spot", "K2-cube",
                                    "K1-CSM", "K2-reyes", "K2-stream",
-                                   "K1-skin", "K2-usdc", "K3-usdc")]}),
+                                   "K1-skin", "K2-usdc", "K3-usdc",
+                                   "K1-shard", "K2-shard", "K3-shard",
+                                   "K4-shard")]}),
           flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1719,7 +1761,8 @@ def main():
     return 0
 
 
-# The earlier phases whose scenes a phase of 6-17 reuses.
+# The earlier phases whose scenes a phase of 6-18 reuses (phase 18 reuses
+# phase 13's city when it ran, and builds it otherwise).
 PHASE_NEEDS = {12: {6}, 14: {6, 13}, 15: {13}, 16: {13}}
 
 
@@ -1731,12 +1774,12 @@ def only_phases(argv):
     only = {int(p) for p in argv[argv.index("--only") + 1].split(",")}
     for p in list(only):
         only |= PHASE_NEEDS.get(p, set())
-    check(only <= set(range(6, 18)), f"--only takes phases 6-17, not {only}")
+    check(only <= set(range(6, 19)), f"--only takes phases 6-18, not {only}")
     return only
 
 
 def later_phases(np, torch, dev, kernels, smi, only=None):
-    """Phases 6-17 in order, or those in `only`: the records of every
+    """Phases 6-18 in order, or those in `only`: the records of every
     kernel they time."""
     def want(*phases):
         return only is None or any(p in only for p in phases)
@@ -1781,9 +1824,12 @@ def later_phases(np, torch, dev, kernels, smi, only=None):
     if want(16):
         records.update(slice13_streaming(np, torch, dev, kernels, smi,
                                          city_built))
-    del city_built
     if want(17):
         records.update(slice14_formats(np, torch, dev, kernels, smi))
+    if want(18):
+        records.update(slice15_sharding(np, torch, dev, kernels, smi,
+                                        city_built))
+    del city_built
     return records
 
 
@@ -2652,16 +2698,17 @@ def oit_courtyard(np, torch, dev, yard):
     return bridge_oit, buf, time.perf_counter() - t0
 
 
-def k1_walked(torch, pairs, cfg):
+def k1_walked(torch, pairs, cfg, row0=0):
     """(row, tile) pairs K1 walks: each tile's binned rows, plus each big
-    row on every tile its bbox (lanes 11-14) covers."""
+    row on every tile its bbox (lanes 11-14) covers; the tile rows are
+    row0 .. row0 + cfg.tiles_y - 1 (a shard's, from tile row `row0`)."""
     offs = pairs.tile_offsets.long()
     own = int((offs[1:] - offs[:-1]).sum())
     big = pairs.pair_data[:int(pairs.big_count)]
     nx = (torch.clamp(big[:, 12], max=cfg.tiles_x - 1)
           - torch.clamp(big[:, 11], min=0) + 1).clamp(min=0)
-    ny = (torch.clamp(big[:, 14], max=cfg.tiles_y - 1)
-          - torch.clamp(big[:, 13], min=0) + 1).clamp(min=0)
+    ny = (torch.clamp(big[:, 14], max=row0 + cfg.tiles_y - 1)
+          - torch.clamp(big[:, 13], min=row0) + 1).clamp(min=0)
     return own + int((nx * ny).sum())
 
 
@@ -3015,13 +3062,13 @@ def time_launches(torch, calls, cuda_fn, plain_fn, bound_fn, label):
     return ms_sum, plain_sum, b_sum, by, err, parts, dev_sum
 
 
-def k1_bound(torch, a, _out=None):
+def k1_bound(torch, a, _out=None, row0=0):
     """(bound ms, by, rows walked) of one K1 launch with args `a` (pairs,
-    config, tile_row0, init, ...): each walked row tested on its tile's
-    pixels and read once, depth, vis and 8 channels written (and read
-    once more when seeded)."""
+    config, tile_row0, init, ...) at tile row `row0`: each walked row
+    tested on its tile's pixels and read once, depth, vis and 8 channels
+    written (and read once more when seeded)."""
     pairs, cfg, init = a[0], a[1], a[3]
-    walked = k1_walked(torch, pairs, cfg)
+    walked = k1_walked(torch, pairs, cfg, row0)
     b_ms, b_by = bound(walked * cfg.tile_h * cfg.tile_w
                        * RASTER_FLOPS_PER_ROW_PIXEL,
                        walked * 128 + cfg.padded_height * cfg.padded_width
@@ -5454,13 +5501,7 @@ def slice14_formats(np, torch, dev, kernels, smi):
     k3_ms = cuda_ms(torch, lambda: lighting.tiled_shade_cuda(*a3), 10)
     k3_dev = device_ms(torch, lambda: lighting.tiled_shade_cuda(*a3), 10)
     _, k3_plain = host_ms(torch, lambda: lighting.tiled_shade_plain(*a3))
-    shade_in, payload, counts = a3[0], a3[1], a3[2]
-    hw = shade_in.shape[1] * shade_in.shape[2]
-    b3_ms, b3_by = bound(int(counts.long().sum()) * cfg.tile_h * cfg.tile_w
-                         * SHADE_FLOPS_PER_PIXEL_LIGHT
-                         + hw * SHADE_FLOPS_PER_PIXEL,
-                         shade_in.numel() * 4 + payload.numel() * 4
-                         + counts.numel() * 4 + hw * 12)
+    b3_ms, b3_by = k3_bound(a3)
     recs = {"K2-usdc": {
         "name": "raster_groups (K2 on city-1080p-usdc: the city exported to "
                 f"USDC and imported again, {len(inst)} meshes; phase 1, "
@@ -5502,6 +5543,396 @@ def slice14_formats(np, torch, dev, kernels, smi):
     del buf, bridge, built, fr, temporal
     gc.collect()
     torch.cuda.empty_cache()
+    return recs
+
+
+# ---------------------------------------------------------------------------
+# Phase 18: tile sharding (basicrenderer_tpu_torch/parallel/tile_sharding.py)
+# ---------------------------------------------------------------------------
+
+SHARD_RES = dict(width=1920, height=1088)   # 34 tile rows of 32
+SHARD_FRAMES = 2    # the second takes depth_padded, taa_out, vsm_state back
+# (label, ranks, (label, FrameConfig fields over config1_minimal at
+# SHARD_RES)...). Each mode's backend is tile_sharding.default_backend:
+# on one card NCCL for world size 1, gloo for 2 and 4 ranks sharing the
+# card (NCCL refuses two ranks on one card); NCCL with a card a rank.
+# A sharded frame equals the unsharded one where each rank's rows, at
+# texture_downscale 2, are whole 16-row sampler blocks (a multiple of 32
+# rows): 2 ranks of 17 32-row tiles at 1088, 4 ranks of 18 16-row tiles
+# at 1152 (17 of 16 rows at 1088 regroup the alpha-MASK pass's blocks at
+# the seams, in the JAX package too).
+SHARD_MODES = (
+    ("a", 1, (("full, tile_h 32", dict(FULL, tile_h=32)),)),
+    ("b", 2, (("full, tile_h 32", dict(FULL, tile_h=32)),)),
+    ("c", 4, (("config1_minimal at 1920x1152, tile_h 16",
+               dict(tile_h=16, height=1152)),
+              ("config1_minimal at 1920x1152, tile_h 16, "
+               "group_binning=False",
+               dict(tile_h=16, height=1152, group_binning=False)))),
+)
+SHARD_TIMED_RANK = 1   # whose last frame's launches at an offset are timed
+
+
+def shard_inputs(np, torch, city_built):
+    """Phase 18's scene on the CPU: phase 13's city (built here when phase
+    13 did not run) with the bench's capacities and hero camera. Returns
+    (buffers, view_of(aspect) -> ViewData, params, label)."""
+    from basicrenderer_tpu_torch.graph.framedata import FrameParams, make_view
+    from basicrenderer_tpu_torch.models import city
+    from basicrenderer_tpu_torch.models.textures import TextureRegistry
+    from basicrenderer_tpu_torch.scene.bridge import (BridgeCapacities,
+                                                      SceneRenderBridge)
+    if city_built is None:
+        tex = TextureRegistry(256)
+        built = city.load_city(lod=True, textures=tex,
+                               num_point_lights=1000 - 12)
+        bridge = SceneRenderBridge(built.scene, built.meshes, built.materials,
+                                   BridgeCapacities(**CITY_CAPS),
+                                   textures=tex)
+    else:
+        built, bridge = city_built
+
+    def view_of(aspect):
+        return make_view(*built.scene.camera_matrices(aspect=aspect),
+                         device="cpu")
+    return (bridge.build_scene_buffers(device="cpu"), view_of,
+            FrameParams.default("cpu"),
+            f"assets/city.glb, {built.num_triangles} source triangles")
+
+
+def save_fields(np, path, x):
+    """A dataclass of tensors (and floats) as an .npz of its fields."""
+    import dataclasses
+    np.savez(path, **{f.name: np.asarray(getattr(x, f.name))
+                      for f in dataclasses.fields(x)})
+
+
+def match_limits(torch, a, b, label):
+    """tests/test_parallel.py's _assert_match between two frames' outputs
+    (tensors on one device): vis equal, depth within rtol 1e-5 / atol
+    1e-6, the image at most 1 apart on under 1% of its values. Returns
+    (share of image values that differ, largest difference)."""
+    nvis = int((a["vis"] != b["vis"]).sum())
+    depth_ok = bool(torch.allclose(a["depth"], b["depth"], rtol=1e-5,
+                                   atol=1e-6))
+    di = (a["image"].int() - b["image"].int()).abs()
+    share, largest = float((di > 0).float().mean()), int(di.max())
+    check(nvis == 0 and depth_ok and largest <= 1 and share < 0.01,
+          f"{label}: sharded vs unsharded: {nvis} vis differ, depth within "
+          f"limits {depth_ok}, image max diff {largest} on {share:.5f}")
+    return share, largest
+
+
+def shard_row0(call):
+    """The tile_row0 of a captured K1/K2 call (pairs, config, tile_row0,
+    init, peel, accum)."""
+    _n, a, kw, _out = call
+    return a[2] if len(a) > 2 else kw.get("tile_row0", 0)
+
+
+def shard_rank(rank, n, dev, npz_dir, configs, timed):
+    """One rank of phase 18, under parallel/tile_sharding.run_ranks: the
+    saved scene loaded through interop; for each FrameConfig of `configs`
+    SHARD_FRAMES sharded frames with the K1-K4 wrappers captured (their
+    launch counts zeroed before and read after), the outputs assembled,
+    every captured launch at a tile-row offset (K1/K2 with tile_row0 > 0,
+    every K3 and K4 launch of a rank past 0) held to its plain version;
+    with `timed`, SHARD_TIMED_RANK times its last frame's such launches
+    alone while the other ranks wait; then rank 0 renders the same frames
+    unsharded and holds the assembled ones to them: bit for bit at world
+    size 1, else match_limits. Returns a summary per config."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, REPO)
+    from basicrenderer_tpu_torch import interop
+    from basicrenderer_tpu_torch.graph.frame import build_frame_fn
+    from basicrenderer_tpu_torch.graph.framedata import FrameConfig
+    from basicrenderer_tpu_torch.ops import lighting, raster, textures
+    from basicrenderer_tpu_torch.ops import vsm as vsm_ops
+    from basicrenderer_tpu_torch.parallel import tile_sharding as ts
+
+    def load(name):
+        with np.load(os.path.join(npz_dir, name + ".npz")) as f:
+            return dict(f)
+    buf = interop.scene_buffers(load("scene"), dev)
+    params = interop.frame_params(load("params"), dev)
+    plain_of = {"K1": raster.raster_tiles_plain, "K2": raster.raster_groups_plain,
+                "K4": textures.tex_block_eval_plain}
+
+    def frames(fr, cfg, hook=None):
+        view = interop.view_data(load(f"view{cfg.height}"), dev)
+        prev = hist = out = None
+        st = vsm_ops.init_states(cfg, dev) if cfg.enable_vsm else None
+        ms = []
+        for _ in range(SHARD_FRAMES):
+            if hook is not None:
+                hook()
+            t0 = time.perf_counter()
+            out = fr(buf, view, params, prev, hist, vsm_state=st)
+            torch.cuda.synchronize(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            prev = out["depth_padded"] if cfg.enable_occlusion else None
+            hist = out["taa_out"] if cfg.enable_taa else None
+            st = out.get("vsm_state")
+        return out, ms
+
+    summaries = []
+    for _label, fields in configs:
+        cfg = FrameConfig(**{**CONFIG1_MINIMAL, **SHARD_RES, **fields})
+        frame = ts.build_sharded_frame_fn(cfg)
+        wrappers = {"K1": raster.raster_tiles_cuda,
+                    "K2": raster.raster_groups_cuda,
+                    "K3": lighting.tiled_shade_cuda,
+                    "K4": textures.tex_block_eval_cuda}
+        for w in wrappers.values():
+            w.launches = 0
+        marks = []
+        with Capture(raster, ["raster_tiles_cuda", "raster_groups_cuda"]) as rc, \
+                Capture(lighting, ["tiled_shade_cuda"]) as lc, \
+                Capture(textures, ["tex_block_eval_cuda"]) as tc:
+            def mark():
+                marks.append({"K1K2": len(rc.calls), "K3": len(lc.calls),
+                              "K4": len(tc.calls)})
+                dist.barrier()
+            out, ms = frames(frame, cfg, mark)
+        launches = {k: w.launches for k, w in wrappers.items()}
+        whole = ts.assemble(out)
+        del out
+        last = marks[-1]
+        calls = {
+            "K1": [(i >= last["K1K2"], c) for i, c in enumerate(rc.calls)
+                   if c[0] == "raster_tiles_cuda" and shard_row0(c) > 0],
+            "K2": [(i >= last["K1K2"], c) for i, c in enumerate(rc.calls)
+                   if c[0] == "raster_groups_cuda" and shard_row0(c) > 0],
+            "K3": [(i >= last["K3"], c) for i, c in enumerate(lc.calls)
+                   if rank > 0],
+            "K4": [(i >= last["K4"], c) for i, c in enumerate(tc.calls)
+                   if rank > 0]}
+        del rc, lc, tc
+        offset = {k: len(cs) for k, cs in calls.items()}
+        errs, plain_ms = {}, {}
+        for k, cs in calls.items():
+            errs[k], plain_ms[k] = 0.0, 0.0
+            for j, (in_last, (_n, a, kw, kout)) in enumerate(cs):
+                label = f"rank {rank} {k} launch {j} at an offset"
+                if k == "K3":
+                    err, _ulp = k3_check(torch, a, label)
+                    if in_last:
+                        plain_ms[k] += host_ms(torch, lambda: lighting
+                                               .tiled_shade_plain(*a))[1]
+                else:
+                    pout, p_ms = host_ms(torch, lambda: plain_of[k](*a, **kw))
+                    if in_last:
+                        plain_ms[k] += p_ms
+                    if k == "K4":
+                        check(torch.equal(kout, pout), f"{label} differs "
+                              f"from plain on {int((kout != pout).sum())} "
+                              "values")
+                        err = float((kout - pout).abs().max())
+                    else:
+                        err = compare_raster(torch, kout, pout, label)
+                errs[k] = max(errs[k], err)
+        dist.barrier()
+        rec = {}
+        if timed and rank == SHARD_TIMED_RANK:
+            rec = shard_times(torch, raster, lighting, textures,
+                              {k: [c for in_last, c in cs if in_last]
+                               for k, cs in calls.items()}, errs, plain_ms)
+        del calls
+        dist.barrier()
+        summary = {"ms": ms, "launches": launches,
+                   "collectives": frame.rows.collectives, "errs": errs,
+                   "rec": rec,
+                   "offset_launches": offset, "match": None}
+        if rank == 0:
+            img, vis = whole["image"], whole["vis"]
+            coverage = float((vis > 0).float().mean())
+            check(tuple(img.shape) == (cfg.height, cfg.width, 3)
+                  and bool(torch.isfinite(whole["hdr"]).all())
+                  and 0.1 < coverage < 1.0 and float(img.float().std()) > 5.0,
+                  f"sharded city frame: image {tuple(img.shape)}, coverage "
+                  f"{coverage}")
+            ref, ref_ms = frames(build_frame_fn(cfg), cfg)
+            if n == 1:
+                for k in ts._SHARDED_KEYS:
+                    check(torch.equal(whole[k], ref[k]), f"world size 1: "
+                          f"{k} differs from the unsharded frame on "
+                          f"{int((whole[k] != ref[k]).sum())} values")
+                summary["match"] = "bit-equal (" + ", ".join(
+                    ts._SHARDED_KEYS) + ")"
+            else:
+                share, largest = match_limits(torch, whole, ref,
+                                              f"{n} ranks")
+                summary["match"] = (f"vis equal, depth within limits, image "
+                                    f"max diff {largest} on {share:.6f} of "
+                                    "its values")
+            summary["coverage"] = coverage
+            summary["unsharded_ms"] = ref_ms
+            del ref
+        summaries.append(summary)
+        del whole
+    return summaries
+
+
+def shard_times(torch, raster, lighting, textures, calls, errs, plain_ms):
+    """Records of one rank's last-frame launches at an offset (`calls`:
+    kernel -> captured calls), each kernel's launches timed together
+    alone: by CUDA events (ms) and the profiler (device_ms), beside the
+    plain versions' ms, the bound (summed over the launches; `bound_by`
+    that of the largest) and the max abs error of every launch at an
+    offset (`errs`)."""
+    cuda_of = {"K1": raster.raster_tiles_cuda, "K2": raster.raster_groups_cuda,
+               "K3": lighting.tiled_shade_cuda,
+               "K4": textures.tex_block_eval_cuda}
+    recs = {}
+    for k, cs in calls.items():
+        if not cs:
+            continue
+        b_sum, b_big, by = 0.0, 0.0, "bytes"
+        for _n, a, kw, _out in cs:
+            if k == "K1":
+                b_ms, b_by, _w = k1_bound(torch, a, row0=shard_row0(
+                    (_n, a, kw, _out)))
+            elif k == "K2":
+                b_ms, b_by, _w = k2_bound(raster, a[0], a[1], a[2],
+                                          a[3] if len(a) > 3 else None)
+            elif k == "K3":
+                b_ms, b_by = k3_bound(a)
+            else:
+                b_ms, b_by = k4_bound(torch, a, bc3=False)
+            b_sum += b_ms
+            if b_ms > b_big:
+                b_big, by = b_ms, b_by
+
+        def run(cs=cs, fn=cuda_of[k]):
+            for _n, a, kw, _o in cs:
+                fn(*a, **kw)
+        recs[k] = {"calls": len(cs), "ms": cuda_ms(torch, run, 5),
+                   "device_ms": device_ms(torch, run, 5),
+                   "plain_ms": plain_ms[k], "bound_ms": b_sum,
+                   "bound_by": by, "max_abs_err": errs[k]}
+    return recs
+
+
+def k3_bound(a):
+    """(bound ms, by) of one K3 launch with args (shade_in, payload,
+    counts, cam_pos, config): each tile's lights on its pixels and the
+    per-pixel work; every input read once, the RGB written."""
+    shade_in, payload, counts, cfg = a[0], a[1], a[2], a[4]
+    hw = shade_in.shape[1] * shade_in.shape[2]
+    return bound(int(counts.long().sum()) * cfg.tile_h * cfg.tile_w
+                 * SHADE_FLOPS_PER_PIXEL_LIGHT + hw * SHADE_FLOPS_PER_PIXEL,
+                 shade_in.numel() * 4 + payload.numel() * 4
+                 + counts.numel() * 4 + hw * 12)
+
+
+SHARD_RECORDS = (   # kernels-line record, mode, config index, kernel, what
+    ("K1-shard", "c", 1, "K1", "raster_tiles (K1 at shard tile offsets: "
+     "config1_minimal with group_binning=False on the city at 1920x1152, "
+     "4 ranks of 18 tile rows; plain, seeded and mask launches)",
+     "basicrenderer_tpu_torch/csrc/raster.cu",
+     "basicrenderer_tpu/ops/raster_pallas.py:135"),
+    ("K2-shard", "b", 0, "K2", "raster_groups (K2 at shard tile offsets: "
+     "the city's full at 1920x1088, 2 ranks of 17 tile rows; phase 1, "
+     "phase 2 seeded, mask pass)",
+     "basicrenderer_tpu_torch/csrc/raster.cu",
+     "basicrenderer_tpu/ops/raster_pallas.py:252"),
+    ("K3-shard", "b", 0, "K3", "tiled_shade (K3 on a shard's padded grid: "
+     "the city's full at 1920x1088, 2 ranks, 1000 point lights)",
+     "basicrenderer_tpu_torch/csrc/tiled_shade.cu",
+     "basicrenderer_tpu/ops/lighting.py:133"),
+    ("K4-shard", "b", 0, "K4", "tex_block_eval (K4, RGBA8, on a shard's "
+     "rows with halo mip estimates: the city's full at 1920x1088, 2 "
+     "ranks; mask pass and texture channels)",
+     "basicrenderer_tpu_torch/csrc/tex_block.cu",
+     "basicrenderer_tpu/ops/textures.py:508"),
+)
+
+
+def slice15_sharding(np, torch, dev, kernels, smi, city_built):
+    """Phase 18: tile sharding. The city (phase 13's, or built here) at
+    SHARD_RES saved as .npz in a temporary directory, which each rank of
+    parallel/tile_sharding.run_ranks loads through interop; each mode of
+    SHARD_MODES runs its configs in its ranks (shard_rank). Returns the
+    kernels-line records K1-shard, K2-shard, K3-shard and K4-shard: their
+    launches are those at a tile-row offset on every mode's ranks."""
+    import gc
+    import tempfile
+    from basicrenderer_tpu_torch.parallel import tile_sharding as ts
+    t_phase = time.perf_counter()
+    buf, view_of, params, label = shard_inputs(np, torch, city_built)
+    results, lines = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        for name, x in (("scene", buf), ("params", params)):
+            save_fields(np, os.path.join(tmp, name + ".npz"), x)
+        for h in {f.get("height", SHARD_RES["height"])
+                  for _m, _n, configs in SHARD_MODES for _l, f in configs}:
+            save_fields(np, os.path.join(tmp, f"view{h}.npz"),
+                        view_of(SHARD_RES["width"] / h))
+        nbytes = sum(os.path.getsize(os.path.join(tmp, f))
+                     for f in os.listdir(tmp))
+        save_s = time.perf_counter() - t0
+        del buf, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        for mode, n, configs in SHARD_MODES:
+            t0 = time.perf_counter()
+            backend = ts.default_backend(n, dev.type)
+            res = ts.run_ranks(shard_rank, n, backend, dev.type, tmp,
+                               configs, n > 1)
+            results[mode] = res
+            for c, (cfg_label, _fields) in enumerate(configs):
+                per = [r[c] for r in res]
+                s0 = per[0]
+                lines.append(
+                    f"({mode}) {cfg_label}, {n} rank{'s' if n > 1 else ''} "
+                    f"over {backend}: ms/frame per rank "
+                    + " ".join(str([round(m, 3) for m in r["ms"]])
+                               for r in per)
+                    + f" (unsharded on rank 0: "
+                    f"{[round(m, 3) for m in s0['unsharded_ms']]}) | launches"
+                    f" K1/K2/K3/K4 per rank "
+                    + " ".join(str([r["launches"][k] for k in
+                                    ("K1", "K2", "K3", "K4")]) for r in per)
+                    + " | at an offset, held to plain (exact K1/K2/K4, K3 "
+                    "within tolerance): "
+                    + " ".join(str([r["offset_launches"][k] for k in
+                                    ("K1", "K2", "K3", "K4")]) for r in per)
+                    + f" | collectives a rank {s0['collectives']}"
+                    + (" (gloo takes the CUDA tensors: no host staging)"
+                       if backend == "gloo" else "")
+                    + f" | {s0['match']} | coverage {s0['coverage']:.4f}")
+            lines[-1] += f" | spawn to end {time.perf_counter() - t0:.1f} s"
+    recs = {}
+    for name, mode, c, k, what, source, replaces in SHARD_RECORDS:
+        launches = sum(r[ci]["offset_launches"][k]
+                       for m in ("b", "c") for r in results[m]
+                       for ci in range(len(r)))
+        check(launches > 0, f"{name}: no launch at a tile-row offset")
+        rec = results[mode][SHARD_TIMED_RANK][c]["rec"][k]
+        err = max(r[ci]["errs"][k] for m in ("b", "c") for r in results[m]
+                  for ci in range(len(r)))
+        recs[name] = {"name": what, "route": "cuda", "source": source,
+                      "replaces": replaces, "launches": launches,
+                      "max_abs_err": err, "ms": rec["ms"],
+                      "device_ms": rec["device_ms"],
+                      "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                      "bound_by": rec["bound_by"], "library_ms": None}
+    say(f"phase 18 tile sharding: {label}, buffers saved as .npz ({nbytes} bytes, "
+        f"{save_s:.1f} s), {SHARD_FRAMES} frames a run | "
+        + " || ".join(lines)
+        + " | rank " + str(SHARD_TIMED_RANK) + "'s last-frame launches at "
+        "an offset, timed alone: "
+        + "; ".join(f"{name} {r['ms']:.4f} ms for "
+                    f"{results[m][SHARD_TIMED_RANK][c]['rec'][k]['calls']}"
+                    f" launches (device {r['device_ms']:.4f}; bound "
+                    f"{r['bound_ms']:.4f} {r['bound_by']}; plain "
+                    f"{r['plain_ms']:.0f} ms; max abs err {r['max_abs_err']:.3g})"
+                    for (name, m, c, k, *_), r in
+                    zip(SHARD_RECORDS, recs.values()))
+        + f" | phase {time.perf_counter() - t_phase:.1f} s | {smi}")
     return recs
 
 

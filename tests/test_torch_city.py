@@ -102,8 +102,9 @@ def city_frames(cities):
     masked = []
     keep_fn = pframe._mask_alpha_keep
 
-    def spy(scene, view, config, dm, vm, chm, depth_ref_p):
-        keep = keep_fn(scene, view, config, dm, vm, chm, depth_ref_p)
+    def spy(*args, **kw):
+        keep = keep_fn(*args, **kw)
+        dm, vm, depth_ref_p = args[3], args[4], args[6]
         masked.append((int(((vm > 0) & (dm > depth_ref_p)).sum()),
                        int(keep.sum())))
         return keep

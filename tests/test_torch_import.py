@@ -53,7 +53,7 @@ def test_port_never_imports_jax():
                 "ops.rt_reflect", "ops.skinning", "models.crate_codec",
                 "models.usdc", "models.usd", "models.fbx", "models.nif",
                 "models.meshformats", "utils.http_resolver",
-                "tools.format_fixtures"):
+                "tools.format_fixtures", "parallel.tile_sharding"):
         assert f"basicrenderer_tpu_torch.{mod}" in out["modules"], mod
     assert out["jax"] == []
     assert out["jax_package"] == []
