@@ -34,7 +34,7 @@ VSM page tables and stats equal.
 """
 
 import dataclasses
-from concurrent.futures import ThreadPoolExecutor
+import functools
 
 import numpy as np
 import jax
@@ -156,9 +156,9 @@ def environment():
 
 @pytest.fixture(scope="module")
 def sequences(environment):
-    """Per variant: the compared frames' (JAX outputs, port outputs, JAX
-    and port VSM tables and stats, output keys in one only) as numpy. The
-    variants run in two threads, so that their XLA compiles overlap."""
+    """sequences(variant): the compared frames' (JAX outputs, port
+    outputs, JAX and port VSM tables and stats, output keys in one only)
+    as numpy, computed when a test first reads the variant."""
     def run(name):
         fmt = VARIANTS[name]["tex_format"]
         tr = VARIANTS[name].get("enable_transmission", False)
@@ -216,14 +216,17 @@ def sequences(environment):
                 sorted(set(jout) ^ set(pout)), list(jl), list(pl)))
         return outs
 
-    with layer_recorders(), ThreadPoolExecutor(len(VARIANTS)) as pool:
-        return dict(zip(VARIANTS, pool.map(run, VARIANTS)))
+    @functools.cache
+    def sequence(name):
+        with layer_recorders():
+            return run(name)
+    return sequence
 
 
 @pytest.mark.parametrize("variant", list(VARIANTS))
 def test_full_frames_match_jax(sequences, variant):
     for i, (jout, pout, *_rest, keys_diff, jl, pl) in enumerate(
-            sequences[variant]):
+            sequences(variant)):
         assert keys_diff == [], keys_diff
         if VARIANTS[variant].get("enable_alpha_mask"):
             # A masked texel whose sampled alpha sits at the cutoff can
@@ -250,7 +253,7 @@ def test_full_frames_match_jax(sequences, variant):
 def test_full_frames_vsm_state_matches_jax(sequences, variant):
     rendered = 0
     for i, (_j, _p, jt, pt, jstats, pstats, *_k) in enumerate(
-            sequences[variant]):
+            sequences(variant)):
         for f in TABLES:
             np.testing.assert_array_equal(pt[f], jt[f],
                                           err_msg=f"frame {i + 1}: {f}")

@@ -15,8 +15,7 @@ Each goes through two OIT configurations: bench.py's full_oit one
 and tests/test_oit.py's (four layers, here through K1 with
 group_binning=False, transmission off). The JAX frame runs its
 reference path (use_pallas_raster=False), jitted once per
-configuration; the configurations run in threads, so that their XLA
-compiles overlap.
+configuration.
 
 Parity on each frame: every peeled layer's vis equal (the port's layers
 as its raster returns them, the JAX frame's through a debug callback on
@@ -32,8 +31,7 @@ golden limit).
 import contextlib
 import importlib
 import os
-import threading
-from concurrent.futures import ThreadPoolExecutor
+import types
 
 import numpy as np
 import jax
@@ -115,17 +113,17 @@ def oit_scene(root, name):
     return sc, br.SceneRenderBridge(sc, meshes, mats, caps)
 
 
-_local = threading.local()
+_local = types.SimpleNamespace()
 
 
 @contextlib.contextmanager
 def layer_recorders():
     """While installed, the JAX OIT's layer raster and the port's append
-    each layer's vis to the calling thread's `_local.layers` = (JAX list,
-    port list): the JAX frame's through an ordered debug callback compiled
-    into the frames traced meanwhile (the list is the one of the thread
-    that traces; a layer its lax.cond skips records nothing), the port's
-    as its raster returns."""
+    each layer's vis to `_local.layers` = (JAX list, port list): the JAX
+    frame's through an ordered debug callback compiled into the frames
+    traced meanwhile (the list is the one installed when it traces; a
+    layer its lax.cond skips records nothing), the port's as its raster
+    returns."""
     j_orig, p_orig = joit.raster_tiles_ref, poit.raster_tiles
 
     def j_rec(pairs, cfg, *a, accum=False, **kw):
@@ -156,7 +154,7 @@ def _views(jsc, psc):
 @pytest.fixture(scope="module")
 def oit_frames():
     """{(config, scene): (JAX outputs, port outputs, JAX layer vis list,
-    port layer vis list)}, as numpy; one thread per configuration."""
+    port layer vis list)}, as numpy."""
     scenes = {s: (oit_scene(JAX_PKG, s), oit_scene(PORT_PKG, s))
               for s in SCENES}
 
@@ -182,9 +180,9 @@ def oit_frames():
         return out
 
     frames = {}
-    with layer_recorders(), ThreadPoolExecutor(len(CONFIGS)) as pool:
-        for res in pool.map(run, CONFIGS):
-            frames.update(res)
+    with layer_recorders():
+        for cname in CONFIGS:
+            frames.update(run(cname))
     return frames
 
 

@@ -21,7 +21,6 @@ CPU.
 
 import importlib
 import os
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import jax
@@ -381,8 +380,7 @@ def _rmse(a, b):
 
 @pytest.fixture(scope="module")
 def frames():
-    """{name: (JAX image, JAX vis, port image, port vis)}, one thread per
-    JAX configuration."""
+    """{name: (JAX image, JAX vis, port image, port vis)}."""
     def run(name):
         build, flags = FRAMES[name]
         (jsc, jb), (psc, pb) = build(JAX_PKG), build(PORT_PKG)
@@ -397,8 +395,7 @@ def frames():
         return name, (np.asarray(jo["image"]), np.asarray(jo["vis"]),
                       po["image"].numpy(), po["vis"].numpy())
 
-    with ThreadPoolExecutor(len(FRAMES)) as pool:
-        return dict(pool.map(run, FRAMES))
+    return dict(map(run, FRAMES))
 
 
 @pytest.mark.parametrize("name", list(FRAMES))

@@ -21,12 +21,11 @@ virtual CPU devices (tests/conftest.py).
   their single-device frames, and the port's matches the JAX package's.
 - The halo upsample and mip estimate are seam-exact across 2 ranks.
 
-One 2-rank spawn runs every 2-rank case and one 4-rank spawn the other,
-while six processes compute the JAX references."""
+One 2-rank spawn runs every 2-rank case and one 4-rank spawn the other;
+each test computes the JAX references it reads."""
 
 import dataclasses
 import multiprocessing
-from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 import jax
@@ -82,43 +81,19 @@ def jax_frames(name, shards=None):
             and k != "vsm_stats"}
 
 
-# The JAX references, in six processes (their tracing holds the GIL, so
-# threads would not overlap them): (case, shards) pairs, slowest first.
-JAX_GROUPS = ((("seams", None),),
-              (("full", None), ("streaming", None)),
-              (("seams_full_rate", None), ("masked", None), ("masked", 2)),
-              (("vsm", None), ("basic_64", None), ("seams_voxel", None)),
-              (("oit", None), ("taa", None)),
-              (("basic", 2), ("basic_120", 2)))
-
-
-def _jax_group(group):
-    jax.config.update("jax_platforms", "cpu")
-    return [jax_frames(name, shards) for name, shards in group]
-
-
 @pytest.fixture(scope="module")
 def runs():
-    """{"port": {case: rank 0's assembled outputs}, "jax": {case: the
-    JAX single-device frame}, "jax_sharded": {case: the JAX frame over 2
-    devices}}: the two spawns and the JAX references run at once."""
-    ctx = multiprocessing.get_context("spawn")
-    with ThreadPoolExecutor(2) as threads, \
-            ProcessPoolExecutor(len(JAX_GROUPS), mp_context=ctx) as procs:
-        two = threads.submit(ts.run_ranks, ranks.run_cases, 2, "gloo", "cpu",
-                             TWO_RANKS)
-        four = threads.submit(ts.run_ranks, ranks.run_cases, 4, "gloo",
-                              "cpu", FOUR_RANKS)
-        refs = {}
-        for group, outs in zip(JAX_GROUPS, procs.map(_jax_group, JAX_GROUPS)):
-            for (name, shards), out in zip(group, outs):
-                refs["jax" if shards is None else "jax_sharded",
-                     name] = out
-        return {"port": {**two.result()[0], **four.result()[0]},
-                "jax": {n: o for (kind, n), o in refs.items()
-                        if kind == "jax"},
-                "jax_sharded": {n: o for (kind, n), o in refs.items()
-                                if kind == "jax_sharded"}}
+    """{case: rank 0's assembled outputs} of the port's two spawns. If
+    the time limit interrupts a spawn, its ranks are stopped."""
+    try:
+        return {
+            **ts.run_ranks(ranks.run_cases, 2, "gloo", "cpu", TWO_RANKS)[0],
+            **ts.run_ranks(ranks.run_cases, 4, "gloo", "cpu", FOUR_RANKS)[0]}
+    except BaseException:
+        for p in multiprocessing.active_children():
+            p.kill()
+            p.join()
+        raise
 
 
 def test_world_size_one_equals_single_card(tmp_path):
@@ -143,7 +118,7 @@ def test_sharded_matches_jax_sharded(runs, name):
     """The slice as a whole: 2 ranks of the port against the JAX
     package's sharded frame over 2 devices. At 128x120 both render the
     128 rows of the tile grid."""
-    port, jout = runs["port"][name], runs["jax_sharded"][name]
+    port, jout = runs[name], jax_frames(name, 2)
     assert port["image"].shape == jout["image"].shape == (128, 128, 3)
     _assert_match(port, jout)
 
@@ -154,7 +129,7 @@ def test_sharded_matches_jax_single_device(runs, name):
     basic_64, 2 for the others) against the JAX single-device frame:
     vis equal, depth within 1e-5, the image at most 1 apart on under 1%
     of the pixels."""
-    port, jout = runs["port"][name], runs["jax"][name]
+    port, jout = runs[name], jax_frames(name)
     _assert_match(port, jout)
     assert port["image"].shape == jout["image"].shape
     if name == "streaming":
@@ -176,7 +151,7 @@ def test_sharded_equals_single_card_at_the_seams(runs, name):
     full-rate sampler's mip estimate) the port exchanges halo rows: 2
     ranks render the port's single-card frame bit for bit. (The JAX
     package's sharded frame differs at the seam rows there.)"""
-    port = runs["port"][name]
+    port = runs[name]
     for k, v in port["single"].items():
         np.testing.assert_array_equal(port["sharded"][k], v, err_msg=k)
 
@@ -197,7 +172,7 @@ def test_sharded_seams_match_jax_single_device(runs, name):
     (rounding spread over those passes), so there the image is held to
     at most 2 apart and an RMSE of 1.0 (0-255), the level of
     tests/test_torch_full_frame.py and tests/test_torch_openpbr.py."""
-    port, jout = runs["port"][name], runs["jax"][name]
+    port, jout = runs[name], jax_frames(name)
     assert port["image"].shape == jout["image"].shape
     if name == "seams_voxel":
         _assert_match(port, jout)
@@ -221,8 +196,8 @@ def test_misaligned_sampler_blocks_match_jax_sharded(runs):
     port's alpha-MASK parity level (vis equal on >= 99.9% of the pixels:
     a texel whose sampled alpha sits at the cutoff can flip,
     tests/test_torch_full_frame.py; image RMSE <= 1.0 where vis agrees)."""
-    port = runs["port"]["masked"]
-    jsh, jone = runs["jax_sharded"]["masked"], runs["jax"]["masked"]
+    port = runs["masked"]
+    jsh, jone = jax_frames("masked", 2), jax_frames("masked")
     assert port["image"].shape == jsh["image"].shape == (96, 128, 3)
     assert int((jsh["vis"] != jone["vis"]).sum()) > 50
     agree = port["vis"] == jsh["vis"]
@@ -234,14 +209,14 @@ def test_halo_upsample_is_seam_exact(runs):
     """frame.halo_upsample over 2 ranks, gathered, equals the whole
     image's bilinear resize bit for bit (the seam and the frame's edge
     rows included)."""
-    h = runs["port"]["halo"]
+    h = runs["halo"]
     np.testing.assert_array_equal(h["up"], h["up_whole"])
 
 
 def test_halo_mipf_is_seam_exact(runs):
     """frame.halo_mipf over 2 ranks, gathered, equals the whole frame's
     mip estimate bit for bit (the sampler's estimate on one card)."""
-    h = runs["port"]["halo"]
+    h = runs["halo"]
     np.testing.assert_array_equal(h["mipf"], h["mipf_whole"])
 
 

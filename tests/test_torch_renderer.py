@@ -21,7 +21,6 @@ Parity levels:
 import dataclasses
 import importlib
 import inspect
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import jax
@@ -269,8 +268,7 @@ def _view_flags(view):
 
 @pytest.fixture(scope="module")
 def jax_views():
-    """The JAX frame of tests/test_frame_e2e.py's scene in every view, the
-    compiles overlapped in threads."""
+    """The JAX frame of tests/test_frame_e2e.py's scene in every view."""
     from basicrenderer_tpu.graph.frame import build_frame_fn
     from basicrenderer_tpu.graph.framedata import FrameParams, make_view
     from tests.test_frame_e2e import CFG
@@ -283,8 +281,7 @@ def jax_views():
         fn = jax.jit(build_frame_fn(dataclasses.replace(CFG,
                                                         **_view_flags(view))))
         return {k: np.asarray(v) for k, v in fn(buf, vd, params).items()}
-    with ThreadPoolExecutor(4) as pool:
-        return dict(zip(VIEWS, pool.map(run, VIEWS)))
+    return {view: run(view) for view in VIEWS}
 
 
 @pytest.mark.parametrize("view", VIEWS)

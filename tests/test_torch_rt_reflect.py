@@ -24,7 +24,6 @@ Tolerances:
 
 import dataclasses
 import importlib
-from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
 
 import numpy as np
@@ -205,14 +204,11 @@ def _port_frame(rig, flags):
 
 @pytest.fixture(scope="module")
 def frames(rig):
-    with ThreadPoolExecutor(len(JAX_FRAMES)) as pool:
-        jfut = {n: pool.submit(_jax_frame, rig, f)
-                for n, f in JAX_FRAMES.items()}
-        pouts = {n: _port_frame(rig, f) for n, f in JAX_FRAMES.items()}
-        pouts["rt"] = _port_frame(rig, dict())
-        pouts["off"] = _port_frame(rig, dict(enable_rt_reflect=False))
-        return {n: (jfut[n].result() if n in jfut else None, pouts[n])
-                for n in pouts}
+    jouts = {n: _jax_frame(rig, f) for n, f in JAX_FRAMES.items()}
+    pouts = {n: _port_frame(rig, f) for n, f in JAX_FRAMES.items()}
+    pouts["rt"] = _port_frame(rig, dict())
+    pouts["off"] = _port_frame(rig, dict(enable_rt_reflect=False))
+    return {n: (jouts.get(n), pouts[n]) for n in pouts}
 
 
 def test_trace_reflections_matches_jax(rig, frames):

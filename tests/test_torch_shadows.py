@@ -25,7 +25,6 @@ Tolerances:
 """
 
 import importlib
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import jax
@@ -150,7 +149,7 @@ def _np(out):
 def frames():
     """{frame name: (JAX outputs, port outputs)} for FRAMES, and the port's
     unshadowed baselines under ("base", name); each JAX configuration
-    compiles once, in its own thread."""
+    compiles once."""
     scenes = {s: _inputs(s) for s in ("wall", "spot", "spot_sun", "point",
                                       "spot_unshadowed")}
 
@@ -164,8 +163,7 @@ def frames():
         return name, (jo, {k: v.numpy() for k, v in po.items()
                            if isinstance(v, torch.Tensor)})
 
-    with ThreadPoolExecutor(len(FRAMES)) as pool:
-        out = dict(pool.map(run, FRAMES))
+    out = dict(map(run, FRAMES))
     for name, (scene, flags) in UNSHADOWED.items():
         _, _, pb, pvd = scenes[scene]
         po = build_frame_fn(FrameConfig(**flags))(pb, pvd,

@@ -19,7 +19,6 @@ Tolerances:
 """
 
 import importlib
-from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
 
 import numpy as np
@@ -180,10 +179,8 @@ def _frames(rigs, root, path):
 
 @pytest.fixture(scope="module")
 def frames(rigs):
-    with ThreadPoolExecutor(len(PATHS)) as pool:
-        jfut = {p: pool.submit(_frames, rigs, JAX_PKG, p) for p in PATHS}
-        pouts = {p: _frames(rigs, PORT_PKG, p) for p in PATHS}
-        return {p: (jfut[p].result(), pouts[p]) for p in PATHS}
+    return {p: (_frames(rigs, JAX_PKG, p), _frames(rigs, PORT_PKG, p))
+            for p in PATHS}
 
 
 def _rmse(a, b):

@@ -23,7 +23,6 @@ Tolerances:
 import dataclasses
 import importlib
 import time
-from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
 
 import numpy as np
@@ -359,8 +358,7 @@ def test_missing_group_frame_matches_jax(rig):
             jbuf, rig.jv, jfd.FrameParams.default())
         return {k: np.asarray(out[k]) for k in ("vis", "image")}
 
-    with ThreadPoolExecutor(len(kws)) as pool:
-        jouts = list(pool.map(jax_frame, kws))
+    jouts = [jax_frame(kw) for kw in kws]
     full = rig.pm.frame.build_frame_fn(pfd.FrameConfig(**CFG_KW))(
         rig.pbuf, rig.pv, pfd.FrameParams.default("cpu"))["vis"].numpy() > 0
     for kw, jout in zip(kws, jouts):

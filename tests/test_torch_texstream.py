@@ -11,13 +11,11 @@ Mirrors tests/test_texstream.py. Tolerances:
   pallas=False) (cluster LOD, CSM, clustered lights, IBL, textures with
   sampler feedback, SSR, OIT, geometry-streaming feedback, VSM, Reyes,
   GTAO, bloom, TAA, exposure) at 256x128: vis equal, image RMSE <= 1.0 on
-  the 0-255 scale, "touched_groups" and "tex_wanted" equal. Its JAX
-  compile (~35 s) runs on a thread while the other tests run.
+  the 0-255 scale, "touched_groups" and "tex_wanted" equal.
 """
 
 import dataclasses
 import time
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import jax
@@ -33,7 +31,6 @@ from basicrenderer_tpu_torch.models.textures import TextureRegistry
 from basicrenderer_tpu_torch.ops import textures as ptex
 
 TICKS = 8
-_POOL = ThreadPoolExecutor(1)
 
 
 def _flagship_jax():
@@ -43,15 +40,6 @@ def _flagship_jax():
     out = jax.jit(build_frame_fn(cfg))(buf, vd, params)
     return cfg, {k: np.asarray(out[k]) for k in
                  ("vis", "image", "touched_groups", "tex_wanted")}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def flagship_jax():
-    """The JAX flagship frame, compiled on a thread from the module's
-    first test on."""
-    fut = _POOL.submit(_flagship_jax)
-    yield fut
-    fut.result()
 
 
 def _atlas(registry_cls, res=128):
@@ -223,13 +211,13 @@ def test_bc3_texture_streaming_refused():
         _renderer(True, fmt="bc3")
 
 
-def test_flagship_frame_matches_jax(flagship_jax):
+def test_flagship_frame_matches_jax():
     from tests.test_torch_frame import flagship_scene
     from basicrenderer_tpu_torch.graph.frame import build_frame_fn
     from basicrenderer_tpu_torch.graph.framedata import (FrameConfig,
                                                          FrameParams,
                                                          make_view)
-    jcfg, jout = flagship_jax.result()
+    jcfg, jout = _flagship_jax()
     cfg = FrameConfig(**{f.name: getattr(jcfg, f.name)
                          for f in dataclasses.fields(jcfg)})
     sc, bridge = flagship_scene(full=True)

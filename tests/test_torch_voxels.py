@@ -19,7 +19,6 @@ Tolerances:
 
 import dataclasses
 import importlib
-from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
 
 import numpy as np
@@ -194,12 +193,9 @@ COMPARED = ("reflect_ibl_sggx", "fallback")
 @pytest.fixture(scope="module")
 def frames(scenes):
     """{name: (JAX outputs or None, port outputs)}: the JAX frames of
-    COMPARED compile on threads while the port renders every frame."""
-    with ThreadPoolExecutor(len(COMPARED)) as pool:
-        jfut = {n: pool.submit(_frame, scenes, JAX_PKG, n) for n in COMPARED}
-        pouts = {n: _frame(scenes, PORT_PKG, n) for n in FRAMES}
-        return {n: (jfut[n].result() if n in jfut else None, pouts[n])
-                for n in FRAMES}
+    COMPARED, the port's of every frame."""
+    return {n: (_frame(scenes, JAX_PKG, n) if n in COMPARED else None,
+                _frame(scenes, PORT_PKG, n)) for n in FRAMES}
 
 
 def _rmse(a, b):

@@ -21,7 +21,6 @@ Parity:
 """
 
 import dataclasses
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import jax
@@ -136,8 +135,7 @@ def _compare(jout, pout, label):
 @pytest.fixture(scope="module")
 def j_steps(rig):
     """Per tier, (JAX config, jitted JAX step), each compiled by a first
-    call on the initial state; the three run in threads so that their XLA
-    compiles overlap."""
+    call on the initial state."""
     jview, _pview, depth = _inputs(rig, 0)
 
     def compiled(flags):
@@ -146,8 +144,7 @@ def j_steps(rig):
         f(rig["jbuf"], jview, JParams.default(), jvsm.init_state(cfg),
           jnp.asarray(depth.numpy()))
         return cfg, f
-    with ThreadPoolExecutor(len(TIERS)) as pool:
-        return dict(zip(TIERS, pool.map(compiled, TIERS.values())))
+    return {name: compiled(flags) for name, flags in TIERS.items()}
 
 
 @pytest.fixture(scope="module")
